@@ -1,0 +1,162 @@
+"""Shared model machinery for the CSMPN task models.
+
+Port of ``csmpn_tpu/models/common.py`` (the parts the motion task uses):
+
+  * the permutation-summed Clifford embedding of simplices — the ragged
+    (d+1)! expansion is a static unrolled gather per dimension section;
+  * simplex-type conditioning by a learned embedding at grade 0, and the
+    derived edge attributes;
+  * the flattening of a batch of padded graphs to global ids, and masked
+    mean-centering.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..algebra.clifford import CliffordAlgebra
+from ..data.batching import PaddingSpec, SimplicialBatch
+from ..nn.modules import CEMLP, MVLinear, _normal_
+from ..ops.segment import (
+    batched_take,
+    masked_mean,
+    take_rows_presorted,
+    take_rows_sorted_idx,
+)
+
+
+def section_slices(spec: PaddingSpec) -> List[slice]:
+    off = spec.offsets
+    return [slice(int(off[d]), int(off[d + 1]))
+            for d in range(len(spec.counts_max))]
+
+
+def gather_vertex_features(feat: torch.Tensor, x_ind: torch.Tensor,
+                           d: int) -> torch.Tensor:
+    """feat (B, N, ...) node-level; x_ind (B, N_d, >= d+1) vertex ids.
+    Returns (B, N_d, d+1, ...)."""
+    return batched_take(feat, x_ind[:, :, : d + 1])
+
+
+def permutation_expand(x: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, S, d+1, ...) -> (B, S, P, d+1, ...) over all (d+1)! orders."""
+    perms = torch.as_tensor(
+        np.asarray(list(itertools.permutations(range(d + 1))),
+                   dtype=np.int64), device=x.device)
+    return x[:, :, perms]
+
+
+class SimplexEmbedding(nn.Module):
+    """Per-dimension Clifford feature embedding with permutation symmetry:
+    for each simplex dimension d, every vertex-order permutation of the
+    simplex's per-vertex features is embedded (grade given per feature),
+    pushed through a per-dim network (MVLinear for d = 0, CEMLP with d
+    blocks above) and summed over permutations."""
+
+    def __init__(self, algebra: CliffordAlgebra, spec: PaddingSpec,
+                 feature_spec: Sequence[Tuple[str, int]], num_input: int,
+                 num_hidden: int, max_dim: int = 2):
+        super().__init__()
+        self.algebra = algebra
+        self.spec = spec
+        self.feature_spec = tuple(feature_spec)
+        self.max_dim = max_dim
+        secs = section_slices(spec)
+        self.dims = [d for d in range(max_dim + 1)
+                     if secs[d].start != secs[d].stop]
+        for d in self.dims:
+            if d == 0:
+                net = MVLinear(algebra, num_input, num_hidden,
+                               subspaces=False)
+            else:
+                net = CEMLP(algebra, (d + 1) * num_input, num_hidden,
+                            num_hidden, n_layers=d)
+            setattr(self, f"embed_{d}", net)
+
+    def forward(self, batch: SimplicialBatch,
+                features: Dict[str, torch.Tensor]) -> torch.Tensor:
+        alg = self.algebra
+        secs = section_slices(self.spec)
+        outs = []
+        for d in self.dims:
+            x_ind_d = batch.x_ind[:, secs[d]]
+            chans = []
+            for name, grade in self.feature_spec:
+                f = features[name]
+                if f.dim() == 3:                     # (B, N, dim) -> (B, N, 1, dim)
+                    f = f[:, :, None, :]
+                g = gather_vertex_features(f, x_ind_d, d)  # (B,S,d+1,F,dim)
+                g = permutation_expand(g, d)               # (B,S,P,d+1,F,dim)
+                B, S, P = g.shape[:3]
+                g = g.reshape(B, S, P, (d + 1) * g.shape[4], g.shape[5])
+                chans.append(alg.embed_grade(g, grade))
+            feats = torch.cat(chans, dim=-2)
+            emb = getattr(self, f"embed_{d}")(feats).sum(dim=2)
+            outs.append(emb)
+        return torch.cat(outs, dim=1)                # (B, N, hidden, nb)
+
+
+class SimplexTypeConditioning(nn.Module):
+    """Node/edge conditioning on the simplex dimension by a learned
+    embedding table (the reference's ``mode="embed"``), at grade 0.
+    Returns (node_attr_flat, edge_attr_flat) for the flattened big
+    graph."""
+
+    def __init__(self, algebra: CliffordAlgebra, num_types: int):
+        super().__init__()
+        self.algebra = algebra
+        self.num_types = num_types
+        if num_types:
+            self.embedding = nn.Parameter(torch.empty(num_types, num_types))
+            self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        if self.num_types:
+            _normal_(self.embedding, 1.0, generator)
+
+    def forward(self, node_types_flat: torch.Tensor,
+                edge_index_flat: torch.Tensor, src_sort=None):
+        if self.num_types == 0:
+            return None, None
+        attr = self.embedding.index_select(0, node_types_flat.long())
+        node_attr = self.algebra.embed_grade(attr[..., None], 0)
+        src, dst = edge_index_flat[0], edge_index_flat[1]
+        gathered_src = (take_rows_presorted(node_attr, src, *src_sort)
+                        if src_sort is not None
+                        else node_attr.index_select(0, src.long()))
+        edge_attr = torch.cat(
+            [gathered_src, take_rows_sorted_idx(node_attr, dst)], dim=1)
+        return node_attr, edge_attr
+
+
+def flatten_graph(batch: SimplicialBatch):
+    """Flatten the (B, N) node space and (B, E) edges to global ids.
+    Per-sample offsets are static (b * N) and each sample's edges are
+    target-sorted, so the global target column stays ascending.  Returns
+    (edge_index (2, B*E), edge_mask (B*E,), src_sort (order, sorted src))."""
+    B, N = batch.node_types.shape
+    E = batch.edge_index.shape[1]
+    dev = batch.edge_index.device
+    ar = torch.arange(B, dtype=torch.int64, device=dev)
+    ei = batch.edge_index.long() + (ar * N)[:, None, None]
+    ei_flat = ei.reshape(B * E, 2).T.contiguous()
+    edge_mask = batch.edge_mask.reshape(B * E)
+    order = batch.edge_src_order.long() + (ar * E)[:, None]
+    src_sorted = torch.gather(batch.edge_index[..., 0].long(), 1,
+                              batch.edge_src_order.long()) + (ar * N)[:, None]
+    src_sort = (order.reshape(B * E), src_sorted.reshape(B * E))
+    return ei_flat, edge_mask, src_sort
+
+
+def center_vertex_positions(pos: torch.Tensor, vertex_mask: torch.Tensor):
+    """Subtract the per-graph mean vertex position.  pos (B, N, ..., D);
+    mask (B, N).  Returns (centered positions for vertices, mean)."""
+    mean = masked_mean(pos, vertex_mask, axis=1)
+    centered = pos - mean[:, None]
+    m = vertex_mask.reshape(tuple(vertex_mask.shape)
+                            + (1,) * (pos.dim() - 2))
+    return torch.where(m, centered, pos), mean

@@ -1,0 +1,1 @@
+"""Segment reductions and the hand-written CUDA kernels of the port."""
