@@ -4,8 +4,9 @@ Each ``.cu`` source is compiled with ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes``.  The build happens at first
 CUDA use, from the repository's sources only, into ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``).  A library's file name
-carries a hash of its source, so a stale build is never loaded.  All
-sources are compiled in parallel, one ``nvcc`` process each.
+carries a hash of its source, of the shared headers (``csrc/*.cuh``) and
+of the flags, so a stale build is never loaded.  All sources are compiled
+in parallel, one ``nvcc`` process each.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("segment_sum", "cemlp")
+SOURCES = ("segment_sum", "cemlp", "fused_egcl")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,10 +42,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()
-                              ).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    sha = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            sha.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{sha.hexdigest()[:12]}.so")
 
 
 def build_all() -> float:

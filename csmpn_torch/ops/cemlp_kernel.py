@@ -129,9 +129,9 @@ def _fn(name, nargs_ptr, nargs_int):
 
 
 @functools.lru_cache(maxsize=None)
-def _alg_tables(metric: tuple):
+def _alg_tables(metric: tuple, source: str = "cemlp"):
     """(bc, sign) host arrays for the kernels, after checking that the
-    algebra's structure is the one compiled into csrc/cemlp.cu."""
+    algebra's structure is the one compiled into csrc/{source}.cu."""
     from ..algebra.clifford import get_algebra
 
     alg = get_algebra(metric)
@@ -139,8 +139,8 @@ def _alg_tables(metric: tuple):
         raise NotImplementedError(
             f"the CEMLP kernels are compiled for 3-dim algebras "
             f"(8 blades), got metric {metric}")
-    lib = _build.load("cemlp")
-    fn = lib.csmpn_cemlp_tables
+    lib = _build.load(source)
+    fn = getattr(lib, f"csmpn_{source}_tables")
     fn.argtypes = [_P, _P, _P]
     fn.restype = None
     i_of = np.zeros(64, np.int32)
@@ -152,12 +152,29 @@ def _alg_tables(metric: tuple):
                             ("grade", grade, alg.blade_to_grade)):
         if not np.array_equal(got, np.asarray(want).reshape(-1)):
             raise RuntimeError(
-                f"csrc/cemlp.cu table {name} {got.tolist()} disagrees with "
+                f"csrc/{source}.cu table {name} {got.tolist()} disagrees with "
                 f"the algebra's {np.asarray(want).reshape(-1).tolist()}")
     bc = np.ascontiguousarray(alg._b_coeff, dtype=np.float32)
     sign = np.ascontiguousarray(alg.gp_pair_tables[1].reshape(-1),
                                 dtype=np.float32)
     return bc, sign
+
+
+def check_block_params(params, cin: int, c: int, device) -> None:
+    """Raises unless ``params`` are one block's 10 float32 tensors of the
+    flax shapes for cin -> c channels on ``device``, with c within what the
+    kernels take."""
+    shapes = [(c, cin, 4), (c, 1), (c, 4), (c, 4), (c, 20), (c, c, 4),
+              (c, 4), (c, c, 4), (c, 1), (c,)]
+    for p, s in zip(params, shapes):
+        if tuple(p.shape) != s or p.dtype != torch.float32 \
+                or p.device != device:
+            raise ValueError(f"block parameter of shape {tuple(p.shape)} "
+                             f"{p.dtype}, expected {s} float32 on {device}")
+    if c > MAX_CHANNELS:
+        raise NotImplementedError(
+            f"the CEMLP kernels take at most {MAX_CHANNELS} output "
+            f"channels, got {c}")
 
 
 def _check_block(x, params):
@@ -166,17 +183,7 @@ def _check_block(x, params):
                          f"{tuple(x.shape)} {x.dtype}")
     cin = x.shape[1]
     c = params[0].shape[0]
-    shapes = [(c, cin, 4), (c, 1), (c, 4), (c, 4), (c, 20), (c, c, 4),
-              (c, 4), (c, c, 4), (c, 1), (c,)]
-    for p, s in zip(params, shapes):
-        if tuple(p.shape) != s or p.dtype != torch.float32 \
-                or p.device != x.device:
-            raise ValueError(f"block parameter of shape {tuple(p.shape)} "
-                             f"{p.dtype}, expected {s} float32 on {x.device}")
-    if c > MAX_CHANNELS:
-        raise NotImplementedError(
-            f"the CEMLP kernels take at most {MAX_CHANNELS} output "
-            f"channels, got {c}")
+    check_block_params(params, cin, c, x.device)
     return cin, c
 
 
