@@ -26,8 +26,9 @@
 6. runs the bench path through its entry point (csmpn_torch.bench.main:
    3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
    Adam), shows that K1-K5 ran and counts their launches in one step,
-   profiles a few steps, and holds its fast-mode loss to its exact-mode
-   loss;
+   profiles a few steps, holds its fast-mode loss to its exact-mode loss,
+   and, in fast mode, its loss and every gradient on K4/K5 to the same
+   stack on the composed route;
 7. prints the kernels JSON line and, last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -84,9 +85,14 @@ TOL = {  # max |kernel - plain| allowed, relative to max |plain|: fp32
     "k3_exact": 1e-4, "k3_fast": 3e-2,
     "k4_exact": 1e-5, "k4_fast": 1e-2,
     "k5_exact": 1e-4, "k5_fast": 3e-2,
-    # the bench stack's fast-mode loss against its exact-mode loss: bf16
-    # activation storage through 3 residual layers
-    "bench_fast_loss": 5e-2,
+    # the bench stack (phase_bench), readings on the H100 in PERF.md.  Its
+    # fast-mode loss against its exact-mode loss: bf16 activation storage
+    # through 3 residual layers, read 5.2e-5.  In fast mode, its loss and
+    # gradients (worst tensor, relative to its max) on K4/K5 against the
+    # composed route, which rounds at the same points: read 1.3e-5 and
+    # 7.2e-3 (median 1.4e-3); the gradient limit is K5's own
+    "bench_fast_loss": 1e-3, "bench_fused_loss": 3e-4,
+    "bench_fused_grad": 3e-2,
 }
 
 
@@ -98,20 +104,15 @@ def card_line() -> str:
 
 
 def kernel_name(ptxas_line: str) -> str:
-    """'name<flags>' of a kernel from ptxas's 'Compiling entry function'
-    line: the mangled name holds the kernel's length-prefixed name, then
-    its template arguments, bool ones as Lb0E / Lb1E."""
-    mangled = ptxas_line.split("'")[1] if "'" in ptxas_line else ptxas_line
-    for m in re.finditer(r"\d+", mangled):
-        for k in range(len(m.group())):      # a hash may end in digits
-            n = int(m.group()[k:])
-            name = mangled[m.end():m.end() + n]
-            if len(name) == n and name.endswith("_kernel"):
-                rest = mangled[m.end() + n:]
-                flags = (re.findall(r"Lb([01])E", rest.split("Ev", 1)[0])
-                         if rest.startswith("I") else [])
-                return name + (f"<{','.join(flags)}>" if flags else "")
-    return mangled.strip()[-40:]
+    """'name<flags>' from ptxas's 'Compiling entry function' line: the
+    kernel's name (lower-case words ending in '_kernel', which no digit of
+    the mangled prefix can join) and its bool template arguments (Lb0E /
+    Lb1E)."""
+    m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(I\w*?Ev)?", ptxas_line)
+    if m is None:
+        return ptxas_line.strip()[-40:]
+    flags = re.findall(r"Lb([01])E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(flags)}>" if flags else "")
 
 
 def time_ms(fn, iters=50, warmup=3) -> float:
@@ -378,13 +379,18 @@ def phase_cemlp(dev, gen, results):
 # --------------------------------------------------------------- K4 / K5
 
 def fused_layouts():
-    """(name, dst, n_nodes, Cm, Ca, C, masked) of the K4/K5 checks."""
+    """(name, dst, n_nodes, Cm, Ca, C, masked) of the K4/K5 checks.  The
+    last two have more windows of 32 targets than the card has SMs, so a
+    CTA walks over several windows."""
     import numpy as np
     from csmpn_torch.bench import synthetic_edges
 
     rng = np.random.RandomState(11)
     clustered = np.concatenate([rng.randint(0, 20, size=128),
                                 rng.randint(400 - 20, 400, size=128)])
+    bench_rng = np.random.RandomState(0)     # the bench's 4 graphs' targets
+    bench_dst = np.concatenate([synthetic_edges(bench_rng, 2048, 32768)[1]
+                                + b * 2048 for b in range(4)])
     return [
         ("bench graph", synthetic_edges(np.random.RandomState(0), 2048,
                                         32768)[1], 2048, 32, 0, 32, False),
@@ -396,6 +402,10 @@ def fused_layouts():
          900, 28, 3, 28, True),
         ("ragged E=5003 N=1001", np.sort(rng.randint(0, 1001, size=5003)),
          1001, 32, 0, 32, True),
+        ("bench ids, 4 graphs, 256 windows", bench_dst, 8192, 32, 0, 32,
+         False),
+        ("ragged E=60011 N=9001, 282 windows", np.sort(
+            rng.randint(0, 9001, size=60011)), 9001, 28, 3, 28, True),
     ]
 
 
@@ -467,7 +477,9 @@ def phase_fused(dev, gen, results):
                 if not bool(zero):
                     raise AssertionError(f"K5 {tag}: masked rows of dhj or "
                                          f"dattr are not 0")
-        print(f"  {name}: both launches bitwise equal"
+        plan = fe.make_plan(dst, mask, n, cm, ca, c)
+        print(f"  {name} ({plan.n_win} windows on {plan.grid} CTAs): both "
+              f"launches bitwise equal"
               + ("; masked rows of dhj/dattr exactly 0" if masked else ""))
     results["k4"] = dict(
         name="fused_mp_fwd", route="cuda", source="csmpn_torch/csrc/fused_egcl.cu",
@@ -517,11 +529,43 @@ def phase_fused_time(dev, results):
         msg = layer.message(h_i, hhj)
         return layer.aggregate(msg, dst, n)
 
+    print(f"K4/K5 at the bench shape ({plan.n_win} windows on {plan.grid} "
+          f"CTAs) vs their plain versions and the composed route, fast")
     with _t.no_grad():
-        fused_out = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False)
+        fused_out = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False,
+                                  plan)
+        again = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False,
+                              plan)
+        plain_out = fe.message_aggregate_plain(params, alg, h_s, hj, None, dst,
+                                               None, False, False)
         comp_out = composed(h_s, hj)
-    check("K4 vs the composed route, bench shape, fast", fused_out, comp_out,
+    results["k4"]["max_abs_err_fast"] = max(
+        results["k4"]["max_abs_err_fast"],
+        check("K4 vs plain, bench shape", fused_out, plain_out,
+              TOL["k4_fast"]))
+    check("K4 vs the composed route, bench shape", fused_out, comp_out,
           TOL["k4_fast"])
+    if not _t.equal(fused_out, again):
+        raise AssertionError("K4 at the bench shape: two launches differ")
+    got = fe.mp_backward(params, alg, h_s, hj, None, dst, None, dagg, False,
+                         plan)
+    again = fe.mp_backward(params, alg, h_s, hj, None, dst, None, dagg, False,
+                           plan)
+    want = fe.message_aggregate_grad_plain(params, alg, h_s, hj, None, dst,
+                                           None, dagg, False)
+    names = ["dh", "dhj"] + [f"block{i} d{pn}" for i in (1, 2)
+                             for pn in BLOCK_NAMES]
+    for pn, g, w, g2 in zip(names, [got[0], got[1]] + got[3],
+                            [want[0], want[1]] + want[3],
+                            [again[0], again[1]] + again[3]):
+        results["k5"]["max_abs_err_fast"] = max(
+            results["k5"]["max_abs_err_fast"],
+            check(f"K5 vs plain, bench shape, {pn}", g, w, TOL["k5_fast"]))
+        if not _t.equal(g, g2):
+            raise AssertionError(f"K5 at the bench shape, {pn}: two launches "
+                                 f"differ")
+    print("  both launches bitwise equal")
+    del got, again, want
     k4 = time_ms(lambda: fe.mp_forward(params, alg, h_s, hj, None, dst, None,
                                        False, plan), iters=20)
     k4_plain = time_ms(lambda: fe.message_aggregate_plain(
@@ -721,8 +765,10 @@ BENCH_PER_STEP = {"k1": 2, "k2": 6, "k3": 6, "k4": 3, "k5": 3}
 
 def phase_bench(counters):
     """csmpn_torch.bench through its entry point at full width, then one
-    step's launches, a profile, and the fast-mode loss against exact."""
+    step's launches, a profile, the fast-mode loss against exact, and the
+    stack's loss and gradients on K4/K5 against the composed route."""
     from csmpn_torch import bench
+    from csmpn_torch.ops import fused_egcl as fe
     from csmpn_torch.ops.segment import set_aggregation_mode
 
     print("bench path via csmpn_torch.bench.main: 3 EGCL layers, hidden 32, "
@@ -761,12 +807,41 @@ def phase_bench(counters):
         return float(bench.train_step(model, opt, h, ei, src_sort))
 
     busy_ms, wall_ms = phase_profile(step)
-    with torch.no_grad():
-        lf = bench.loss_fn(model(h, ei, src_sort))
-        set_aggregation_mode("exact")
-        le = bench.loss_fn(model(h, ei, src_sort))
-    check("bench stack: fast-mode loss vs exact-mode loss (card)",
-          lf.cpu(), le.cpu(), TOL["bench_fast_loss"])
+
+    def loss_and_grads(mode, fused=True):
+        set_aggregation_mode(mode)
+        model.zero_grad(set_to_none=True)
+        supported = fe.fused_mp_supported
+        if not fused:     # the layer takes the composed route in fast mode
+            fe.fused_mp_supported = lambda *args: False
+        try:
+            loss = bench.loss_fn(model(h, ei, src_sort))
+            loss.backward()
+        finally:
+            fe.fused_mp_supported = supported
+        return loss.detach().cpu(), [p.grad.detach().clone()
+                                     for p in model.parameters()]
+
+    lf, gf = loss_and_grads("fast")                # K4/K5 on the edge side
+    lc, gc = loss_and_grads("fast", fused=False)   # the composed route
+    le, _ = loss_and_grads("exact")
+    check("bench stack: fast-mode loss vs exact-mode loss (card)", lf, le,
+          TOL["bench_fast_loss"])
+    check("bench stack, fast: loss on K4/K5 vs on the composed route", lf,
+          lc, TOL["bench_fused_loss"])
+    errs = sorted(((rel_err(a, b)[1], k) for a, b, (k, _) in
+                   zip(gf, gc, model.named_parameters())), reverse=True)
+    worst = errs[0][0]
+    ok = worst <= TOL["bench_fused_grad"] and all(
+        torch.isfinite(g).all().item() for g in gf)
+    print(f"  bench stack, fast: gradients on K4/K5 vs on the composed "
+          f"route, worst of {len(gf)} tensors rel {worst:.3e}  tol "
+          f"{TOL['bench_fused_grad']:.0e}  {'ok' if ok else 'FAIL'}; median "
+          f"{statistics.median(e for e, _ in errs):.3e}; worst "
+          f"{[(k, round(e, 5)) for e, k in errs[:3]]}")
+    if not ok:
+        raise AssertionError(f"bench stack gradients: K4/K5 vs composed "
+                             f"{worst:.3e}")
     return launches, per_step, res, busy_ms, wall_ms
 
 

@@ -56,8 +56,8 @@ from .cemlp_kernel import (
 FWD_LAUNCHES = _build.LaunchCounter("fused_mp_fwd")
 BWD_LAUNCHES = _build.LaunchCounter("fused_mp_bwd")
 
-WINDOWS = (32, 16, 8)   # target nodes per CTA window, largest that fits
-NLOC = 35               # per-channel gradient rows, as in cemlp_block.cuh
+WN = 32                 # target nodes per CTA window
+NLOC = 35              # per-channel gradient rows, as in cemlp_block.cuh
 MAX_SMEM = 232448       # 227 KB opt-in per block (kMaxSmem there)
 
 _P = ctypes.c_void_p
@@ -120,23 +120,20 @@ def _lib_fn(name: str, argtypes, restype=ctypes.c_int):
 
 
 @functools.lru_cache(maxsize=None)
-def _window(cm: int, ca: int, c: int) -> int:
-    """The largest window whose forward and backward fit in shared memory."""
+def _check_smem(cm: int, ca: int, c: int) -> None:
+    """Raise unless the forward and backward fit in shared memory at WN."""
     fn = _lib_fn("csmpn_fused_mp_smem_bytes", [_I, _I, _I, _I, _I],
                  ctypes.c_size_t)
-    for wn in WINDOWS:
-        sizes = [int(fn(cm, ca, c, wn, b)) for b in (0, 1)]
-        if 0 < max(sizes) <= MAX_SMEM:
-            return wn
-    raise NotImplementedError(
-        f"the fused message-passing kernels do not fit in shared memory at "
-        f"{cm} message + {ca} attribute -> {c} channels")
+    sizes = [int(fn(cm, ca, c, WN, b)) for b in (0, 1)]
+    if not 0 < max(sizes) <= MAX_SMEM:
+        raise NotImplementedError(
+            f"the fused message-passing kernels do not fit in shared memory "
+            f"at {cm} message + {ca} attribute -> {c} channels")
 
 
 @dataclass
 class _Plan:
     """Window layout of one call, shared by its forward and backward."""
-    wn: int
     n_win: int
     bounds: torch.Tensor          # (n_win + 1,) int64 window edge offsets
     dst: torch.Tensor             # (E,) int32
@@ -153,15 +150,15 @@ def window_bounds(dst: torch.Tensor, n_nodes: int, wn: int) -> torch.Tensor:
 
 def make_plan(dst, mask, n_nodes: int, cm: int, ca: int, c: int) -> _Plan:
     """The window layout of a call on the card (dst on the card)."""
-    wn = _window(cm, ca, c)
+    _check_smem(cm, ca, c)
     dst32 = dst.to(torch.int32).contiguous()
-    bounds = window_bounds(dst32, n_nodes, wn).to(torch.int64).contiguous()
+    bounds = window_bounds(dst32, n_nodes, WN).to(torch.int64).contiguous()
     n_win = bounds.shape[0] - 1
     m = (mask.to(torch.bool).contiguous().view(torch.uint8)
          if mask is not None else None)
     props = torch.cuda.get_device_properties(dst.device)
     grid = max(1, min(n_win, props.multi_processor_count))
-    return _Plan(wn, n_win, bounds, dst32, m, grid)
+    return _Plan(n_win, bounds, dst32, m, grid)
 
 
 def _check(params, h, hj, attr, dst, mask):
@@ -221,7 +218,7 @@ def mp_forward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst,
     err = fn(h_s.data_ptr(), hj_s.data_ptr(), _ptr(attr_s),
              plan.dst.data_ptr(), _ptr(plan.mask), plan.bounds.data_ptr(),
              _param_ptrs(params), bc.ctypes.data, sign.ctypes.data,
-             out.data_ptr(), n, cm, ca, c, plan.wn, plan.n_win,
+             out.data_ptr(), n, cm, ca, c, WN, plan.n_win,
              0 if exact else 1, plan.grid,
              torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, "fused message-passing forward kernel")
@@ -288,7 +285,7 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
                  _param_ptrs(params), bc.ctypes.data, sign.ctypes.data,
                  dh.data_ptr(), dhj.data_ptr(), _ptr(dattr), dx2.data_ptr(),
                  partials.data_ptr(), flat.data_ptr(), n, cm, ca, c,
-                 plan.wn, plan.n_win, 0 if exact else 1, plan.grid,
+                 WN, plan.n_win, 0 if exact else 1, plan.grid,
                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "fused message-passing backward kernel")
         BWD_LAUNCHES.add()
