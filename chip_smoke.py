@@ -23,13 +23,22 @@
    Trainer.fit) at the configs/motion.yaml widths for 8 training steps in
    the default fast precision, shows that K1, K2 and K3 ran, counts their
    launches in one training step and profiles a few steps' device time;
-6. runs the bench path through its entry point (csmpn_torch.bench.main:
+6. the hulls path (Cl(5,0), configs/hulls.yaml widths: hidden 28, 3 EGCL
+   layers, batch 16) on a dataset cut to 512/256/256 samples: K1 at
+   D = 896 on a real batch's ids; K2p and K3p (the pair-form block
+   kernels) against their plain versions at every block shape of a hulls
+   step, exact and fast, every gradient, two launches bitwise equal, and
+   their times; the full-width hulls model on the card against the CPU
+   (loss and every gradient, exact; fast loss against exact); then the
+   hulls task through its entry point for 8 fast steps, with K1, K2p and
+   K3p counted (15 K2p and 15 K3p launches per step) and a profile;
+7. runs the bench path through its entry point (csmpn_torch.bench.main:
    3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
    Adam), shows that K1-K5 ran and counts their launches in one step,
    profiles a few steps, holds its fast-mode loss to its exact-mode loss,
    and, in fast mode, its loss and every gradient on K4/K5 to the same
    stack on the composed route;
-7. prints the kernels JSON line and, last, the device JSON line.
+8. prints the kernels JSON line and, last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one card and imports nothing of JAX.
@@ -93,7 +102,22 @@ TOL = {  # max |kernel - plain| allowed, relative to max |plain|: fp32
     # 7.2e-3 (median 1.4e-3); the gradient limit is K5's own
     "bench_fast_loss": 1e-3, "bench_fused_loss": 3e-4,
     "bench_fused_grad": 3e-2,
+    # K2p/K3p (the pair form at Cl(5)) against their plain versions over
+    # the hulls launch shapes, readings on the H100 in PERF.md: exact
+    # 3.9e-7 (forward) and 2.8e-6 (backward, fp32 summation order); fast
+    # 1.5e-3 and 7.1e-3 (bf16 rounding points that a different fp32 order
+    # upstream can flip; the plain backward rounds cotangents where
+    # autograd meets the casts, the kernel before use)
+    "k2p_exact": 2e-6, "k2p_fast": 5e-3, "k3p_exact": 2e-5, "k3p_fast": 2e-2,
+    # the hulls model on the card against the CPU, exact (fp32 summation
+    # order through 3 layers), and its fast-mode loss against the exact
+    # CPU loss (bf16 operands and activation storage)
+    "hulls_loss": 1e-4, "hulls_grad": 1e-3, "hulls_fast_loss": 5e-2,
 }
+# the hulls task (configs/hulls.yaml, HullsModel defaults): Cl(5,0),
+# hidden 28, 3 EGCL layers, batch 16; the dataset cut from 16,384 samples
+# per split to these (the padding spec comes from the data)
+H_B, H_HID, H_TRAIN, H_VAL = 16, 28, 512, 256
 
 
 def card_line() -> str:
@@ -253,24 +277,31 @@ def phase_k1(dev, gen, results, real):
 
 # --------------------------------------------------------------- K2 / K3
 
-def block_inputs(rows, cin, c, gen, dev):
-    x = torch.randn(rows, cin, 8, generator=gen)
+def block_inputs(rows, cin, c, gen, dev, nb=8):
+    """Random input, parameters and output cotangent of one block at
+    nb = 8 (Cl(3): 4 grades, 20 paths) or nb = 32 (Cl(5): 6, 56)."""
+    ng, npath = {8: (4, 20), 32: (6, 56)}[nb]
+    x = torch.randn(rows, cin, nb, generator=gen)
 
     def r(*shape, scale=1.0, base=0.0):
         return base + scale * torch.randn(*shape, generator=gen)
 
-    params = [r(c, cin, 4, scale=cin ** -0.5), r(c, 1, scale=0.1),
-              r(c, 4, scale=0.2, base=1.0), r(c, 4, scale=0.2),
-              r(c, 20, scale=0.5), r(c, c, 4, scale=c ** -0.5),
-              r(c, 4, scale=0.5), r(c, c, 4, scale=c ** -0.5),
-              r(c, 1, scale=0.1), r(c, scale=0.1, base=1.0)]
-    dout = torch.randn(rows, c, 8, generator=gen)
+    params = [r(c, cin, ng, scale=cin ** -0.5), r(c, 1, scale=0.1),
+              r(c, ng, scale=0.2, base=1.0), r(c, ng, scale=0.2),
+              r(c, npath, scale=0.5 if nb == 8 else 0.4),
+              r(c, c, ng, scale=c ** -0.5), r(c, ng, scale=0.5),
+              r(c, c, ng, scale=c ** -0.5), r(c, 1, scale=0.1),
+              r(c, scale=0.1, base=1.0)]
+    dout = torch.randn(rows, c, nb, generator=gen)
     return x.to(dev), [p.to(dev) for p in params], dout.to(dev)
 
 
-def block_flops(rows, cin, c):
-    per_row = (2 * 8 * c * cin + 2 * 2 * 8 * c * c + 3 * 64 * c
-               + 40 * 8 * c)
+def block_flops(rows, cin, c, nb=8):
+    """Operations of one block forward: the three channel-mixing linears,
+    the Cayley-pair product (two multiplies and an add per (n, j, k)) and
+    ~40 elementwise operations per value."""
+    per_row = (2 * nb * c * cin + 2 * 2 * nb * c * c + 3 * nb * nb * c
+               + 40 * nb * c)
     return rows * per_row
 
 
@@ -279,15 +310,15 @@ BLOCK_NAMES = ["linear.weight", "linear.bias", "silu.a", "silu.b",
                "linear_left.weight", "linear_left.bias", "norm.a"]
 
 
-def block_bound(rows, cin, c, params, backward):
+def block_bound(rows, cin, c, params, backward, nb=8):
     """(bound ms, by) of one block launch, fast mode: K2 reads x and writes
     the output; K3 also reads d(out) and writes dx and the gradients."""
     pbytes = sum(p.numel() for p in params) * 4
-    f2 = block_flops(rows, cin, c)
+    f2 = block_flops(rows, cin, c, nb)
     if backward:
-        return bound(rows * (2 * cin + c) * 32 + 2 * pbytes, 3 * f2,
+        return bound(rows * (2 * cin + c) * nb * 4 + 2 * pbytes, 3 * f2,
                      BF16_PEAK)
-    return bound(rows * (cin + c) * 32 + pbytes, f2, BF16_PEAK)
+    return bound(rows * (cin + c) * nb * 4 + pbytes, f2, BF16_PEAK)
 
 
 def phase_cemlp(dev, gen, results):
@@ -659,7 +690,6 @@ def phase_model(dev, dataroot):
 
 def phase_task(dataroot, counters, device="cuda"):
     from csmpn_torch.data.motion import MotionDataset
-    from csmpn_torch.engineer.fire import fire
     from csmpn_torch.tasks.motion import main
 
     argv = ["csmpn_torch/tasks/motion.py",
@@ -673,10 +703,25 @@ def phase_task(dataroot, counters, device="cuda"):
             "--trainer.max_steps=8", "--trainer.val_check_interval=4",
             "--trainer.limit_val_batches=1", "--trainer.print_interval=1",
             "--trainer.log_interval=4", f"--device={device}"]
-    os.environ["DATAROOT"] = dataroot
-    os.environ["RUNDIR"] = os.path.join(dataroot, "runs")
     print("motion task via fire -> run_task -> Trainer.fit: hidden 28, "
           "4 layers, batch 100, 8 steps, fast precision")
+    os.environ["DATAROOT"] = dataroot
+    with contextlib.redirect_stdout(io.StringIO()):
+        ds = MotionDataset(batch_size=100, num_training_samples=200)
+    return run_entry(main, argv, dataroot, counters, ds)
+
+
+def run_entry(main, argv, dataroot, counters, ds, steps=8):
+    """Runs a task's entry point (fire -> run_task -> Trainer.fit) with
+    every launch count set to 0 just before and read just after, checks
+    its ``steps`` training losses, then counts the launches of one more
+    training step on a batch of ``ds`` and profiles a few steps.  Returns
+    (launches in the run, launches per step, median step ms, busy ms,
+    profiled wall ms)."""
+    from csmpn_torch.engineer.fire import fire
+
+    os.environ["DATAROOT"] = dataroot
+    os.environ["RUNDIR"] = os.path.join(dataroot, "runs")
     for c in counters.values():
         c.reset()
     buf = io.StringIO()
@@ -690,8 +735,9 @@ def phase_task(dataroot, counters, device="cuda"):
             print("  " + line)
     losses = [float(l.rsplit(":", 1)[1]) for l in text.splitlines()
               if "(Training) Loss:" in l]
-    if len(losses) != 8 or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"training losses not 8 finite values: {losses}")
+    if len(losses) != steps or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"training losses not {steps} finite values: "
+                             f"{losses}")
     if "Stopping due to max_steps." not in text:
         raise AssertionError("no 'Stopping due to max_steps.'")
     print(f"  launches during the run: {launches}")
@@ -705,18 +751,7 @@ def phase_task(dataroot, counters, device="cuda"):
 
     # launches of one training step, on the trained model
     model, opt = trainer.model, trainer.optimizer
-    with contextlib.redirect_stdout(io.StringIO()):
-        ds = MotionDataset(batch_size=100, num_training_samples=200)
     batch = next(iter(ds.train_loader(seed=0))).to(trainer.device)
-    for c in counters.values():
-        c.reset()
-    loss, _ = model(batch)
-    opt.zero_grad()
-    loss.backward()
-    opt.step()
-    torch.cuda.synchronize()
-    per_step = {k: c.count for k, c in counters.items()}
-    print(f"  launches per training step: {per_step}")
 
     def step():
         loss, _ = model(batch)
@@ -725,8 +760,14 @@ def phase_task(dataroot, counters, device="cuda"):
         opt.step()
         return float(loss.detach())
 
-    phase_profile(step)
-    return launches, per_step, step_ms
+    for c in counters.values():
+        c.reset()
+    step()
+    torch.cuda.synchronize()
+    per_step = {k: c.count for k, c in counters.items()}
+    print(f"  launches per training step: {per_step}")
+    busy_ms, wall_ms = phase_profile(step)
+    return launches, per_step, step_ms, busy_ms, wall_ms
 
 
 def phase_profile(step, steps=3):
@@ -756,6 +797,235 @@ def phase_profile(step, steps=3):
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}x  {e.key[:70]}")
     return busy_ms, wall_ms
+
+
+# ---------------------------------------------------------- the hulls path
+
+HULLS_PER_STEP = {"k2p": 15, "k3p": 15}
+
+
+def hulls_dataset(dataroot):
+    from csmpn_torch.data.hulls import ConvexHullDataset
+
+    os.environ["DATAROOT"] = dataroot
+    return ConvexHullDataset(num_samples=H_TRAIN, batch_size=H_B,
+                             num_val_samples=H_VAL)
+
+
+def hulls_shapes(spec):
+    """(name, rows, Cin, C, launches per step) of every CEMLP block of a
+    hulls training step at batch H_B, from the data's padding spec: the
+    edge and node models of 3 EGCL layers (edge attributes 2 x 3 simplex
+    types, node attributes 3) and the embeddings of edges (2 vertex
+    orders) and triangles (6)."""
+    counts, h = spec.counts_max, H_HID
+    n, e = sum(counts), spec.e_max
+    return [
+        ("edge_block0", H_B * e, h + 6, h, 3),
+        ("edge_block1", H_B * e, h, h, 3),
+        ("node_block0", H_B * n, 2 * h + 3, h, 3),
+        ("node_block1", H_B * n, h, h, 3),
+        ("embed_1", H_B * counts[1] * 2, 2, h, 1),
+        ("embed_2_block0", H_B * counts[2] * 6, 3, h, 1),
+        ("embed_2_block1", H_B * counts[2] * 6, h, h, 1),
+    ]
+
+
+def phase_k1_hulls(dev, gen, ds, results):
+    """K1 at the hulls width (D = 28 x 32 = 896) on a real batch's ids."""
+    from csmpn_torch.models.common import flatten_graph
+    from csmpn_torch.ops import segment_kernel as sk
+
+    batch = next(iter(ds.train_loader(seed=0))).to(dev)
+    ei, emask, (_, src_sorted) = flatten_graph(batch)
+    dst, src_sorted = ei[1].contiguous(), src_sorted.contiguous()
+    n, e, d = batch.node_types.numel(), dst.numel(), H_HID * 32
+    print(f"K1 vs plain at the hulls shape (E={e} N={n} D={d}, a real "
+          f"batch's ids)")
+    errs = []
+    for ids, m, mean, tag in ((dst, emask, True, "targets, masked mean"),
+                              (src_sorted, None, False, "sources, sum")):
+        for dtype, exact in ((torch.bfloat16, False), (torch.float32, True)):
+            data = torch.randn(e, d, generator=gen).to(dtype).to(dev)
+            out, cnt = sk.sorted_segment_sum(data, ids, n, exact, m, mean)
+            ref, rcnt = sk.segment_sum_plain(data, ids, n, exact, m, mean)
+            name = (f"hulls {tag} {str(dtype)[6:]} "
+                    f"{'exact' if exact else 'fast'}")
+            errs.append(check(name, out, ref, TOL["k1"]))
+            check(name + " counts", cnt, rcnt, 0.0)
+    data = torch.randn(e, d, generator=gen).to(torch.bfloat16).to(dev)
+    ms = time_ms(lambda: sk.sorted_segment_sum(data, dst, n, False))
+    plain = time_ms(lambda: sk.segment_sum_plain(data, dst, n, False))
+    offsets = sk.csr_offsets(dst, n)
+    lengths = offsets[1:] - offsets[:-1]
+    n_read = int(offsets[-1])
+    kept = data[:n_read]
+    lib = time_ms(lambda: torch.segment_reduce(kept, "sum", lengths=lengths,
+                                               axis=0, unsafe=True))
+    b_ms, b_by = bound(n_read * d * 2 + n * d * 4 + e * 8, n_read * d,
+                       FP32_PEAK)
+    print(f"  time (hulls target ids) E={e} N={n} D={d} bf16: kernel "
+          f"{ms*1e3:.1f} us  plain {plain*1e3:.1f} us  segment_reduce "
+          f"{lib*1e3:.1f} us  bound {b_ms*1e3:.1f} us ({b_by})")
+    results["k1"]["max_abs_err"] = max(results["k1"]["max_abs_err"], *errs)
+    results["k1"].update(hulls_ms=ms, hulls_plain_ms=plain,
+                         hulls_library_ms=lib, hulls_bound_ms=b_ms,
+                         hulls_shape=f"E={e} N={n} D={d} bf16")
+
+
+def phase_pair(dev, gen, results, shapes):
+    """K2p/K3p against their plain versions at every hulls launch shape,
+    exact and fast, two launches bitwise equal; then their times."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    alg = get_algebra((1.0,) * 5)
+    print("K2p pair-form CEMLP block forward / K3p backward vs plain "
+          "(Cl(5,0), hulls shapes)")
+    errs = {k: {"exact": [], "fast": []} for k in ("k2p", "k3p")}
+    for name, rows, cin, c, _ in shapes:
+        x, params, dout = block_inputs(rows, cin, c, gen, dev, nb=32)
+        for exact in (True, False):
+            mode = "exact" if exact else "fast"
+            out = ck.block_forward(x, params, alg, exact)
+            again = ck.block_forward(x, params, alg, exact)
+            ref = ck.block_forward_plain(x, params, alg, exact)
+            errs["k2p"][mode].append(check(f"K2p {name} {mode}", out, ref,
+                                           TOL[f"k2p_{mode}"]))
+            if not torch.equal(out, again):
+                raise AssertionError(f"K2p {name} {mode}: two launches "
+                                     f"differ")
+            del out, again, ref
+            dx, grads = ck.block_backward(x, dout, params, alg, exact)
+            dx2, grads2 = ck.block_backward(x, dout, params, alg, exact)
+            rdx, rgrads = ck.block_backward_plain(x, dout, params, alg, exact)
+            for pn, g, g2, rg in zip(["dx"] + [f"d{b}" for b in BLOCK_NAMES],
+                                     [dx] + grads, [dx2] + grads2,
+                                     [rdx] + rgrads):
+                errs["k3p"][mode].append(check(f"K3p {name} {mode} {pn}", g,
+                                               rg, TOL[f"k3p_{mode}"]))
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"K3p {name} {mode} {pn}: two "
+                                         f"launches differ")
+            del dx, grads, dx2, grads2, rdx, rgrads
+        torch.cuda.empty_cache()
+        print(f"  {name}: two launches bitwise equal (K2p and K3p, exact "
+              f"and fast)")
+    # times at the largest launch, edge block 0, fast; then every shape
+    name, rows, cin, c, _ = shapes[0]
+    x, params, dout = block_inputs(rows, cin, c, gen, dev, nb=32)
+    fwd = time_ms(lambda: ck.block_forward(x, params, alg, False), iters=20)
+    fwd_plain = time_ms(lambda: ck.block_forward_plain(x, params, alg, False),
+                        iters=3, warmup=1)
+    bwd = time_ms(lambda: ck.block_backward(x, dout, params, alg, False),
+                  iters=10)
+    bwd_plain = time_ms(lambda: ck.block_backward_plain(x, dout, params, alg,
+                                                        False),
+                        iters=2, warmup=1)
+    b2, b2by = block_bound(rows, cin, c, params, False, nb=32)
+    b3, b3by = block_bound(rows, cin, c, params, True, nb=32)
+    shape = f"{name}: rows={rows} Cin={cin} C={c} nb=32 fast"
+    print(f"  time {shape}: K2p {fwd*1e3:.1f} us (plain {fwd_plain*1e3:.1f},"
+          f" bound {b2*1e3:.1f} {b2by}); K3p {bwd*1e3:.1f} us (plain "
+          f"{bwd_plain*1e3:.1f}, bound {b3*1e3:.1f} {b3by})")
+    del x, params, dout
+    torch.cuda.empty_cache()
+    tot = [0.0, 0.0]
+    for name, rows, cin, c, k in shapes:
+        x, params, dout = block_inputs(rows, cin, c, gen, dev, nb=32)
+        tf = time_ms(lambda: ck.block_forward(x, params, alg, False),
+                     iters=10)
+        tb = time_ms(lambda: ck.block_backward(x, dout, params, alg, False),
+                     iters=5)
+        bf, _ = block_bound(rows, cin, c, params, False, nb=32)
+        bb, _ = block_bound(rows, cin, c, params, True, nb=32)
+        tot[0] += k * tf
+        tot[1] += k * tb
+        print(f"  {name:<15s} rows={rows:<6d} Cin={cin:<3d} C={c}: K2p "
+              f"{tf*1e3:8.1f} us (bound {bf*1e3:5.1f})  K3p {tb*1e3:8.1f} us "
+              f"(bound {bb*1e3:5.1f})  x{k} per step")
+    print(f"  per hulls training step: K2p {tot[0]:.3f} ms, K3p "
+          f"{tot[1]:.3f} ms")
+    for k, ms, plain, b, by in (("k2p", fwd, fwd_plain, b2, b2by),
+                                ("k3p", bwd, bwd_plain, b3, b3by)):
+        results[k] = dict(
+            name=f"cemlp_pair_{'fwd' if k == 'k2p' else 'bwd'}",
+            route="cuda", source="csmpn_torch/csrc/cemlp_pair.cu",
+            replaces=("csmpn_tpu/ops/cemlp_kernel.py:430" if k == "k2p"
+                      else "csmpn_tpu/ops/cemlp_kernel.py:519"),
+            max_abs_err=max(errs[k]["exact"]),
+            max_abs_err_fast=max(errs[k]["fast"]), ms=ms, plain_ms=plain,
+            bound_ms=b, bound_by=by, library_ms=None, shape=shape,
+            per_step_ms=tot[0] if k == "k2p" else tot[1])
+
+
+def phase_hulls_model(dev, ds):
+    """The full-width hulls model on the card against the same model on
+    the CPU, exact: loss and every gradient; then the card's fast-mode
+    loss against the exact CPU loss."""
+    from csmpn_torch.models.hulls import HullsModel
+    from csmpn_torch.nn.modules import init_parameters
+    from csmpn_torch.ops.segment import set_aggregation_mode
+
+    print(f"hulls model (Cl(5,0), hidden {H_HID}, 3 layers, batch {H_B}): "
+          f"card vs CPU, exact")
+    batch = ds.train_dataset.select(list(range(H_B)))
+    cpu = HullsModel(spec=ds.spec)
+    init_parameters(cpu, torch.Generator().manual_seed(3))
+    card = HullsModel(spec=ds.spec)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev)
+    set_aggregation_mode("exact")
+    lc, _ = cpu(batch.to("cpu"))
+    lc.backward()
+    lg, _ = card(batch.to(dev))
+    lg.backward()
+    check("hulls loss", lg.detach().cpu(), lc.detach(), TOL["hulls_loss"])
+    errs = sorted(((rel_err(pg.grad.cpu(), pc.grad)[1], k) for
+                   (k, pc), (_, pg) in zip(cpu.named_parameters(),
+                                           card.named_parameters())),
+                  reverse=True)
+    worst = errs[0][0]
+    print(f"  worst gradient rel err over {len(errs)} tensors: {worst:.3e} "
+          f"({errs[0][1]}), median {statistics.median(e for e, _ in errs):.3e}"
+          f"  tol {TOL['hulls_grad']:.0e}")
+    if worst > TOL["hulls_grad"]:
+        raise AssertionError(f"hulls gradient mismatch {worst:.3e}")
+    set_aggregation_mode("fast")
+    card.zero_grad()
+    lf, _ = card(batch.to(dev))
+    check("hulls fast-mode loss vs exact CPU loss", lf.detach().cpu(),
+          lc.detach(), TOL["hulls_fast_loss"])
+    set_aggregation_mode("exact")
+
+
+def phase_hulls_task(dataroot, counters, ds):
+    from csmpn_torch.tasks.hulls import main
+
+    argv = ["csmpn_torch/tasks/hulls.py",
+            "--trainer.module=csmpn_torch.engineer.Trainer",
+            "--dataset.module=csmpn_torch.data.hulls.ConvexHullDataset",
+            "--optimizer.module=csmpn_torch.engineer.optim.adam",
+            "--model.module=csmpn_torch.models.hulls.HullsModel",
+            f"--dataset.num_samples={H_TRAIN}",
+            f"--dataset.num_val_samples={H_VAL}",
+            f"--dataset.batch_size={H_B}", "--optimizer.lr=1e-3",
+            "--trainer.max_steps=8", "--trainer.val_check_interval=4",
+            "--trainer.limit_val_batches=1", "--trainer.print_interval=1",
+            "--trainer.log_interval=4", "--device=cuda"]
+    print(f"hulls task via fire -> run_task -> Trainer.fit: Cl(5,0), "
+          f"hidden {H_HID}, 3 layers, batch {H_B}, Adam lr 1e-3, 8 steps, "
+          f"fast precision; dataset cut to {H_TRAIN} train / {H_VAL} val / "
+          f"{H_VAL} test samples (configs/hulls.yaml: 16,384 each), padding "
+          f"spec counts_max={tuple(ds.spec.counts_max)} "
+          f"e_max={ds.spec.e_max}")
+    res = run_entry(main, argv, dataroot, counters, ds)
+    per_step = res[1]
+    for k, want in HULLS_PER_STEP.items():
+        if per_step[k] != want:
+            raise AssertionError(f"{k} launches per hulls step "
+                                 f"{per_step[k]} != {want}")
+    return res
 
 
 # ------------------------------------------------------- the bench path
@@ -879,6 +1149,8 @@ def main() -> int:
     motion_counters = {"k1": sk.LAUNCHES, "k2": ck.FWD_LAUNCHES,
                        "k3": ck.BWD_LAUNCHES}
     counters = dict(motion_counters, k4=fe.FWD_LAUNCHES, k5=fe.BWD_LAUNCHES)
+    hulls_counters = {"k1": sk.LAUNCHES, "k2p": ck.PAIR_FWD_LAUNCHES,
+                      "k3p": ck.PAIR_BWD_LAUNCHES}
     with tempfile.TemporaryDirectory() as dataroot:
         real = motion_ids(dataroot, dev)
         phase_k1(dev, gen, results, real)
@@ -886,16 +1158,29 @@ def main() -> int:
         phase_fused(dev, gen, results)
         phase_fused_time(dev, results)
         phase_model(dev, dataroot)
-        m_launches, m_per_step, _ = phase_task(dataroot, motion_counters)
+        m_launches, m_per_step = phase_task(dataroot,
+                                            motion_counters)[:2]
+        ds = hulls_dataset(dataroot)
+        phase_k1_hulls(dev, gen, ds, results)
+        phase_pair(dev, gen, results, hulls_shapes(ds.spec))
+        phase_hulls_model(dev, ds)
+        h_launches, h_per_step = phase_hulls_task(dataroot, hulls_counters,
+                                                  ds)[:2]
     launches, per_step, res, _, _ = phase_bench(counters)
     kernels = []
-    for k in ("k1", "k2", "k3", "k4", "k5"):
+    for k in ("k1", "k2", "k3", "k4", "k5", "k2p", "k3p"):
         entry = dict(results[k])
-        entry["launches"] = launches[k]
-        entry["launches_per_step"] = per_step[k]
-        if k in m_launches:
-            entry["launches_motion"] = m_launches[k]
-            entry["launches_per_step_motion"] = m_per_step[k]
+        # each kernel's launches on the path that runs it: the bench for
+        # K1-K5, the hulls task for K2p/K3p; K1's on the others beside
+        own = (launches, per_step) if k in launches else (h_launches,
+                                                         h_per_step)
+        entry["launches"] = own[0][k]
+        entry["launches_per_step"] = own[1][k]
+        for tag, (lc, ps) in (("motion", (m_launches, m_per_step)),
+                              ("hulls", (h_launches, h_per_step))):
+            if k in lc and k in launches:
+                entry[f"launches_{tag}"] = lc[k]
+                entry[f"launches_per_step_{tag}"] = ps[k]
         kernels.append(entry)
     print(f"total {time.time() - t_start:.1f} s")
     print(card)

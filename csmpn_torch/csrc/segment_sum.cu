@@ -13,11 +13,12 @@
 //
 // Design: the CSR offsets (offsets[s] = first row with id >= s) come from
 // torch.searchsorted outside the kernel, as the TPU version computes its
-// block bounds.  One warp owns one segment; its lanes run along D, 32
-// consecutive columns per lane group, so each row is read as coalesced
-// 32-element runs and summed into fp32 registers.  Each output element is
-// written exactly once by the warp that owns it: no atomics, so the result
-// is deterministic.  The TPU's one-hot matrix product and its aligned-down
+// block bounds.  One warp owns one segment and one chunk of 128 columns
+// (the grid's second dimension), so a wide D puts several warps on a
+// segment at once; its lanes run along the chunk, 32 consecutive columns
+// per lane group, so each row is read as coalesced 32-element runs and
+// summed into fp32 registers.  Each output element is written exactly once
+// by the warp that owns it: no atomics, so the result is deterministic.  The TPU's one-hot matrix product and its aligned-down
 // chunking are not needed: a warp reads exactly its own rows.  Empty
 // segments give 0.  Ids >= N (sentinels) lie past offsets[N] and are never
 // read.  bf16 input is widened to fp32 before the add; in fast mode fp32
@@ -59,9 +60,10 @@ segment_sum_kernel(const T* __restrict__ data,
   for (int off = 16; off > 0; off >>= 1)
     kept += __shfl_xor_sync(0xffffffffu, kept, off);
   const float scale = mean ? 1.f / fmaxf(kept, 1.f) : 1.f;
-  if (counts != nullptr && lane == 0) counts[s] = kept;
+  if (counts != nullptr && lane == 0 && blockIdx.y == 0) counts[s] = kept;
 
-  for (int d0 = 0; d0 < d; d0 += 32 * kUnroll) {
+  {
+    const int d0 = blockIdx.y * 32 * kUnroll;
     float acc[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) acc[u] = 0.f;
@@ -104,7 +106,8 @@ cudaError_t launch(const void* data, const int64_t* offsets,
                    int n_segments, int d, int mean, cudaStream_t stream) {
   if (n_segments > 0) {
     dim3 block(32, kWarps);
-    dim3 grid((n_segments + kWarps - 1) / kWarps);
+    const int chunks = (d + 32 * kUnroll - 1) / (32 * kUnroll);
+    dim3 grid((n_segments + kWarps - 1) / kWarps, chunks > 0 ? chunks : 1);
     segment_sum_kernel<T, ROUND><<<grid, block, 0, stream>>>(
         static_cast<const T*>(data), offsets, mask, out, counts, n_segments,
         d, mean);

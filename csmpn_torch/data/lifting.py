@@ -1,16 +1,101 @@
-"""Simplicial complexes and their big-graph flattening.
+"""Simplicial complexes, the convex-hull lift, and the big-graph flattening.
 
-Port of the parts of ``csmpn_tpu/data/lifting.py`` the motion task uses:
-the ``SimplicialComplex`` container and ``flatten_complex`` into a
-``BigGraph``.  The Rips, clique and hull lifts come with later tasks.
+Port of the parts of ``csmpn_tpu/data/lifting.py`` the motion and hulls
+tasks use: the simplex store (gudhi insert semantics), the boundary and
+shared-coface adjacency with the fully-connected 0-0 augmentation, the
+hull lift, the ``SimplicialComplex`` container and ``flatten_complex``
+into a ``BigGraph``.  The Rips and clique lifts come with later tasks.
 Host-side numpy; byte-identical to the reference on the same input.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+
+class SimplexStore:
+    """Simplices by dimension, as sorted vertex tuples.  Inserting a
+    simplex inserts all of its faces; indices within a dimension follow
+    the sorted order of the final set (assigned by ``freeze``)."""
+
+    def __init__(self, max_dim: int = 2):
+        self.max_dim = max_dim
+        self._sets: List[set] = [set() for _ in range(max_dim + 1)]
+        self._index: Optional[List[Dict[tuple, int]]] = None
+
+    def insert(self, simplex) -> None:
+        simplex = tuple(sorted(int(v) for v in simplex))
+        d = len(simplex) - 1
+        if d > self.max_dim:
+            raise ValueError(f"simplex dim {d} > max_dim {self.max_dim}")
+        for k in range(d + 1):
+            for face in itertools.combinations(simplex, k + 1):
+                self._sets[k].add(face)
+
+    def freeze(self) -> None:
+        self._index = [
+            {s: i for i, s in enumerate(sorted(self._sets[d]))}
+            for d in range(self.max_dim + 1)
+        ]
+
+    def simplices(self, d: int) -> List[tuple]:
+        assert self._index is not None, "freeze() first"
+        return sorted(self._sets[d])
+
+    def index(self, simplex: tuple) -> int:
+        return self._index[len(simplex) - 1][tuple(simplex)]
+
+
+def _boundaries(simplex: tuple):
+    if len(simplex) == 1:
+        return
+    for i in range(len(simplex)):
+        yield simplex[:i] + simplex[i + 1:]
+
+
+def generate_adjacencies(store: SimplexStore, fully_connect_nodes: bool
+                         ) -> Dict[Tuple[int, int], np.ndarray]:
+    """Boundary and upper (shared-coface) adjacency, {(dim_src, dim_dst):
+    (2, n) int64}.  The downward relations are added by
+    ``flatten_complex``."""
+    adj: Dict[Tuple[int, int], List[Tuple[int, int]]] = {}
+
+    def add(key, pair):
+        adj.setdefault(key, []).append(pair)
+
+    max_dim = store.max_dim
+    for d in range(max_dim + 1):
+        # upper adjacency through shared codim-1 cofaces
+        if d + 1 <= max_dim:
+            for coface in store.simplices(d + 1):
+                for s in _boundaries(coface):
+                    s_idx = store.index(s)
+                    for s2 in _boundaries(coface):
+                        if s2 != s:
+                            add((d, d), (store.index(s2), s_idx))
+        # boundary adjacency (d-1 -> d)
+        if d >= 1:
+            for s in store.simplices(d):
+                s_idx = store.index(s)
+                for b in _boundaries(s):
+                    add((d - 1, d), (store.index(b), s_idx))
+
+    if fully_connect_nodes:
+        # the reference tests membership against sorted pairs only, so
+        # (i, j) is added unless i < j and {i, j} is an edge: the (hi, lo)
+        # direction of a real edge comes twice, once from the cofaces
+        n0 = len(store.simplices(0))
+        edge_set = store._sets[1]
+        for i in range(n0):
+            for j in range(n0):
+                if i != j and not (i < j and (i, j) in edge_set):
+                    add((0, 0), (i, j))
+
+    return {k: np.asarray(pairs, dtype=np.int64).T
+            for k, pairs in adj.items()}
 
 
 @dataclass
@@ -25,6 +110,38 @@ class SimplicialComplex:
     @property
     def counts(self) -> List[int]:
         return [len(self.x.get(d, ())) for d in range(self.max_dim + 1)]
+
+
+def _store_to_complex(store: SimplexStore,
+                      fully_connect_nodes: bool) -> SimplicialComplex:
+    store.freeze()
+    x = {}
+    for d in range(store.max_dim + 1):
+        simp = store.simplices(d)
+        x[d] = np.asarray(simp, dtype=np.int64).reshape(len(simp), d + 1)
+    adj = generate_adjacencies(store, fully_connect_nodes)
+    return SimplicialComplex(store.max_dim, x, adj)
+
+
+def hull_lift(points: np.ndarray, dim: int = 2) -> SimplicialComplex:
+    """Convex-hull lift: all k-faces (k <= dim) of the Qhull facets, with
+    the fully-connected 0-0 augmentation."""
+    from scipy.spatial import ConvexHull
+
+    points = np.asarray(points, dtype=np.float64)
+    hull = ConvexHull(points)
+    store = SimplexStore(dim)
+    for v in range(len(points)):
+        store.insert((v,))
+    for k in range(1, dim + 1):
+        faces = set()
+        for facet in hull.simplices:
+            for subset in itertools.combinations(sorted(map(int, facet)),
+                                                 k + 1):
+                faces.add(subset)
+        for f in faces:
+            store.insert(f)
+    return _store_to_complex(store, fully_connect_nodes=True)
 
 
 @dataclass

@@ -1,13 +1,14 @@
 """Shared model machinery for the CSMPN task models.
 
-Port of ``csmpn_tpu/models/common.py`` (the parts the motion task uses):
+Port of ``csmpn_tpu/models/common.py`` (the parts the motion and hulls
+tasks use):
 
   * the permutation-summed Clifford embedding of simplices — the ragged
     (d+1)! expansion is a static unrolled gather per dimension section;
-  * simplex-type conditioning by a learned embedding at grade 0, and the
-    derived edge attributes;
-  * the flattening of a batch of padded graphs to global ids, and masked
-    mean-centering.
+  * simplex-type conditioning (one-hot or a learned embedding) at grade
+    0, and the derived edge attributes;
+  * the flattening of a batch of padded graphs to global ids, masked
+    mean-centering and masked global mean pooling.
 """
 from __future__ import annotations
 
@@ -101,28 +102,37 @@ class SimplexEmbedding(nn.Module):
 
 
 class SimplexTypeConditioning(nn.Module):
-    """Node/edge conditioning on the simplex dimension by a learned
-    embedding table (the reference's ``mode="embed"``), at grade 0.
+    """Node/edge conditioning on the simplex dimension, at grade 0:
+    ``mode="onehot"`` a one-hot code with no parameter (hulls),
+    ``mode="embed"`` a learned embedding table (motion, MD17, NBA).
     Returns (node_attr_flat, edge_attr_flat) for the flattened big
     graph."""
 
-    def __init__(self, algebra: CliffordAlgebra, num_types: int):
+    def __init__(self, algebra: CliffordAlgebra, num_types: int,
+                 mode: str = "onehot"):
         super().__init__()
+        if mode not in ("onehot", "embed"):
+            raise ValueError(f"unknown conditioning mode {mode!r}")
         self.algebra = algebra
         self.num_types = num_types
-        if num_types:
+        self.mode = mode
+        if num_types and mode == "embed":
             self.embedding = nn.Parameter(torch.empty(num_types, num_types))
             self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
-        if self.num_types:
+        if self.num_types and self.mode == "embed":
             _normal_(self.embedding, 1.0, generator)
 
     def forward(self, node_types_flat: torch.Tensor,
                 edge_index_flat: torch.Tensor, src_sort=None):
         if self.num_types == 0:
             return None, None
-        attr = self.embedding.index_select(0, node_types_flat.long())
+        if self.mode == "onehot":
+            attr = torch.nn.functional.one_hot(
+                node_types_flat.long(), self.num_types).to(torch.float32)
+        else:
+            attr = self.embedding.index_select(0, node_types_flat.long())
         node_attr = self.algebra.embed_grade(attr[..., None], 0)
         src, dst = edge_index_flat[0], edge_index_flat[1]
         gathered_src = (take_rows_presorted(node_attr, src, *src_sort)
@@ -160,3 +170,9 @@ def center_vertex_positions(pos: torch.Tensor, vertex_mask: torch.Tensor):
     m = vertex_mask.reshape(tuple(vertex_mask.shape)
                             + (1,) * (pos.dim() - 2))
     return torch.where(m, centered, pos), mean
+
+
+def global_mean_pool_masked(x: torch.Tensor,
+                            mask: torch.Tensor) -> torch.Tensor:
+    """(B, N, ...) masked mean over the nodes of each graph."""
+    return masked_mean(x, mask, axis=1)

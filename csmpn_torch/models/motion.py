@@ -40,7 +40,8 @@ class MotionModel(nn.Module):
         self.cl_feature_embedding = SimplexEmbedding(
             alg, spec, (("pos", 1), ("vel", 1)), num_input=num_input,
             num_hidden=num_hidden, max_dim=max_dim)
-        self.sim_type_embedding = SimplexTypeConditioning(alg, num_types)
+        self.sim_type_embedding = SimplexTypeConditioning(alg, num_types,
+                                                          mode="embed")
         for i in range(num_layers):
             setattr(self, f"egcl_{i}", EGCL(
                 alg, num_hidden, num_hidden, num_hidden,

@@ -44,10 +44,11 @@ class EGCL(nn.Module):
                  edge_attr_features: int = 0, node_attr_features: int = 0,
                  normalization_init: float = 0.0,
                  aggr: str = "mean", edges_sorted: bool = True,
-                 bf16_out: bool = False):
+                 bf16_out: bool = False, residual: bool = True):
         super().__init__()
         self.algebra = algebra
         self.aggr = aggr
+        self.residual = residual
         self.edges_sorted = edges_sorted
         self.bf16_out = bf16_out
         self.edge_model = CEMLP(algebra, in_features + edge_attr_features,
@@ -107,7 +108,8 @@ class EGCL(nn.Module):
         upd_in = [h, agg]
         if node_attr is not None:
             upd_in.append(node_attr)
-        return h + self.node_model(torch.cat(upd_in, dim=1))
+        out = self.node_model(torch.cat(upd_in, dim=1))
+        return h + out if self.residual else out
 
     def forward(self, h: torch.Tensor, edge_index: torch.Tensor,
                 edge_attr: Optional[torch.Tensor] = None,

@@ -1,30 +1,44 @@
-"""K2 and K3 — one whole CEMLP block, forward and backward: CUDA kernel
-wrappers, their plain versions, and the autograd wiring.
+"""K2/K3 and K2p/K3p — one whole CEMLP block, forward and backward: CUDA
+kernel wrappers, their plain versions, and the autograd wiring.
 
-Port of ``csmpn_tpu/ops/cemlp_kernel.py`` (``apply_fused_cemlp``).  The
-kernels are ``csrc/cemlp.cu`` (Cl(3,0), the dense algebra of the motion
-task, output width <= 32 channels).  On a CUDA tensor the wrappers launch
-them (or raise); on a CPU tensor they compute the plain versions:
+Port of ``csmpn_tpu/ops/cemlp_kernel.py`` (``apply_fused_cemlp``), in its
+two forms:
+
+  * dense, nb = 8: K2/K3 in ``csrc/cemlp.cu`` (Cl(3,0), the motion task,
+    output width <= 32 channels);
+  * pair, nb = 32: K2p/K3p in ``csrc/cemlp_pair.cu`` (Cl(5,0), the hulls
+    task), where the weighted geometric product runs over the Cayley
+    pairs (one left blade and one sign per (output j, right k)).
+
+Cl(4) (nb = 16), which the reference's pair form also serves, has no
+kernel yet and raises.  On a CUDA tensor the wrappers launch the kernels
+(or raise); on a CPU tensor they compute the plain versions:
 
   * ``block_forward_plain`` — the block in PyTorch, written per grade
     (the same function as ``_post_linear_math`` and the composed layers);
-  * the plain K3 is ``torch.autograd.grad`` of the plain K2, so the
-    hand-derived backward of the kernel is checked independently.
+  * the plain K3/K3p is ``torch.autograd.grad`` of the plain K2/K2p, so
+    the hand-derived backward of the kernel is checked independently.
 
 The block's parameters are taken in their flax shapes, in this order:
-``linear.weight (C, Cin, 4), linear.bias (C, 1), silu.a (C, 4),
-silu.b (C, 4), gp.weight (C, P), gp.linear_right.weight (C, C, 4),
-gp.normalization.a (C, 4), gp.linear_left.weight (C, C, 4),
-gp.linear_left.bias (C, 1), norm.a (C,)``.
+``linear.weight (C, Cin, G), linear.bias (C, 1), silu.a (C, G),
+silu.b (C, G), gp.weight (C, P), gp.linear_right.weight (C, C, G),
+gp.normalization.a (C, G), gp.linear_left.weight (C, C, G),
+gp.linear_left.bias (C, 1), norm.a (C,)`` with G grades and P nonzero
+grade paths (4 and 20 at Cl(3), 6 and 56 at Cl(5)).
 
 ``exact=False`` (fast mode) rounds to bf16 the operands of every product
-the TPU kernel feeds its matrix unit and accumulates in fp32.
+the TPU kernel feeds its matrix unit and accumulates in fp32.  The two
+forms round the geometric product at different points, as the TPU kernel
+does: the dense form rounds the path weight (an operand of the Kcat
+product), the pair form rounds each pair's product ``z_i * yn_k * w``
+(the operand of its signed S4 sum) and leaves the weight in fp32.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -34,14 +48,47 @@ from . import _build
 
 EPS = 1e-6
 SQRT2_INV = 1.0 / math.sqrt(2.0)
-MAX_CHANNELS = 32     # a warp's lanes are a row's output channels
-ROWS_PER_CTA = 8      # ROWS in csrc/cemlp.cu
+MAX_CHANNELS = 32     # K2/K3: a warp's lanes are a row's output channels
 
 FWD_LAUNCHES = _build.LaunchCounter("cemlp_block_fwd")
 BWD_LAUNCHES = _build.LaunchCounter("cemlp_block_bwd")
+PAIR_FWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_fwd")
+PAIR_BWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+@dataclass(frozen=True)
+class BlockKernel:
+    """What one pair of block kernels takes, and where it lives."""
+    label: str
+    source: str           # csrc/{source}.cu
+    algebra: str
+    n_blades: int
+    n_grades: int
+    n_paths: int
+    rows_fwd: int         # rows per CTA tile (csrc constants)
+    rows_bwd: int
+    fwd: _build.LaunchCounter
+    bwd: _build.LaunchCounter
+
+
+DENSE = BlockKernel("K2/K3", "cemlp", "Cl(3) (8 blades)", 8, 4, 20, 8, 8,
+                    FWD_LAUNCHES, BWD_LAUNCHES)
+PAIR = BlockKernel("K2p/K3p", "cemlp_pair", "Cl(5,0) (32 blades)", 32, 6,
+                   56, 8, 4, PAIR_FWD_LAUNCHES, PAIR_BWD_LAUNCHES)
+
+
+def block_kernel(nb: int) -> BlockKernel:
+    """The block kernels for nb blades, or NotImplementedError."""
+    for k in (DENSE, PAIR):
+        if k.n_blades == nb:
+            return k
+    raise NotImplementedError(
+        f"no CEMLP block kernel for {nb} blades: K2/K3 take 3-dim algebras "
+        f"(8 blades), K2p/K3p Cl(5,0) (32 blades); Cl(4) (16 blades) is "
+        f"still to port (ROADMAP Queue 2)")
 
 
 def _rounder(exact: bool):
@@ -96,8 +143,14 @@ def block_forward_plain(x: torch.Tensor, params: Sequence[torch.Tensor],
     nr = torch.sqrt(torch.sqrt(qg * qg + 1e-16))
     den = torch.sigmoid(na) * (nr - 1.0) + 1.0 + EPS
     yn = yr / den[..., g]
-    cw = coeff * r(gw)[:, path]                         # (C, nb, nb) [n,j,k]
-    gp = torch.einsum("rnjk,njk,rnk->rnj", zr[..., i_of], cw, r(yn))
+    if alg.n_blades > 8:
+        # pair form: each pair's product z_i * yn_k * w is one operand of
+        # the signed pair sum (rounded in fast mode; w stays fp32)
+        prod = (zr[..., i_of] * r(yn)[..., None, :]) * gw[:, path]
+        gp = torch.sum(r(prod) * coeff, dim=-1)     # (rows, C, nb) [r,n,j]
+    else:
+        cw = coeff * r(gw)[:, path]                     # (C, nb, nb) [n,j,k]
+        gp = torch.einsum("rnjk,njk,rnk->rnj", zr[..., i_of], cw, r(yn))
     first = bias0(linear(zr, WL), bL)
     o = (first + gp) * SQRT2_INV
     # MVLayerNorm
@@ -119,8 +172,8 @@ def block_backward_plain(x, dout, params, alg, exact=True):
 
 # ------------------------------------------------------------ CUDA wrappers
 
-def _fn(name, nargs_ptr, nargs_int):
-    lib = _build.load("cemlp")
+def _fn(name, nargs_ptr, nargs_int, source="cemlp"):
+    lib = _build.load(source)
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = [_P] * nargs_ptr + [_I] * nargs_int + [_P]
@@ -131,25 +184,39 @@ def _fn(name, nargs_ptr, nargs_int):
 @functools.lru_cache(maxsize=None)
 def _alg_tables(metric: tuple, source: str = "cemlp"):
     """(bc, sign) host arrays for the kernels, after checking that the
-    algebra's structure is the one compiled into csrc/{source}.cu."""
+    algebra's structure is the one compiled into csrc/{source}.cu: the
+    left blade and the grade path of every Cayley pair (j, k), the grade of
+    every blade and, for the pair kernels, which compute it, the pair's
+    sign."""
     from ..algebra.clifford import get_algebra
 
     alg = get_algebra(metric)
-    if alg.n_blades != 8 or alg.n_product_paths != 20:
+    kern = PAIR if source == "cemlp_pair" else DENSE
+    nb = kern.n_blades
+    if alg.n_blades != nb or alg.n_product_paths != kern.n_paths:
         raise NotImplementedError(
-            f"the CEMLP kernels are compiled for 3-dim algebras "
-            f"(8 blades), got metric {metric}")
+            f"csrc/{source}.cu is compiled for {kern.algebra} with "
+            f"{kern.n_paths} grade paths, got metric {metric}")
     lib = _build.load(source)
     fn = getattr(lib, f"csmpn_{source}_tables")
-    fn.argtypes = [_P, _P, _P]
-    fn.restype = None
-    i_of = np.zeros(64, np.int32)
-    path = np.zeros(64, np.int32)
-    grade = np.zeros(8, np.int32)
-    fn(i_of.ctypes.data, path.ctypes.data, grade.ctypes.data)
-    for name, got, want in (("i_of", i_of, alg.gp_pair_tables[0]),
-                            ("path", path, alg.gp_pair_paths),
-                            ("grade", grade, alg.blade_to_grade)):
+    i_of = np.zeros(nb * nb, np.int32)
+    path = np.zeros(nb * nb, np.int32)
+    grade = np.zeros(nb, np.int32)
+    sign = np.zeros(nb * nb, np.float32)
+    checks = [("i_of", i_of, alg.gp_pair_tables[0]),
+              ("path", path, alg.gp_pair_paths),
+              ("grade", grade, alg.blade_to_grade)]
+    if kern is PAIR:
+        fn.argtypes = [_P, _P, _P, _P]
+        fn.restype = None
+        fn(i_of.ctypes.data, path.ctypes.data, grade.ctypes.data,
+           sign.ctypes.data)
+        checks.append(("sign", sign, alg.gp_pair_tables[1]))
+    else:
+        fn.argtypes = [_P, _P, _P]
+        fn.restype = None
+        fn(i_of.ctypes.data, path.ctypes.data, grade.ctypes.data)
+    for name, got, want in checks:
         if not np.array_equal(got, np.asarray(want).reshape(-1)):
             raise RuntimeError(
                 f"csrc/{source}.cu table {name} {got.tolist()} disagrees with "
@@ -160,71 +227,110 @@ def _alg_tables(metric: tuple, source: str = "cemlp"):
     return bc, sign
 
 
-def check_block_params(params, cin: int, c: int, device) -> None:
+@functools.lru_cache(maxsize=None)
+def _pair_tabs(metric: tuple, device: torch.device) -> torch.Tensor:
+    """The pair kernels' packed Cayley-pair tables (built by
+    csrc/cemlp_pair.cu's host code, after `_alg_tables` checked its
+    structure) on ``device``; each CTA copies them to shared memory."""
+    _alg_tables(metric, "cemlp_pair")
+    fn = _build.load("cemlp_pair").csmpn_cemlp_pair_packed
+    fn.argtypes = [_P, _I]
+    fn.restype = ctypes.c_int
+    buf = np.zeros(8192, np.uint16)
+    n = fn(buf.ctypes.data, buf.size)
+    if n <= 0:
+        raise RuntimeError("csrc/cemlp_pair.cu: packed tables do not fit")
+    return torch.from_numpy(buf[:n].view(np.int16).copy()).to(device)
+
+
+def check_block_params(params, cin: int, c: int, device,
+                       kern: BlockKernel = DENSE) -> None:
     """Raises unless ``params`` are one block's 10 float32 tensors of the
-    flax shapes for cin -> c channels on ``device``, with c within what the
-    kernels take."""
-    shapes = [(c, cin, 4), (c, 1), (c, 4), (c, 4), (c, 20), (c, c, 4),
-              (c, 4), (c, c, 4), (c, 1), (c,)]
-    for p, s in zip(params, shapes):
-        if tuple(p.shape) != s or p.dtype != torch.float32 \
-                or p.device != device:
-            raise ValueError(f"block parameter of shape {tuple(p.shape)} "
-                             f"{p.dtype}, expected {s} float32 on {device}")
-    if c > MAX_CHANNELS:
+    flax shapes for cin -> c channels on ``device`` in ``kern``'s algebra,
+    with c within what its kernels take."""
+    g, p = kern.n_grades, kern.n_paths
+    shapes = [(c, cin, g), (c, 1), (c, g), (c, g), (c, p), (c, c, g),
+              (c, g), (c, c, g), (c, 1), (c,)]
+    for t, s in zip(params, shapes):
+        if tuple(t.shape) != s or t.dtype != torch.float32 \
+                or t.device != device:
+            raise ValueError(f"block parameter of shape {tuple(t.shape)} "
+                             f"{t.dtype}, expected {s} float32 on {device}")
+    if kern is DENSE and c > MAX_CHANNELS:
         raise NotImplementedError(
-            f"the CEMLP kernels take at most {MAX_CHANNELS} output "
-            f"channels, got {c}")
+            f"K2/K3 (a lane per output channel) take at most "
+            f"{MAX_CHANNELS} output channels, got {c}")
 
 
 def _check_block(x, params):
-    if x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 8:
-        raise ValueError(f"x must be (rows, Cin, 8) float32, got "
+    nb = x.shape[-1] if x.dim() == 3 else -1
+    if x.dtype != torch.float32 or x.dim() != 3:
+        raise ValueError(f"x must be (rows, Cin, nb) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
+    kern = block_kernel(nb)
     cin = x.shape[1]
     c = params[0].shape[0]
-    check_block_params(params, cin, c, x.device)
-    return cin, c
+    check_block_params(params, cin, c, x.device, kern)
+    return kern, cin, c
 
 
-def _grid(rows: int, device, smem_bytes: int) -> int:
+def _grid(rows: int, device, smem_bytes: int, rows_per_cta: int) -> int:
     """CTAs to launch: every SM holds as many CTAs as its shared memory
     allows (at most 8), and each CTA walks over row tiles."""
     props = torch.cuda.get_device_properties(device)
     per_sm = max(1, min(8, (228 * 1024) // max(smem_bytes, 1)))
-    n_tiles = -(-rows // ROWS_PER_CTA)
+    n_tiles = -(-rows // rows_per_cta)
     return max(1, min(n_tiles, props.multi_processor_count * per_sm))
 
 
-def _smem(cin, c, backward):
-    fn = _build.load("cemlp").csmpn_cemlp_smem_bytes
+def _smem(kern: BlockKernel, cin, c, backward):
+    """Shared-memory bytes of a launch; NotImplementedError where the
+    widths do not fit in one CTA's 227 KB."""
+    fn = getattr(_build.load(kern.source), f"csmpn_{kern.source}_smem_bytes")
     if fn.argtypes is None:
         fn.argtypes = [_I, _I, _I]
         fn.restype = ctypes.c_size_t
-    return int(fn(cin, c, int(backward)))
+    n = int(fn(cin, c, int(backward)))
+    if n == 0:
+        raise NotImplementedError(
+            f"{kern.label}: {cin} -> {c} channels do not fit in one CTA's "
+            f"shared memory ({'backward' if backward else 'forward'})")
+    return n
+
+
+def _tables(kern: BlockKernel, alg, device) -> Tuple[np.ndarray, int]:
+    """(bc host array, pointer to the kernel's table operand): the Cayley
+    signs on the host for K2/K3, the packed pair tables on the card for
+    K2p/K3p."""
+    metric = tuple(alg.metric.tolist())
+    bc, sign = _alg_tables(metric, kern.source)
+    if kern is PAIR:
+        return bc, _pair_tabs(metric, device).data_ptr()
+    return bc, sign.ctypes.data
 
 
 def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
                   exact: bool = True) -> torch.Tensor:
-    """K2: one CEMLP block, (rows, Cin, 8) float32 -> (rows, C, 8)."""
+    """K2 (nb = 8) or K2p (nb = 32): one CEMLP block, (rows, Cin, nb)
+    float32 -> (rows, C, nb)."""
     if not x.is_cuda:
         return block_forward_plain(x, params, alg, exact)
     x = x.contiguous()
     params = [p.contiguous() for p in params]
-    cin, c = _check_block(x, params)
-    rows = x.shape[0]
-    bc, sign = _alg_tables(tuple(alg.metric.tolist()))
-    out = torch.empty((rows, c, 8), dtype=torch.float32, device=x.device)
+    kern, cin, c = _check_block(x, params)
+    rows, nb = x.shape[0], kern.n_blades
+    out = torch.empty((rows, c, nb), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out
-    grid = _grid(rows, x.device, _smem(cin, c, False))
-    fn = _fn("csmpn_cemlp_fwd", 14, 5)
+    bc, tabs = _tables(kern, alg, x.device)
+    grid = _grid(rows, x.device, _smem(kern, cin, c, False), kern.rows_fwd)
+    fn = _fn(f"csmpn_{kern.source}_fwd", 14, 5, kern.source)
     err = fn(x.data_ptr(), *[p.data_ptr() for p in params],
-             bc.ctypes.data, sign.ctypes.data, out.data_ptr(), rows, cin, c,
+             bc.ctypes.data, tabs, out.data_ptr(), rows, cin, c,
              0 if exact else 1, grid,
              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "cemlp forward kernel")
-    FWD_LAUNCHES.add()
+    _build.check(err, f"{kern.label} forward kernel")
+    kern.fwd.add()
     return out
 
 
@@ -237,34 +343,46 @@ def _split_grads(flat: torch.Tensor, params) -> List[torch.Tensor]:
     return out
 
 
+def _partial_floats(kern: BlockKernel, cin: int, c: int, n_grad: int) -> int:
+    """Floats of one CTA's slice of the backward's scratch: its partial
+    gradient vector, and for K3p also its channel-mixing accumulators."""
+    if kern is DENSE:
+        return n_grad
+    fn = _build.load(kern.source).csmpn_cemlp_pair_partial_floats
+    fn.argtypes = [_I, _I]
+    fn.restype = ctypes.c_longlong
+    return int(fn(cin, c))
+
+
 def block_backward(x: torch.Tensor, dout: torch.Tensor,
                    params: Sequence[torch.Tensor], alg, exact: bool = True
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """K3: dx and the 10 parameter gradients of one CEMLP block."""
+    """K3 (nb = 8) or K3p (nb = 32): dx and the 10 parameter gradients of
+    one CEMLP block."""
     if not x.is_cuda:
         return block_backward_plain(x, dout, params, alg, exact)
     x = x.contiguous()
     dout = dout.to(torch.float32).contiguous()
     params = [p.contiguous() for p in params]
-    cin, c = _check_block(x, params)
-    rows = x.shape[0]
-    if dout.shape != (rows, c, 8):
-        raise ValueError(f"dout shape {tuple(dout.shape)} != {(rows, c, 8)}")
-    bc, sign = _alg_tables(tuple(alg.metric.tolist()))
+    kern, cin, c = _check_block(x, params)
+    rows, nb = x.shape[0], kern.n_blades
+    if dout.shape != (rows, c, nb):
+        raise ValueError(f"dout shape {tuple(dout.shape)} != {(rows, c, nb)}")
+    bc, tabs = _tables(kern, alg, x.device)
     n_grad = sum(p.numel() for p in params)
-    grid = _grid(rows, x.device, _smem(cin, c, True))
+    grid = _grid(rows, x.device, _smem(kern, cin, c, True), kern.rows_bwd)
     dx = torch.empty_like(x)
-    partials = torch.empty((grid, n_grad), dtype=torch.float32,
-                           device=x.device)
+    partials = torch.empty((grid, _partial_floats(kern, cin, c, n_grad)),
+                           dtype=torch.float32, device=x.device)
     flat = torch.empty(n_grad, dtype=torch.float32, device=x.device)
-    fn = _fn("csmpn_cemlp_bwd", 17, 5)
+    fn = _fn(f"csmpn_{kern.source}_bwd", 17, 5, kern.source)
     err = fn(x.data_ptr(), dout.data_ptr(),
-             *[p.data_ptr() for p in params], bc.ctypes.data,
-             sign.ctypes.data, dx.data_ptr(), partials.data_ptr(),
-             flat.data_ptr(), rows, cin, c, 0 if exact else 1, grid,
+             *[p.data_ptr() for p in params], bc.ctypes.data, tabs,
+             dx.data_ptr(), partials.data_ptr(), flat.data_ptr(), rows, cin,
+             c, 0 if exact else 1, grid,
              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "cemlp backward kernel")
-    BWD_LAUNCHES.add()
+    _build.check(err, f"{kern.label} backward kernel")
+    kern.bwd.add()
     grads = _split_grads(flat, params)
     # the kernel returns d/d sigmoid(normalization.a); chain to a
     s = torch.sigmoid(params[6])
@@ -273,7 +391,7 @@ def block_backward(x: torch.Tensor, dout: torch.Tensor,
 
 
 class _Block(torch.autograd.Function):
-    """One CEMLP block whose forward is K2 and backward is K3."""
+    """One CEMLP block whose forward is K2 (K2p) and backward K3 (K3p)."""
 
     @staticmethod
     def forward(ctx, x, alg, exact, *params):
@@ -289,8 +407,8 @@ class _Block(torch.autograd.Function):
 
 
 def apply_fused_cemlp(cemlp, x: torch.Tensor) -> torch.Tensor:
-    """A whole CEMLP, one K2 launch per block forward and one K3 launch per
-    block backward.  x: (..., C_in, nb) -> (..., C_out, nb), in x's dtype
+    """A whole CEMLP, one K2 (K2p at Cl(5)) launch per block forward and one
+    K3 (K3p) launch per block backward.  x: (..., C_in, nb) -> (..., C_out, nb), in x's dtype
     (the blocks compute in float32)."""
     from .segment import aggregation_exact
 
