@@ -57,6 +57,11 @@
 
 namespace {
 
+using Alg = Cl3;   // K4/K5 serve the 8-blade algebra, one channel per lane
+constexpr int NB = Alg::NB;
+constexpr int NG = Alg::NG;
+constexpr int NLOC = Loc<Alg>::N;
+
 template <bool FAST> struct Stream { using T = float; };
 template <> struct Stream<true> { using T = __nv_bfloat16; };
 
@@ -119,21 +124,21 @@ fused_mp_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
                     const int* __restrict__ dst,
                     const uint8_t* __restrict__ mask,
                     const int64_t* __restrict__ bounds, Params p1, Params p2,
-                    Tabs tb, float* __restrict__ out, Geom gm) {
+                    Tabs<Alg> tb, float* __restrict__ out, Geom gm) {
   extern __shared__ float smem[];
   const int cin1 = gm.cm + gm.ca, c = gm.c, per_node = c * NB;
   Smem s1, s2;
-  carve_params(smem, cin1, c, s1);
-  float* p2base = smem + params_floats(cin1, c);
-  carve_params(p2base, c, c, s2);
-  float* xs1 = p2base + params_floats(c, c);   // [ROWS][NB][cin1]
+  carve_params<Alg>(smem, cin1, c, s1);
+  float* p2base = smem + params_floats<Alg>(cin1, c);
+  carve_params<Alg>(p2base, c, c, s2);
+  float* xs1 = p2base + params_floats<Alg>(c, c);   // [ROWS][NB][cin1]
   float* zs = xs1 + ROWS * NB * cin1;          // [ROWS][NB][c]
   float* xs2 = zs + ROWS * NB * c;             // [ROWS][NB][c] block-2 input
   float* ys = xs2 + ROWS * NB * c;             // [ROWS][c][NB] messages
   float* acc = ys + ROWS * NB * c;             // [wn][c][NB] window sum
   int* dloc = reinterpret_cast<int*>(acc + gm.wn * per_node);   // [ROWS]
-  stage_params<FAST>(p1, s1, cin1, c);
-  stage_params<FAST>(p2, s2, c, c);
+  stage_params<Alg, FAST>(p1, s1, cin1, c);
+  stage_params<Alg, FAST>(p2, s2, c, c);
 
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int lane = threadIdx.x, r = threadIdx.y;
@@ -151,21 +156,22 @@ fused_mp_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
       if (row0 + r < e1) {   // whole warp: no shuffle partner missing
         float* zt = zs + r * NB * c;
         float* xr2 = xs2 + r * NB * c;
-        Fwd f;
-        block_forward<FAST>(f, s1, tb, xs1 + r * NB * cin1, zt, cin1, c, n,
-                            act);
+        Fwd<Alg> f[1];
+        block_forward<Alg, FAST>(f, s1, tb, xs1 + r * NB * cin1, zt, cin1, c,
+                                 lane);
         if (act) {   // block 2 reads its input rounded, as K2 does
-          const float scale = s1.aln[n] / f.m;
-#pragma unroll
-          for (int i = 0; i < NB; ++i) xr2[i * c + n] = rnd<FAST>(scale * f.o[i]);
-        }
-        __syncwarp();
-        block_forward<FAST>(f, s2, tb, xr2, zt, c, c, n, act);
-        if (act) {
-          const float scale = s2.aln[n] / f.m;
+          const float scale = s1.aln[n] / f[0].m;
 #pragma unroll
           for (int i = 0; i < NB; ++i)
-            ys[r * per_node + n * NB + i] = rnd<FAST>(scale * f.o[i]);
+            xr2[i * c + n] = rnd<FAST>(scale * f[0].o[i]);
+        }
+        __syncwarp();
+        block_forward<Alg, FAST>(f, s2, tb, xr2, zt, c, c, lane);
+        if (act) {
+          const float scale = s2.aln[n] / f[0].m;
+#pragma unroll
+          for (int i = 0; i < NB; ++i)
+            ys[r * per_node + n * NB + i] = rnd<FAST>(scale * f[0].o[i]);
         }
       }
       __syncthreads();
@@ -204,7 +210,7 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
                     const uint8_t* __restrict__ mask,
                     const int64_t* __restrict__ bounds,
                     const float* __restrict__ dagg, Params p1, Params p2,
-                    Tabs tb, float* __restrict__ dh,
+                    Tabs<Alg> tb, float* __restrict__ dh,
                     typename Stream<FAST>::T* __restrict__ dhj,
                     typename Stream<FAST>::T* __restrict__ dattr,
                     float* __restrict__ dx2, float* __restrict__ partials,
@@ -213,10 +219,10 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   const int cm = gm.cm, ca = gm.ca, cin1 = cm + ca, c = gm.c;
   const int msg_w = cm * NB;   // floats of a message row
   Smem s1, s2;
-  carve_params(smem, cin1, c, s1);
-  float* p2base = smem + params_floats(cin1, c);
-  carve_params(p2base, c, c, s2);
-  float* xs1 = p2base + params_floats(c, c);   // [ROWS][NB][cin1]
+  carve_params<Alg>(smem, cin1, c, s1);
+  float* p2base = smem + params_floats<Alg>(cin1, c);
+  carve_params<Alg>(p2base, c, c, s2);
+  float* xs1 = p2base + params_floats<Alg>(c, c);   // [ROWS][NB][cin1]
   float* zs1 = xs1 + ROWS * NB * cin1;         // [ROWS][NB][c]
   float* xs2 = zs1 + ROWS * NB * c;            // block-2 input, rounded
   float* zs2 = xs2 + ROWS * NB * c;
@@ -238,8 +244,8 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   float* awl_2 = awr_2 + c * NG * c;
   float* loc_2 = awl_2 + c * NG * c;
 
-  stage_params<FAST>(p1, s1, cin1, c);
-  stage_params<FAST>(p2, s2, c, c);
+  stage_params<Alg, FAST>(p1, s1, cin1, c);
+  stage_params<Alg, FAST>(p2, s2, c, c);
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int64_t n_part = part_floats(cin1, c);
   for (int64_t e = tid; e < n_part; e += THREADS) part[e] = 0.f;
@@ -258,8 +264,8 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   // backward from d(agg) at the row's target; block 2's dx rows go to the
   // scratch dx2, read back by the same thread in sweep 2
   {
-    Acc a2;
-    acc_zero(a2);
+    Acc<Alg> a2[1];
+    acc_zero<Alg>(a2);
     for (int w = blockIdx.x; w < gm.n_win; w += gridDim.x) {
       const int base = w * gm.wn;
       const int64_t e0 = bounds[w], e1 = bounds[w + 1];
@@ -271,31 +277,32 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
         const int64_t row = row0 + r;
         if (row < e1) {   // whole warp
           const int d = dloc[r];
-          Fwd f;
-          block_forward<FAST>(f, s1, tb, xr1, zt1, cin1, c, n, act);
+          Fwd<Alg> f[1];
+          block_forward<Alg, FAST>(f, s1, tb, xr1, zt1, cin1, c, lane);
           if (act) {
-            const float scale = s1.aln[n] / f.m;
+            const float scale = s1.aln[n] / f[0].m;
 #pragma unroll
             for (int i = 0; i < NB; ++i)
-              xr2[i * c + n] = rnd<FAST>(scale * f.o[i]);
+              xr2[i * c + n] = rnd<FAST>(scale * f[0].o[i]);
           }
           __syncwarp();
-          block_forward<FAST>(f, s2, tb, xr2, zs2 + r * NB * c, c, c, n, act);
-          float go[NB];
+          block_forward<Alg, FAST>(f, s2, tb, xr2, zs2 + r * NB * c, c, c,
+                                   lane);
+          float go[1][NB];
 #pragma unroll
           for (int i = 0; i < NB; ++i)
-            go[i] = (act && d >= 0)
+            go[0][i] = (act && d >= 0)
                         ? rnd<FAST>(dagg[((int64_t)(base + d) * c + n) * NB + i])
                         : 0.f;
-          block_backward_row<FAST>(f, s2, tb, go, a2, dft, drt, dyt,
-                                   dx2 + row * c * NB, c, c, n, lane, act);
+          block_backward_row<Alg, FAST>(f, s2, tb, go, a2, dft, drt, dyt,
+                                   dx2 + row * c * NB, c, c, lane);
         }
         __syncthreads();
         const int nrow = (int)(e1 - row0 < ROWS ? e1 - row0 : ROWS);
-        weight_grads(xs2, zs2, dfs, drs, dys, nrow, c, c, aw1_2, awr_2, awl_2);
+        weight_grads<Alg>(xs2, zs2, dfs, drs, dys, nrow, c, c, aw1_2, awr_2, awl_2);
       }
     }
-    acc_to_loc(a2, loc, c, n, act);
+    acc_to_loc<Alg>(a2, loc, c, lane);
     for (int e = tid; e < NLOC * c; e += THREADS) {
       loc_2[e] = loc[e];
       loc[e] = 0.f;
@@ -305,8 +312,8 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   // message cotangent summed into the window's d(h), rows in order, and
   // written out as dhj = -dmsg with dattr (masked rows zero)
   {
-    Acc a1;
-    acc_zero(a1);
+    Acc<Alg> a1[1];
+    acc_zero<Alg>(a1);
     for (int w = blockIdx.x; w < gm.n_win; w += gridDim.x) {
       const int base = w * gm.wn;
       const int64_t e0 = bounds[w], e1 = bounds[w + 1];
@@ -318,19 +325,18 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
         __syncthreads();
         const int64_t row = row0 + r;
         if (row < e1) {
-          Fwd f;
-          block_forward<FAST>(f, s1, tb, xr1, zt1, cin1, c, n, act);
-          float go[NB];
+          Fwd<Alg> f[1];
+          block_forward<Alg, FAST>(f, s1, tb, xr1, zt1, cin1, c, lane);
+          float go[1][NB];
 #pragma unroll
           for (int i = 0; i < NB; ++i)
-            go[i] = act ? dx2[(row * c + n) * NB + i] : 0.f;
-          block_backward_row<FAST>(f, s1, tb, go, a1, dft, drt, dyt,
-                                   dxs + r * cin1 * NB, cin1, c, n, lane,
-                                   act);
+            go[0][i] = act ? dx2[(row * c + n) * NB + i] : 0.f;
+          block_backward_row<Alg, FAST>(f, s1, tb, go, a1, dft, drt, dyt,
+                                   dxs + r * cin1 * NB, cin1, c, lane);
         }
         __syncthreads();
         const int nrow = (int)(e1 - row0 < ROWS ? e1 - row0 : ROWS);
-        weight_grads(xs1, zs1, dfs, drs, dys, nrow, cin1, c, aw1_1, awr_1,
+        weight_grads<Alg>(xs1, zs1, dfs, drs, dys, nrow, cin1, c, aw1_1, awr_1,
                      awl_1);
         for (int e = tid; e < msg_w; e += THREADS)
           for (int rr = 0; rr < nrow; ++rr) {
@@ -358,15 +364,15 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
         dh[(int64_t)base * msg_w + e] = dhw[e];
       __syncthreads();   // window written before the next one zeroes dhw
     }
-    acc_to_loc(a1, loc, c, n, act);
+    acc_to_loc<Alg>(a1, loc, c, lane);
     for (int e = tid; e < NLOC * c; e += THREADS) loc_1[e] = loc[e];
   }
 }
 
 size_t fwd_smem_bytes(int cm, int ca, int c, int wn) {
   const int cin1 = cm + ca;
-  return sizeof(float) * ((size_t)params_floats(cin1, c) +
-                          params_floats(c, c) +
+  return sizeof(float) * ((size_t)params_floats<Alg>(cin1, c) +
+                          params_floats<Alg>(c, c) +
                           ROWS * NB * (size_t)(cin1 + 3 * c) +
                           (size_t)wn * c * NB) +
          sizeof(int) * ROWS;
@@ -374,8 +380,8 @@ size_t fwd_smem_bytes(int cm, int ca, int c, int wn) {
 
 size_t bwd_smem_bytes(int cm, int ca, int c, int wn) {
   const int cin1 = cm + ca;
-  return sizeof(float) * ((size_t)params_floats(cin1, c) +
-                          params_floats(c, c) +
+  return sizeof(float) * ((size_t)params_floats<Alg>(cin1, c) +
+                          params_floats<Alg>(c, c) +
                           ROWS * NB * (size_t)(2 * cin1 + 6 * c) +
                           (size_t)wn * cm * NB +
                           (size_t)NLOC * c) +
@@ -394,7 +400,7 @@ Params params_at(const float* const* pp) {
 template <bool FAST>
 int launch_fwd(const void* h, const void* hj, const void* attr,
                const int* dst, const uint8_t* mask, const int64_t* bounds,
-               const float* const* params, Tabs tb, float* out, Geom gm,
+               const float* const* params, Tabs<Alg> tb, float* out, Geom gm,
                int grid, cudaStream_t st) {
   using T = typename Stream<FAST>::T;
   const size_t bytes = fwd_smem_bytes(gm.cm, gm.ca, gm.c, gm.wn);
@@ -410,7 +416,7 @@ int launch_fwd(const void* h, const void* hj, const void* attr,
 template <bool FAST>
 int launch_bwd(const void* h, const void* hj, const void* attr,
                const int* dst, const uint8_t* mask, const int64_t* bounds,
-               const float* dagg, const float* const* params, Tabs tb,
+               const float* dagg, const float* const* params, Tabs<Alg> tb,
                float* dh, void* dhj, void* dattr, float* dx2, float* partials,
                Geom gm, int grid, cudaStream_t st) {
   using T = typename Stream<FAST>::T;
@@ -455,7 +461,7 @@ int csmpn_fused_mp_fwd(const void* h, const void* hj, const void* attr,
       fwd_smem_bytes(cm, ca, c, wn) > kMaxSmem || grid < 1)
     return (int)cudaErrorInvalidValue;
   Geom gm{n_nodes, cm, ca, c, wn, n_win};
-  Tabs tb = make_tabs(bc, sign);
+  Tabs<Alg> tb = make_tabs<Alg>(bc, sign);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return fast ? launch_fwd<true>(h, hj, attr, dst, mask, bounds, params, tb,
                                  out, gm, grid, st)
@@ -479,7 +485,7 @@ int csmpn_fused_mp_bwd(const void* h, const void* hj, const void* attr,
       bwd_smem_bytes(cm, ca, c, wn) > kMaxSmem || grid < 1)
     return (int)cudaErrorInvalidValue;
   Geom gm{n_nodes, cm, ca, c, wn, n_win};
-  Tabs tb = make_tabs(bc, sign);
+  Tabs<Alg> tb = make_tabs<Alg>(bc, sign);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int err =
       fast ? launch_bwd<true>(h, hj, attr, dst, mask, bounds, dagg, params,
@@ -496,7 +502,7 @@ int csmpn_fused_mp_bwd(const void* h, const void* hj, const void* attr,
 
 // Structural tables the kernels assume (see csmpn_cemlp_tables).
 void csmpn_fused_egcl_tables(int* i_of_out, int* path_out, int* grade_out) {
-  structural_tables(i_of_out, path_out, grade_out);
+  structural_tables<Alg>(i_of_out, path_out, grade_out);
 }
 
 }  // extern "C"

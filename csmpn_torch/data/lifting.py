@@ -1,15 +1,19 @@
-"""Simplicial complexes, the convex-hull lift, and the big-graph flattening.
+"""Simplicial complexes, the lifts, and the big-graph flattening.
 
-Port of the parts of ``csmpn_tpu/data/lifting.py`` the motion and hulls
-tasks use: the simplex store (gudhi insert semantics), the boundary and
-shared-coface adjacency with the fully-connected 0-0 augmentation, the
-hull lift, the ``SimplicialComplex`` container and ``flatten_complex``
-into a ``BigGraph``.  The Rips and clique lifts come with later tasks.
-Host-side numpy; byte-identical to the reference on the same input.
+Port of ``csmpn_tpu/data/lifting.py``: the simplex store (gudhi insert
+semantics), the boundary and shared-coface adjacency with the
+fully-connected 0-0 augmentation, the Vietoris-Rips lift (NBA, MD17), the
+clique lift with edge-length and triangle-area thresholds (MD17 aspirin),
+the hull lift (hulls), the ``SimplicialComplex`` container and
+``flatten_complex`` into a ``BigGraph``.  Host-side numpy; byte-identical
+to the reference on the same input.  The Rips and clique lifts run the
+native C++ core (``data/native.py``) when it builds and the python path
+otherwise, as the reference does.
 """
 from __future__ import annotations
 
 import itertools
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -121,6 +125,89 @@ def _store_to_complex(store: SimplexStore,
         x[d] = np.asarray(simp, dtype=np.int64).reshape(len(simp), d + 1)
     adj = generate_adjacencies(store, fully_connect_nodes)
     return SimplicialComplex(store.max_dim, x, adj)
+
+
+def rips_lift(points: np.ndarray, dim: int, dis: float,
+              backend: str = "auto") -> SimplicialComplex:
+    """Vietoris-Rips flag complex up to ``dim`` at scale ``dis`` (edges =
+    pairs within ``dis``, triangles = triples whose three edges exist),
+    with the fully-connected 0-0 augmentation.  ``backend="auto"`` takes
+    the native core when it is available (``CSMPN_NO_NATIVE`` turns it
+    off), ``"python"`` the path below; both give the same complex."""
+    if backend == "auto" and dim <= 2 and not os.environ.get(
+            "CSMPN_NO_NATIVE"):
+        from . import native
+        if native.available():
+            return native.rips_lift_native(points, dim, dis)
+    points = np.asarray(points, dtype=np.float64)
+    n = len(points)
+    store = SimplexStore(dim)
+    for v in range(n):
+        store.insert((v,))
+    d2 = np.sum((points[:, None] - points[None, :]) ** 2, axis=-1)
+    within = d2 <= dis * dis
+    iu, ju = np.triu_indices(n, k=1)
+    edges = [(int(i), int(j)) for i, j in zip(iu, ju) if within[i, j]]
+    for e in edges:
+        store.insert(e)
+    if dim >= 2:
+        for i, j in edges:
+            for k in range(j + 1, n):
+                if within[i, k] and within[j, k]:
+                    store.insert((i, j, k))
+    return _store_to_complex(store, fully_connect_nodes=True)
+
+
+def clique_lift(points: np.ndarray, edge_index: np.ndarray,
+                edge_th: float = 1e4, tri_th: float = 1e4,
+                max_dim: int = 2, backend: str = "auto") -> SimplicialComplex:
+    """Clique lift of a graph with edge-length and triangle-area
+    thresholds (MD17 aspirin).  A triangle that passes the area filter
+    inserts its boundary edges even where the length filter dropped them
+    (gudhi insert semantics).  No fully-connected 0-0 augmentation."""
+    if backend == "auto" and max_dim == 2 and not os.environ.get(
+            "CSMPN_NO_NATIVE"):
+        from . import native
+        if native.available():
+            return native.clique_lift_native(points, edge_index, edge_th,
+                                             tri_th, max_dim)
+    points = np.asarray(points, dtype=np.float64)
+    n = len(points)
+    ei = np.asarray(edge_index)
+    und = set()
+    for s, t in zip(ei[0], ei[1]):
+        if s != t:
+            und.add((min(int(s), int(t)), max(int(s), int(t))))
+    und = sorted(und)
+
+    # triangles = 3-cliques of the undirected graph
+    nbrs: Dict[int, set] = {v: set() for v in range(n)}
+    for a, b in und:
+        nbrs[a].add(b)
+        nbrs[b].add(a)
+    triangles = []
+    for a, b in und:
+        for c in sorted(nbrs[a] & nbrs[b]):
+            if c > b:
+                triangles.append((a, b, c))
+
+    store = SimplexStore(max_dim)
+    for v in range(n):
+        store.insert((v,))
+    for a, b in und:
+        if np.linalg.norm(points[a] - points[b]) <= edge_th:
+            store.insert((a, b))
+    for a, b, c in triangles:
+        v1 = points[b] - points[a]
+        v2 = points[c] - points[a]
+        if points.shape[1] == 3:
+            area = 0.5 * np.linalg.norm(np.cross(v1, v2))
+        else:
+            gram = np.array([[v1 @ v1, v1 @ v2], [v1 @ v2, v2 @ v2]])
+            area = 0.5 * np.sqrt(max(np.linalg.det(gram), 0.0))
+        if area <= tri_th:
+            store.insert((a, b, c))
+    return _store_to_complex(store, fully_connect_nodes=False)
 
 
 def hull_lift(points: np.ndarray, dim: int = 2) -> SimplicialComplex:

@@ -1,7 +1,6 @@
 """Shared model machinery for the CSMPN task models.
 
-Port of ``csmpn_tpu/models/common.py`` (the parts the motion and hulls
-tasks use):
+Port of ``csmpn_tpu/models/common.py``:
 
   * the permutation-summed Clifford embedding of simplices — the ragged
     (d+1)! expansion is a static unrolled gather per dimension section;
@@ -13,7 +12,7 @@ tasks use):
 from __future__ import annotations
 
 import itertools
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,28 +54,40 @@ class SimplexEmbedding(nn.Module):
     """Per-dimension Clifford feature embedding with permutation symmetry:
     for each simplex dimension d, every vertex-order permutation of the
     simplex's per-vertex features is embedded (grade given per feature),
-    pushed through a per-dim network (MVLinear for d = 0, CEMLP with d
-    blocks above) and summed over permutations."""
+    pushed through a per-dim network and summed over permutations.  The
+    network is MVLinear for d = 0 and a CEMLP with d blocks above, this
+    module's ``embed_{d}``; ``out_channels`` defaults to ``num_hidden``.
+    With ``net_builder`` the network is ``net_builder(d, (d + 1) *
+    num_input, out_channels)`` instead (NBA's embedding stack), owned by
+    the builder's module: as in the flax tree, its parameters are the
+    caller's, not this module's, so it is held here unregistered."""
 
     def __init__(self, algebra: CliffordAlgebra, spec: PaddingSpec,
                  feature_spec: Sequence[Tuple[str, int]], num_input: int,
-                 num_hidden: int, max_dim: int = 2):
+                 num_hidden: int, max_dim: int = 2,
+                 out_channels: Optional[int] = None,
+                 net_builder: Optional[Callable[[int, int, int],
+                                                nn.Module]] = None):
         super().__init__()
         self.algebra = algebra
         self.spec = spec
         self.feature_spec = tuple(feature_spec)
         self.max_dim = max_dim
+        out_ch = out_channels or num_hidden
         secs = section_slices(spec)
         self.dims = [d for d in range(max_dim + 1)
                      if secs[d].start != secs[d].stop]
+        self._built: Dict[int, nn.Module] = {}   # not registered
         for d in self.dims:
-            if d == 0:
-                net = MVLinear(algebra, num_input, num_hidden,
-                               subspaces=False)
+            if net_builder is not None:
+                self._built[d] = net_builder(d, (d + 1) * num_input, out_ch)
+            elif d == 0:
+                self.embed_0 = MVLinear(algebra, num_input, out_ch,
+                                        subspaces=False)
             else:
-                net = CEMLP(algebra, (d + 1) * num_input, num_hidden,
-                            num_hidden, n_layers=d)
-            setattr(self, f"embed_{d}", net)
+                setattr(self, f"embed_{d}", CEMLP(
+                    algebra, (d + 1) * num_input, num_hidden, out_ch,
+                    n_layers=d))
 
     def forward(self, batch: SimplicialBatch,
                 features: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -96,9 +107,10 @@ class SimplexEmbedding(nn.Module):
                 g = g.reshape(B, S, P, (d + 1) * g.shape[4], g.shape[5])
                 chans.append(alg.embed_grade(g, grade))
             feats = torch.cat(chans, dim=-2)
-            emb = getattr(self, f"embed_{d}")(feats).sum(dim=2)
+            net = self._built.get(d) or getattr(self, f"embed_{d}")
+            emb = net(feats).sum(dim=2)
             outs.append(emb)
-        return torch.cat(outs, dim=1)                # (B, N, hidden, nb)
+        return torch.cat(outs, dim=1)                # (B, N, out_ch, nb)
 
 
 class SimplexTypeConditioning(nn.Module):

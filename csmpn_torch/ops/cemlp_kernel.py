@@ -4,14 +4,17 @@ kernel wrappers, their plain versions, and the autograd wiring.
 Port of ``csmpn_tpu/ops/cemlp_kernel.py`` (``apply_fused_cemlp``), in its
 two forms:
 
-  * dense, nb = 8: K2/K3 in ``csrc/cemlp.cu`` (Cl(3,0), the motion task,
-    output width <= 32 channels);
+  * dense, nb = 8 and nb = 4: K2/K3 in ``csrc/cemlp.cu``, compiled for
+    Cl(3,0) (the motion and MD17 tasks, output width <= 32 channels) and
+    for Cl(2,0) (the NBA task, output width <= 64 channels: a lane holds
+    two 4-blade channels);
   * pair, nb = 32: K2p/K3p in ``csrc/cemlp_pair.cu`` (Cl(5,0), the hulls
     task), where the weighted geometric product runs over the Cayley
     pairs (one left blade and one sign per (output j, right k)).
 
 Cl(4) (nb = 16), which the reference's pair form also serves, has no
-kernel yet and raises.  On a CUDA tensor the wrappers launch the kernels
+kernel yet and raises.  Widths whose block does not fit in one CTA's
+shared memory raise too.  On a CUDA tensor the wrappers launch the kernels
 (or raise); on a CPU tensor they compute the plain versions:
 
   * ``block_forward_plain`` — the block in PyTorch, written per grade
@@ -24,7 +27,7 @@ The block's parameters are taken in their flax shapes, in this order:
 silu.b (C, G), gp.weight (C, P), gp.linear_right.weight (C, C, G),
 gp.normalization.a (C, G), gp.linear_left.weight (C, C, G),
 gp.linear_left.bias (C, 1), norm.a (C,)`` with G grades and P nonzero
-grade paths (4 and 20 at Cl(3), 6 and 56 at Cl(5)).
+grade paths (3 and 10 at Cl(2), 4 and 20 at Cl(3), 6 and 56 at Cl(5)).
 
 ``exact=False`` (fast mode) rounds to bf16 the operands of every product
 the TPU kernel feeds its matrix unit and accumulates in fp32.  The two
@@ -48,10 +51,10 @@ from . import _build
 
 EPS = 1e-6
 SQRT2_INV = 1.0 / math.sqrt(2.0)
-MAX_CHANNELS = 32     # K2/K3: a warp's lanes are a row's output channels
-
 FWD_LAUNCHES = _build.LaunchCounter("cemlp_block_fwd")
 BWD_LAUNCHES = _build.LaunchCounter("cemlp_block_bwd")
+CL2_FWD_LAUNCHES = _build.LaunchCounter("cemlp_cl2_fwd")
+CL2_BWD_LAUNCHES = _build.LaunchCounter("cemlp_cl2_bwd")
 PAIR_FWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_fwd")
 PAIR_BWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_bwd")
 
@@ -64,31 +67,37 @@ class BlockKernel:
     """What one pair of block kernels takes, and where it lives."""
     label: str
     source: str           # csrc/{source}.cu
+    symbol: str           # prefix of its C entry points
     algebra: str
     n_blades: int
     n_grades: int
     n_paths: int
+    max_channels: int     # output channels a row's warp holds (0: any)
     rows_fwd: int         # rows per CTA tile (csrc constants)
     rows_bwd: int
     fwd: _build.LaunchCounter
     bwd: _build.LaunchCounter
 
 
-DENSE = BlockKernel("K2/K3", "cemlp", "Cl(3) (8 blades)", 8, 4, 20, 8, 8,
-                    FWD_LAUNCHES, BWD_LAUNCHES)
-PAIR = BlockKernel("K2p/K3p", "cemlp_pair", "Cl(5,0) (32 blades)", 32, 6,
-                   56, 8, 4, PAIR_FWD_LAUNCHES, PAIR_BWD_LAUNCHES)
+DENSE = BlockKernel("K2/K3", "cemlp", "csmpn_cemlp", "Cl(3) (8 blades)", 8,
+                    4, 20, 32, 8, 8, FWD_LAUNCHES, BWD_LAUNCHES)
+DENSE_CL2 = BlockKernel("K2/K3 at Cl(2)", "cemlp", "csmpn_cemlp_cl2",
+                        "Cl(2) (4 blades)", 4, 3, 10, 64, 8, 8,
+                        CL2_FWD_LAUNCHES, CL2_BWD_LAUNCHES)
+PAIR = BlockKernel("K2p/K3p", "cemlp_pair", "csmpn_cemlp_pair",
+                   "Cl(5,0) (32 blades)", 32, 6, 56, 0, 8, 4,
+                   PAIR_FWD_LAUNCHES, PAIR_BWD_LAUNCHES)
 
 
 def block_kernel(nb: int) -> BlockKernel:
     """The block kernels for nb blades, or NotImplementedError."""
-    for k in (DENSE, PAIR):
+    for k in (DENSE_CL2, DENSE, PAIR):
         if k.n_blades == nb:
             return k
     raise NotImplementedError(
-        f"no CEMLP block kernel for {nb} blades: K2/K3 take 3-dim algebras "
-        f"(8 blades), K2p/K3p Cl(5,0) (32 blades); Cl(4) (16 blades) is "
-        f"still to port (ROADMAP Queue 2)")
+        f"no CEMLP block kernel for {nb} blades: K2/K3 take 2- and 3-dim "
+        f"algebras (4 and 8 blades), K2p/K3p Cl(5,0) (32 blades); Cl(4) "
+        f"(16 blades) is still to port (ROADMAP Queue 2)")
 
 
 def _rounder(exact: bool):
@@ -172,7 +181,7 @@ def block_backward_plain(x, dout, params, alg, exact=True):
 
 # ------------------------------------------------------------ CUDA wrappers
 
-def _fn(name, nargs_ptr, nargs_int, source="cemlp"):
+def _fn(name, nargs_ptr, nargs_int, source):
     lib = _build.load(source)
     fn = getattr(lib, name)
     if fn.argtypes is None:
@@ -182,23 +191,26 @@ def _fn(name, nargs_ptr, nargs_int, source="cemlp"):
 
 
 @functools.lru_cache(maxsize=None)
-def _alg_tables(metric: tuple, source: str = "cemlp"):
+def _alg_tables(metric: tuple, source: str = ""):
     """(bc, sign) host arrays for the kernels, after checking that the
-    algebra's structure is the one compiled into csrc/{source}.cu: the
-    left blade and the grade path of every Cayley pair (j, k), the grade of
-    every blade and, for the pair kernels, which compute it, the pair's
-    sign."""
+    algebra's structure is the one compiled into the block kernels of its
+    blade count (or into csrc/{source}.cu, which includes their device
+    code): the left blade and the grade path of every Cayley pair (j, k),
+    the grade of every blade and, for the pair kernels, which compute it,
+    the pair's sign."""
     from ..algebra.clifford import get_algebra
 
     alg = get_algebra(metric)
-    kern = PAIR if source == "cemlp_pair" else DENSE
+    kern = block_kernel(alg.n_blades)
     nb = kern.n_blades
-    if alg.n_blades != nb or alg.n_product_paths != kern.n_paths:
+    source = source or kern.source
+    if alg.n_product_paths != kern.n_paths:
         raise NotImplementedError(
             f"csrc/{source}.cu is compiled for {kern.algebra} with "
             f"{kern.n_paths} grade paths, got metric {metric}")
+    symbol = kern.symbol if source == kern.source else f"csmpn_{source}"
     lib = _build.load(source)
-    fn = getattr(lib, f"csmpn_{source}_tables")
+    fn = getattr(lib, f"{symbol}_tables")
     i_of = np.zeros(nb * nb, np.int32)
     path = np.zeros(nb * nb, np.int32)
     grade = np.zeros(nb, np.int32)
@@ -232,7 +244,7 @@ def _pair_tabs(metric: tuple, device: torch.device) -> torch.Tensor:
     """The pair kernels' packed Cayley-pair tables (built by
     csrc/cemlp_pair.cu's host code, after `_alg_tables` checked its
     structure) on ``device``; each CTA copies them to shared memory."""
-    _alg_tables(metric, "cemlp_pair")
+    _alg_tables(metric)
     fn = _build.load("cemlp_pair").csmpn_cemlp_pair_packed
     fn.argtypes = [_P, _I]
     fn.restype = ctypes.c_int
@@ -256,10 +268,10 @@ def check_block_params(params, cin: int, c: int, device,
                 or t.device != device:
             raise ValueError(f"block parameter of shape {tuple(t.shape)} "
                              f"{t.dtype}, expected {s} float32 on {device}")
-    if kern is DENSE and c > MAX_CHANNELS:
+    if kern.max_channels and c > kern.max_channels:
         raise NotImplementedError(
-            f"K2/K3 (a lane per output channel) take at most "
-            f"{MAX_CHANNELS} output channels, got {c}")
+            f"{kern.label} (a warp's lanes hold a row's output channels) "
+            f"take at most {kern.max_channels} output channels, got {c}")
 
 
 def _check_block(x, params):
@@ -286,7 +298,7 @@ def _grid(rows: int, device, smem_bytes: int, rows_per_cta: int) -> int:
 def _smem(kern: BlockKernel, cin, c, backward):
     """Shared-memory bytes of a launch; NotImplementedError where the
     widths do not fit in one CTA's 227 KB."""
-    fn = getattr(_build.load(kern.source), f"csmpn_{kern.source}_smem_bytes")
+    fn = getattr(_build.load(kern.source), f"{kern.symbol}_smem_bytes")
     if fn.argtypes is None:
         fn.argtypes = [_I, _I, _I]
         fn.restype = ctypes.c_size_t
@@ -303,7 +315,7 @@ def _tables(kern: BlockKernel, alg, device) -> Tuple[np.ndarray, int]:
     signs on the host for K2/K3, the packed pair tables on the card for
     K2p/K3p."""
     metric = tuple(alg.metric.tolist())
-    bc, sign = _alg_tables(metric, kern.source)
+    bc, sign = _alg_tables(metric)
     if kern is PAIR:
         return bc, _pair_tabs(metric, device).data_ptr()
     return bc, sign.ctypes.data
@@ -311,7 +323,7 @@ def _tables(kern: BlockKernel, alg, device) -> Tuple[np.ndarray, int]:
 
 def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
                   exact: bool = True) -> torch.Tensor:
-    """K2 (nb = 8) or K2p (nb = 32): one CEMLP block, (rows, Cin, nb)
+    """K2 (nb = 4 or 8) or K2p (nb = 32): one CEMLP block, (rows, Cin, nb)
     float32 -> (rows, C, nb)."""
     if not x.is_cuda:
         return block_forward_plain(x, params, alg, exact)
@@ -324,7 +336,7 @@ def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
         return out
     bc, tabs = _tables(kern, alg, x.device)
     grid = _grid(rows, x.device, _smem(kern, cin, c, False), kern.rows_fwd)
-    fn = _fn(f"csmpn_{kern.source}_fwd", 14, 5, kern.source)
+    fn = _fn(f"{kern.symbol}_fwd", 14, 5, kern.source)
     err = fn(x.data_ptr(), *[p.data_ptr() for p in params],
              bc.ctypes.data, tabs, out.data_ptr(), rows, cin, c,
              0 if exact else 1, grid,
@@ -346,7 +358,7 @@ def _split_grads(flat: torch.Tensor, params) -> List[torch.Tensor]:
 def _partial_floats(kern: BlockKernel, cin: int, c: int, n_grad: int) -> int:
     """Floats of one CTA's slice of the backward's scratch: its partial
     gradient vector, and for K3p also its channel-mixing accumulators."""
-    if kern is DENSE:
+    if kern is not PAIR:
         return n_grad
     fn = _build.load(kern.source).csmpn_cemlp_pair_partial_floats
     fn.argtypes = [_I, _I]
@@ -357,8 +369,8 @@ def _partial_floats(kern: BlockKernel, cin: int, c: int, n_grad: int) -> int:
 def block_backward(x: torch.Tensor, dout: torch.Tensor,
                    params: Sequence[torch.Tensor], alg, exact: bool = True
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """K3 (nb = 8) or K3p (nb = 32): dx and the 10 parameter gradients of
-    one CEMLP block."""
+    """K3 (nb = 4 or 8) or K3p (nb = 32): dx and the 10 parameter gradients
+    of one CEMLP block."""
     if not x.is_cuda:
         return block_backward_plain(x, dout, params, alg, exact)
     x = x.contiguous()
@@ -375,7 +387,7 @@ def block_backward(x: torch.Tensor, dout: torch.Tensor,
     partials = torch.empty((grid, _partial_floats(kern, cin, c, n_grad)),
                            dtype=torch.float32, device=x.device)
     flat = torch.empty(n_grad, dtype=torch.float32, device=x.device)
-    fn = _fn(f"csmpn_{kern.source}_bwd", 17, 5, kern.source)
+    fn = _fn(f"{kern.symbol}_bwd", 17, 5, kern.source)
     err = fn(x.data_ptr(), dout.data_ptr(),
              *[p.data_ptr() for p in params], bc.ctypes.data, tabs,
              dx.data_ptr(), partials.data_ptr(), flat.data_ptr(), rows, cin,
@@ -408,7 +420,7 @@ class _Block(torch.autograd.Function):
 
 def apply_fused_cemlp(cemlp, x: torch.Tensor) -> torch.Tensor:
     """A whole CEMLP, one K2 (K2p at Cl(5)) launch per block forward and one
-    K3 (K3p) launch per block backward.  x: (..., C_in, nb) -> (..., C_out, nb), in x's dtype
+    K3 (K3p) launch per block backward, at Cl(2), Cl(3) or Cl(5).  x: (..., C_in, nb) -> (..., C_out, nb), in x's dtype
     (the blocks compute in float32)."""
     from .segment import aggregation_exact
 

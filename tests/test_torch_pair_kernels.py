@@ -156,13 +156,14 @@ def test_pair_wrappers_on_cpu_take_plain_versions_and_count_nothing():
 
 
 def test_block_kernel_forms():
-    """nb = 8 takes K2/K3, nb = 32 K2p/K3p; every other blade count raises
-    and names what each kernel takes."""
+    """nb = 8 takes K2/K3, nb = 4 their Cl(2) build, nb = 32 K2p/K3p;
+    every other blade count raises and names what each kernel takes."""
     assert ck.block_kernel(8) is ck.DENSE
+    assert ck.block_kernel(4) is ck.DENSE_CL2
     assert ck.block_kernel(32) is ck.PAIR
     assert (ck.PAIR.n_grades, ck.PAIR.n_paths) == (
         get_algebra(CL5).n_subspaces, get_algebra(CL5).n_product_paths)
-    for nb in (4, 16):
+    for nb in (2, 16):
         with pytest.raises(NotImplementedError, match="32 blades"):
             ck.block_kernel(nb)
 
