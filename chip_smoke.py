@@ -5,25 +5,32 @@
 1. prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels from csmpn_torch/csrc, all sources in parallel, with each
    kernel's registers and spills;
-2. holds each kernel against its plain PyTorch version on the card, in
+2. the envelope probe (P1 copy, P2 resident matrix product in bf16 and
+   tf32 on the tensor cores and fp32 FFMA, P3 FMA chain): each kernel
+   against its plain version at tools/mxu_probe.py's sizes (P1 bitwise at
+   every tile height), two launches bitwise equal, then the probe through
+   its entry point with its launches counted, the plain and library
+   times, the bounds, and the measured envelope against the data sheet;
+   every later bound is also given against that envelope;
+3. holds each kernel against its plain PyTorch version on the card, in
    exact and fast mode, with stated tolerances: K1, K2 and K3 at the
    motion task's shapes and K2/K3 at the bench widths; K4 and K5 (fused
    message passing) over the bench graph and the stress layouts (empty
    windows, few edges over many windows, masked edges, ragged E and N,
    with and without edge attributes), bitwise repeatable, masked rows of
    d(hj) exactly 0;
-3. times each kernel, its plain version, a PyTorch library call where one
+4. times each kernel, its plain version, a PyTorch library call where one
    computes the same function, and states the least time the card could
    take (bytes over 3.35 TB/s or operations over the peak rate); for K4
    and K5 also the composed route (gather, edge CEMLP on K2/K3,
    aggregation on K1) computing the same function;
-4. checks the full-width motion model on the card against the same model
+5. checks the full-width motion model on the card against the same model
    on the CPU (loss and every gradient, exact mode);
-5. runs the motion task through its entry point (fire -> run_task ->
+6. runs the motion task through its entry point (fire -> run_task ->
    Trainer.fit) at the configs/motion.yaml widths for 8 training steps in
    the default fast precision, shows that K1, K2 and K3 ran, counts their
    launches in one training step and profiles a few steps' device time;
-6. the hulls path (Cl(5,0), configs/hulls.yaml widths: hidden 28, 3 EGCL
+7. the hulls path (Cl(5,0), configs/hulls.yaml widths: hidden 28, 3 EGCL
    layers, batch 16) on a dataset cut to 512/256/256 samples: K1 at
    D = 896 on a real batch's ids; K2p and K3p (the pair-form block
    kernels) against their plain versions at every block shape of a hulls
@@ -32,27 +39,27 @@
    (loss and every gradient, exact; fast loss against exact); then the
    hulls task through its entry point for 8 fast steps, with K1, K2p and
    K3p counted (15 K2p and 15 K3p launches per step) and a profile;
-7. the NBA path (Cl(2,0), configs/nba.yaml widths: hidden 40, 3 EGCL
+8. the NBA path (Cl(2,0), configs/nba.yaml widths: hidden 40, 3 EGCL
    layers, batch 100; stand-in data at 800 plays): K1 at D = 160 on a real
    batch's ids; K2 and K3 at Cl(2) (4 blades, up to 40 channels) against
    their plain versions at every block shape of an NBA step, exact and
    fast, every gradient, two launches bitwise equal, and their times; the
    full-width model card vs CPU; the task through its entry point for 8
    fast steps with 15 + 15 Cl(2) launches per step and a profile;
-8. the MD17 path (aspirin, Cl(3,0), configs/md17.yaml widths: hidden 32,
+9. the MD17 path (aspirin, Cl(3,0), configs/md17.yaml widths: hidden 32,
    5 EGCL layers, batch 100, k = 3; samples cut to 500/200/200): the
    lift's backend and time, K1 at D = 256, K2 and K3 at every MD17 block
    shape (the 90 -> 32 backward, the widest, included) with the checks of
-   7, the full-width model card vs CPU, the task for 8 fast steps with
+   8, the full-width model card vs CPU, the task for 8 fast steps with
    24 + 24 launches per step;
-9. runs the bench path through its entry point (csmpn_torch.bench.main:
-   3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
-   Adam), shows that K1-K5 ran and counts their launches in one step,
-   profiles a few steps, holds its fast-mode loss to its exact-mode loss,
-   and, in fast mode, its loss and every gradient on K4/K5 to the same
-   stack on the composed route;
-10. prints the kernels JSON line (nine kernels) and, last, the device
-    JSON line.
+10. runs the bench path through its entry point (csmpn_torch.bench.main:
+    3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
+    Adam), shows that K1-K5 ran and counts their launches in one step,
+    profiles a few steps, holds its fast-mode loss to its exact-mode loss,
+    and, in fast mode, its loss and every gradient on K4/K5 to the same
+    stack on the composed route;
+11. prints the kernels JSON line (twelve kernels) and, last, the
+    device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one card and imports nothing of JAX.
@@ -140,7 +147,20 @@ TOL = {  # max |kernel - plain| allowed, relative to max |plain|: fp32
     # the NBA and MD17 models on the card against the CPU, as hulls
     "nba_loss": 1e-4, "nba_grad": 1e-3, "nba_fast_loss": 5e-2,
     "md17_loss": 1e-4, "md17_grad": 1e-3, "md17_fast_loss": 5e-2,
+    # P2 and P3 (the envelope probe) against their plain versions at the
+    # probe's sizes, relative to max |plain|: the products are exact in
+    # fp32 after the same operand rounding, so only the order of the fp32
+    # sum over K * reps = 8,192 terms differs; P3 rounds once a step
+    # (fused), the plain version twice.  P1 is held bitwise.  Readings of
+    # the first run on the H100 (PERF.md): bf16 1.3e-5, tf32 3.0e-5, fp32
+    # 1.0e-5 (the FFMA sum against cuBLAS's order, as large as the tensor
+    # cores' against it), P3 4.1e-6
+    "p2_bf16": 5e-5, "p2_tf32": 1e-4, "p2_fp32": 3e-5, "p3": 1e-5,
 }
+# the measured envelope of this card (phase_envelope): "bytes" (P1's best
+# copy bandwidth, bytes/s), "bf16" (P2's bf16 mma.sync rate) and "fp32"
+# (P3's FMA rate), FLOP/s; bound() sets each kernel's least time by it
+ENVELOPE = {}
 # the hulls task (configs/hulls.yaml, HullsModel defaults): Cl(5,0),
 # hidden 28, 3 EGCL layers, batch 16; the dataset cut from 16,384 samples
 # per split to these (the padding spec comes from the data)
@@ -201,8 +221,134 @@ def check(name: str, got, ref, tol: float):
 
 
 def bound(bytes_moved: float, flops: float, peak: float):
+    """(least ms at the data sheet's rates, "bytes" or "operations",
+    least ms at the envelope measured in this run by phase_envelope:
+    P1's copy bandwidth, P2's bf16 rate for bf16 work, P3's FMA rate for
+    fp32 work)."""
     t_b, t_f = bytes_moved / MEM_BW, flops / peak
-    return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
+    rate = ENVELOPE["bf16"] if peak == BF16_PEAK else ENVELOPE["fp32"]
+    env = max(bytes_moved / ENVELOPE["bytes"], flops / rate) * 1e3
+    return (max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations"),
+            env)
+
+
+# ------------------------------------------------- P1-P3: the envelope probe
+
+def phase_envelope(dev, results):
+    """P1-P3 against their plain versions at the envelope probe's default
+    sizes (P1 bitwise at every tile height), two launches bitwise equal;
+    then the probe through its entry point with every count set to 0 just
+    before and read just after, the plain versions' times, the bounds, and
+    the measured envelope, which sets ENVELOPE.  Returns the launches."""
+    from csmpn_torch.ops import probe_kernels as pk
+    from csmpn_torch.tools import envelope_probe as ep
+
+    print("P1-P3 (envelope probe) vs plain at tools/mxu_probe.py's sizes")
+    reps = 32
+    x, a, b, v = (t.to(dev) for t in ep.inputs())
+    ref = pk.copy_scale_plain(x)
+    for tile in ep.TILES:
+        out, again = pk.copy_scale(x, tile), pk.copy_scale(x, tile)
+        if not (torch.equal(out, ref) and torch.equal(out, again)):
+            raise AssertionError(f"P1 tile {tile}: not x * 2 bit for bit, or "
+                                 f"two launches differ")
+    print(f"  P1 copy (131072 x 256 fp32), tiles {ep.TILES}: bitwise equal "
+          f"to x * 2, two launches bitwise equal")
+    errs = {}
+    for mode in pk.MODES:
+        out = pk.resident_matmul(a, b, reps, mode)
+        again = pk.resident_matmul(a, b, reps, mode)
+        ref = pk.resident_matmul_plain(a, b, reps, mode)
+        errs[mode] = check(f"P2 resident matmul {mode} (512x256x2048, "
+                           f"{reps} reps)", out, ref, TOL[f"p2_{mode}"])
+        if not torch.equal(out, again):
+            raise AssertionError(f"P2 {mode}: two launches differ")
+    out, again = pk.fma_chain(v), pk.fma_chain(v)
+    errs["p3"] = check("P3 fma chain x256 (4096x512)", out,
+                       pk.fma_chain_plain(v), TOL["p3"])
+    if not torch.equal(out, again):
+        raise AssertionError("P3: two launches differ")
+    print("  P2, P3: two launches bitwise equal")
+    del out, again, ref
+
+    counters = {"p1": pk.COPY_LAUNCHES, "p3": pk.FMA_LAUNCHES,
+                **{f"p2_{m}": pk.RESIDENT_LAUNCHES[m] for m in pk.MODES}}
+    print("envelope probe via csmpn_torch.tools.envelope_probe.main")
+    for c in counters.values():
+        c.reset()
+    res = ep.main(["--device=cuda"])
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    print(f"  launches during the run: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} never launched by the probe")
+    env = res["envelope"]
+    ENVELOPE.update(bytes=env["copy"], bf16=env["bf16"], fp32=env["fma"])
+
+    work = res["work"]
+    plain_copy = time_ms(lambda: pk.copy_scale_plain(x), iters=20)
+    plain_p2 = {m: time_ms(lambda: pk.resident_matmul_plain(a, b, reps, m),
+                           iters=3, warmup=1) for m in pk.MODES}
+    plain_p3 = time_ms(lambda: pk.fma_chain_plain(v), iters=3, warmup=1)
+    tile = max(res["copy"]["gbps"], key=res["copy"]["gbps"].get)
+    copy_ms = res["copy"]["ms"][tile]
+    p1_b, p1_by = ep.bound_ms(work["copy"]["bytes"], work["copy"]["flops"],
+                              FP32_PEAK)
+    p2_b = {m: ep.bound_ms(work["resident"]["bytes"],
+                           work["resident"]["flops"], ep.DATA_SHEET[m],
+                           elementwise=work["resident"]["elementwise"])
+            for m in pk.MODES}
+    p3_b, p3_by = ep.bound_ms(work["fma"]["bytes"], work["fma"]["flops"],
+                              FP32_PEAK)
+    print(f"  P1 copy tile {tile}: kernel {copy_ms * 1e3:.1f} us  plain "
+          f"(x * 2) {plain_copy * 1e3:.1f} us  copy_ "
+          f"{res['copy']['library_ms']['copy_'] * 1e3:.1f} us  bound "
+          f"{p1_b * 1e3:.1f} us ({p1_by})")
+    for m in pk.MODES:
+        print(f"  P2 {m}: kernel {res['resident']['ms'][m] * 1e3:.1f} us  "
+              f"plain {plain_p2[m] * 1e3:.1f} us  torch.matmul x{reps} "
+              f"{res['resident']['library_ms'][m] * 1e3:.1f} us  bound "
+              f"{p2_b[m][0] * 1e3:.1f} us ({p2_b[m][1]})")
+    print(f"  P3: kernel {res['fma']['ms'] * 1e3:.1f} us  plain "
+          f"{plain_p3 * 1e3:.1f} us  bound {p3_b * 1e3:.1f} us ({p3_by})")
+    print(f"  measured envelope vs the data sheet: copy "
+          f"{env['copy'] / 1e9:.1f} GB/s of {MEM_BW / 1e9:.0f}; bf16 "
+          f"mma.sync "
+          f"{env['bf16'] / 1e12:.2f} TF/s of {BF16_PEAK / 1e12:.0f}; tf32 "
+          f"{env['tf32'] / 1e12:.2f} of {ep.DATA_SHEET['tf32'] / 1e12:.0f}; "
+          f"fp32 FFMA GEMM {env['fp32'] / 1e12:.2f} and FMA chain "
+          f"{env['fma'] / 1e12:.2f} of {FP32_PEAK / 1e12:.0f}")
+    src, line = "csmpn_torch/csrc/envelope.cu", "tools/mxu_probe.py:"
+    results["p1"] = dict(
+        name="copy_scale", route="cuda", source=src, replaces=line + "87",
+        max_abs_err=0.0, ms=copy_ms, plain_ms=plain_copy, bound_ms=p1_b,
+        bound_by=p1_by, library_ms=res["copy"]["library_ms"]["x*2"],
+        library_copy_ms=res["copy"]["library_ms"]["copy_"],
+        ms_by_tile=res["copy"]["ms"], gbps=env["copy"] / 1e9,
+        shape=f"R=131072 x 256 fp32, {tile}-row tiles")
+    results["p2"] = dict(
+        name="resident_matmul", route="cuda", source=src,
+        replaces=line + "112",
+        max_abs_err=max(errs[m] for m in pk.MODES),
+        max_abs_err_by_mode={m: errs[m] for m in pk.MODES},
+        ms=res["resident"]["ms"]["bf16"], plain_ms=plain_p2["bf16"],
+        bound_ms=p2_b["bf16"][0], bound_by=p2_b["bf16"][1],
+        library_ms=res["resident"]["library_ms"]["bf16"],
+        ms_by_mode=res["resident"]["ms"], plain_ms_by_mode=plain_p2,
+        library_ms_by_mode=res["resident"]["library_ms"],
+        bound_ms_by_mode={m: p2_b[m][0] for m in pk.MODES},
+        tflops_by_mode=res["resident"]["tflops"],
+        launches_by_mode={m: launches[f"p2_{m}"] for m in pk.MODES},
+        shape=f"M, K, N = 512, 256, 2048, {reps} reps; bf16 (mma.sync), "
+              f"tf32 (mma.sync), fp32 (FFMA)")
+    results["p3"] = dict(
+        name="fma_chain", route="cuda", source=src, replaces=line + "150",
+        max_abs_err=errs["p3"], ms=res["fma"]["ms"], plain_ms=plain_p3,
+        bound_ms=p3_b, bound_by=p3_by, library_ms=None,
+        tflops=res["fma"]["tflops"], shape="(4096, 512) fp32, 256 steps")
+    return {"p1": launches["p1"], "p3": launches["p3"],
+            "p2": sum(launches[f"p2_{m}"] for m in pk.MODES)}
 
 
 # ------------------------------------------------------------------- K1
@@ -281,7 +427,7 @@ def phase_k1(dev, gen, results, real):
                                                axis=0, unsafe=True))
     n_read = int(offsets[-1])
     bytes_moved = n_read * d * 2 + N_TOT * d * 4 + E_TOT * 8
-    b_ms, b_by = bound(bytes_moved, n_read * d, FP32_PEAK)
+    b_ms, b_by, b_env = bound(bytes_moved, n_read * d, FP32_PEAK)
     print(f"  time (motion target ids) E={E_TOT} N={N_TOT} D={d} bf16: "
           f"kernel {ms*1e3:.1f} us"
           f"  plain {plain*1e3:.1f} us  segment_reduce {lib*1e3:.1f} us"
@@ -289,8 +435,8 @@ def phase_k1(dev, gen, results, real):
     # the node-attribute gathers' backward: D = 3 types * 8 blades, fp32
     attr = torch.randn(E_TOT, 24, generator=gen).to(dev)
     ms24 = time_ms(lambda: sk.sorted_segment_sum(attr, ids, N_TOT, True))
-    b24, _ = bound(n_read * 24 * 4 + N_TOT * 24 * 4 + E_TOT * 8, n_read * 24,
-                   FP32_PEAK)
+    b24, _, _ = bound(n_read * 24 * 4 + N_TOT * 24 * 4 + E_TOT * 8,
+                      n_read * 24, FP32_PEAK)
     print(f"  time E={E_TOT} N={N_TOT} D=24 fp32: kernel {ms24*1e3:.1f} us"
           f"  bound {b24*1e3:.1f} us; per training step (12 at D={d} bf16,"
           f" 2 at D=24): {12 * ms + 2 * ms24:.3f} ms")
@@ -299,7 +445,7 @@ def phase_k1(dev, gen, results, real):
         source="csmpn_torch/csrc/segment_sum.cu",
         replaces="csmpn_tpu/ops/pallas_segment.py:33",
         max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib,
+        bound_by=b_by, library_ms=lib, bound_env_ms=b_env,
         shape=f"E={E_TOT} N={N_TOT} D={d} bf16")
 
 
@@ -340,7 +486,7 @@ BLOCK_NAMES = ["linear.weight", "linear.bias", "silu.a", "silu.b",
 
 
 def block_bound(rows, cin, c, params, backward, nb=8):
-    """(bound ms, by) of one block launch, fast mode: K2 reads x and writes
+    """bound() of one block launch, fast mode: K2 reads x and writes
     the output; K3 also reads d(out) and writes dx and the gradients."""
     pbytes = sum(p.numel() for p in params) * 4
     f2 = block_flops(rows, cin, c, nb)
@@ -386,8 +532,8 @@ def phase_cemlp(dev, gen, results):
                   iters=20)
     bwd_plain = time_ms(lambda: ck.block_backward_plain(x, dout, params, alg,
                                                         False), iters=5)
-    b2, b2by = block_bound(rows, cin, c, params, False)
-    b3, b3by = block_bound(rows, cin, c, params, True)
+    b2, b2by, b2env = block_bound(rows, cin, c, params, False)
+    b3, b3by, b3env = block_bound(rows, cin, c, params, True)
     shape = f"{name}: rows={rows} Cin={cin} C={c} fast"
     print(f"  time {shape}: fwd {fwd*1e3:.1f} us (plain {fwd_plain*1e3:.1f},"
           f" bound {b2*1e3:.1f} {b2by}); bwd {bwd*1e3:.1f} us (plain "
@@ -404,8 +550,8 @@ def phase_cemlp(dev, gen, results):
         tb = time_ms(lambda: ck.block_backward(x, dout, params, alg, False),
                      iters=20)
         times[name] = (tf, tb)
-        bf, _ = block_bound(rows, cin, c, params, False)
-        bb, _ = block_bound(rows, cin, c, params, True)
+        bf, _, _ = block_bound(rows, cin, c, params, False)
+        bb, _, _ = block_bound(rows, cin, c, params, True)
         if name.startswith("bench"):
             path, k = "bench", 3
         else:
@@ -423,7 +569,7 @@ def phase_cemlp(dev, gen, results):
         replaces="csmpn_tpu/ops/cemlp_kernel.py:430",
         max_abs_err=max(e2["exact"]), max_abs_err_fast=max(e2["fast"]),
         ms=fwd, plain_ms=fwd_plain, bound_ms=b2, bound_by=b2by,
-        library_ms=None, shape=shape,
+        library_ms=None, bound_env_ms=b2env, shape=shape,
         bench_node_ms=[times["bench_node_block0"][0],
                        times["bench_node_block1"][0]])
     results["k3"] = dict(
@@ -431,7 +577,7 @@ def phase_cemlp(dev, gen, results):
         replaces="csmpn_tpu/ops/cemlp_kernel.py:519",
         max_abs_err=max(e3["exact"]), max_abs_err_fast=max(e3["fast"]),
         ms=bwd, plain_ms=bwd_plain, bound_ms=b3, bound_by=b3by,
-        library_ms=None, shape=shape,
+        library_ms=None, bound_env_ms=b3env, shape=shape,
         bench_node_ms=[times["bench_node_block0"][1],
                        times["bench_node_block1"][1]])
 
@@ -651,17 +797,18 @@ def phase_fused_time(dev, results):
 
     rows = _t.randn(e, c * 8, device=dev).to(_t.bfloat16)
     k1 = time_ms(lambda: sk.sorted_segment_sum(rows, src_sort[1], n, False))
-    b1, _ = bound(e * c * 16 + n * c * 32 + e * 8, e * c * 8, FP32_PEAK)
+    b1, _, _ = bound(e * c * 16 + n * c * 32 + e * 8, e * c * 8, FP32_PEAK)
     print(f"K1 at the bench shape (E={e} N={n} D={c * 8} bf16, sorted "
           f"sources): {k1*1e3:.1f} us  bound {b1*1e3:.1f} us")
     results["k1"]["bench_ms"] = k1
     pbytes = sum(p.numel() for p in params) * 4
     flops = block_flops(e, c, c) * 2
     in_bytes = n * c * 16 + e * c * 16 + e * 4      # h, hj bf16; ids
-    b4, b4by = bound(in_bytes + pbytes + n * c * 32, flops, BF16_PEAK)
+    b4, b4by, b4env = bound(in_bytes + pbytes + n * c * 32, flops,
+                            BF16_PEAK)
     # K5: also reads d(agg) fp32; writes dh fp32, dhj bf16, the gradients
-    b5, b5by = bound(in_bytes + n * c * 32 + 2 * pbytes + n * c * 32
-                     + e * c * 16, 3 * flops, BF16_PEAK)
+    b5, b5by, b5env = bound(in_bytes + n * c * 32 + 2 * pbytes
+                            + n * c * 32 + e * c * 16, 3 * flops, BF16_PEAK)
     shape = f"E={e} N={n} Cm=C={c} fast"
     print(f"K4/K5 time at the bench shape ({shape}):")
     print(f"  K4 {k4*1e3:.1f} us  plain {k4_plain*1e3:.1f} us  composed "
@@ -669,9 +816,11 @@ def phase_fused_time(dev, results):
     print(f"  K5 {k5*1e3:.1f} us  plain {k5_plain*1e3:.1f} us  composed "
           f"route {k5_comp*1e3:.1f} us  bound {b5*1e3:.1f} us ({b5by})")
     results["k4"].update(ms=k4, plain_ms=k4_plain, bound_ms=b4, bound_by=b4by,
-                         library_ms=None, composed_ms=k4_comp, shape=shape)
+                         library_ms=None, bound_env_ms=b4env,
+                         composed_ms=k4_comp, shape=shape)
     results["k5"].update(ms=k5, plain_ms=k5_plain, bound_ms=b5, bound_by=b5by,
-                         library_ms=None, composed_ms=k5_comp, shape=shape)
+                         library_ms=None, bound_env_ms=b5env,
+                         composed_ms=k5_comp, shape=shape)
     set_aggregation_mode("exact")
 
 
@@ -916,14 +1065,15 @@ def phase_k1_task(dev, gen, ds, results, d, tag):
     kept = data[:n_read]
     lib = time_ms(lambda: torch.segment_reduce(kept, "sum", lengths=lengths,
                                                axis=0, unsafe=True))
-    b_ms, b_by = bound(n_read * d * 2 + n * d * 4 + e * 8, n_read * d,
-                       FP32_PEAK)
+    b_ms, b_by, b_env = bound(n_read * d * 2 + n * d * 4 + e * 8,
+                              n_read * d, FP32_PEAK)
     print(f"  time ({tag} target ids) E={e} N={n} D={d} bf16: kernel "
           f"{ms*1e3:.1f} us  plain {plain*1e3:.1f} us  segment_reduce "
           f"{lib*1e3:.1f} us  bound {b_ms*1e3:.1f} us ({b_by})")
     results["k1"]["max_abs_err"] = max(results["k1"]["max_abs_err"], *errs)
     results["k1"].update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain,
                           f"{tag}_library_ms": lib, f"{tag}_bound_ms": b_ms,
+                          f"{tag}_bound_env_ms": b_env,
                           f"{tag}_shape": f"E={e} N={n} D={d} bf16"})
 
 
@@ -991,8 +1141,8 @@ def time_block_form(dev, gen, alg, shapes, keys, iters):
     bwd_plain = time_ms(lambda: ck.block_backward_plain(x, dout, params, alg,
                                                         False),
                         iters=iters[3], warmup=1)
-    b2, b2by = block_bound(rows, cin, c, params, False, nb=nb)
-    b3, b3by = block_bound(rows, cin, c, params, True, nb=nb)
+    b2, b2by, b2env = block_bound(rows, cin, c, params, False, nb=nb)
+    b3, b3by, b3env = block_bound(rows, cin, c, params, True, nb=nb)
     shape = f"{name}: rows={rows} Cin={cin} C={c} nb={nb} fast"
     print(f"  time {shape}: {kf} {fwd*1e3:.1f} us (plain "
           f"{fwd_plain*1e3:.1f}, bound {b2*1e3:.1f} {b2by}); {kb} "
@@ -1007,8 +1157,8 @@ def time_block_form(dev, gen, alg, shapes, keys, iters):
                      iters=max(iters[0] // 2, 5))
         tb = time_ms(lambda: ck.block_backward(x, dout, params, alg, False),
                      iters=max(iters[1] // 2, 5))
-        bf, _ = block_bound(rows, cin, c, params, False, nb=nb)
-        bb, _ = block_bound(rows, cin, c, params, True, nb=nb)
+        bf, _, _ = block_bound(rows, cin, c, params, False, nb=nb)
+        bb, _, _ = block_bound(rows, cin, c, params, True, nb=nb)
         tot[0] += k * tf
         tot[1] += k * tb
         print(f"  {name:<15s} rows={rows:<6d} Cin={cin:<3d} C={c}: {kf} "
@@ -1016,9 +1166,11 @@ def time_block_form(dev, gen, alg, shapes, keys, iters):
               f"{tb*1e3:8.1f} us (bound {bb*1e3:5.1f})  x{k} per step")
     print(f"  per training step: {kf} {tot[0]:.3f} ms, {kb} {tot[1]:.3f} ms")
     return {kf: dict(ms=fwd, plain_ms=fwd_plain, bound_ms=b2, bound_by=b2by,
-                     library_ms=None, shape=shape, per_step_ms=tot[0]),
+                     library_ms=None, bound_env_ms=b2env, shape=shape,
+                     per_step_ms=tot[0]),
             kb: dict(ms=bwd, plain_ms=bwd_plain, bound_ms=b3, bound_by=b3by,
-                     library_ms=None, shape=shape, per_step_ms=tot[1])}
+                     library_ms=None, bound_env_ms=b3env, shape=shape,
+                     per_step_ms=tot[1])}
 
 
 def phase_block_form(dev, gen, results, shapes, metric, keys, name, src,
@@ -1369,6 +1521,7 @@ def main() -> int:
                       "k3p": ck.PAIR_BWD_LAUNCHES}
     nba_counters = {"k1": sk.LAUNCHES, "k2_cl2": ck.CL2_FWD_LAUNCHES,
                     "k3_cl2": ck.CL2_BWD_LAUNCHES}
+    runs = {"envelope": (phase_envelope(dev, results), None)}
     with tempfile.TemporaryDirectory() as dataroot:
         real = motion_ids(dataroot, dev)
         phase_k1(dev, gen, results, real)
@@ -1376,7 +1529,7 @@ def main() -> int:
         phase_fused(dev, gen, results)
         phase_fused_time(dev, results)
         phase_model(dev, dataroot)
-        runs = {"motion": phase_task(dataroot, motion_counters)[:2]}
+        runs["motion"] = phase_task(dataroot, motion_counters)[:2]
         runs["hulls"] = phase_hulls(dev, gen, results, dataroot,
                                     hulls_counters)[:2]
         runs["nba"] = phase_nba(dev, gen, results, dataroot,
@@ -1385,17 +1538,20 @@ def main() -> int:
                                   motion_counters)[:2]
     runs["bench"] = phase_bench(counters)[:2]
     # each kernel's launches on the path that runs it (the bench for
-    # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2)), the other paths'
-    # beside them
+    # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2), the probe's own
+    # run for P1-P3, which has no training step), the other paths' beside
+    # them
     home = {"k2p": "hulls", "k3p": "hulls", "k2_cl2": "nba",
-            "k3_cl2": "nba"}
+            "k3_cl2": "nba", "p1": "envelope", "p2": "envelope",
+            "p3": "envelope"}
     kernels = []
     for k in ("k1", "k2", "k3", "k4", "k5", "k2p", "k3p", "k2_cl2",
-              "k3_cl2"):
+              "k3_cl2", "p1", "p2", "p3"):
         entry = dict(results[k])
         own = home.get(k, "bench")
         entry["launches"] = runs[own][0][k]
-        entry["launches_per_step"] = runs[own][1][k]
+        if runs[own][1] is not None:
+            entry["launches_per_step"] = runs[own][1][k]
         for tag, (lc, ps) in runs.items():
             if tag != own and k in lc:
                 entry[f"launches_{tag}"] = lc[k]

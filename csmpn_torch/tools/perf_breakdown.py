@@ -16,10 +16,12 @@ launches, after a warm-up:
         [--edges 131072] [--nodes 8192] [--iters 20] [--exact]
 
 Fast mode (bf16 streams, the bench's mode) is the default; ``--exact``
-runs fp32 and the composed edge side.  The rates are the H100 SXM data
-sheet's: 3.35 TB/s HBM3, 989 TFLOP/s bf16 dense, 67 TFLOP/s fp32.  A
-measured envelope of this card waits for the copy, tensor-core and FMA
-probes (ROADMAP).  The card's name and power limit head the output.
+runs fp32 and the composed edge side.  Each stage's least time is
+reported twice: at the H100 SXM data sheet's rates (3.35 TB/s HBM3, 989
+TFLOP/s bf16 dense, 67 TFLOP/s fp32) and at this card's measured
+envelope, which ``tools/envelope_probe.measure`` takes once at start-up
+(P1's best copy bandwidth, P2's bf16 mma.sync rate, P3's FMA rate).  The
+card's name and power limit head the output.
 """
 from __future__ import annotations
 
@@ -80,8 +82,12 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
                               init_parameters)
     from ..ops import segment as seg
 
+    from . import envelope_probe
+
     seg.set_aggregation_mode("exact" if args.exact else "fast")
     dev = torch.device("cuda", 0)
+    env = envelope_probe.measure(dev, library=False)["envelope"]
+    env_rate = {BF16_FLOPS: env["bf16"], FP32_FLOPS: env["fma"]}
     alg = get_algebra((1.0, 1.0, 1.0))
     C, nb = args.hidden, 8
     D = C * nb
@@ -97,20 +103,25 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
     print(f"# {card()}")
     print(f"# device={torch.cuda.get_device_name(dev)} E={E} N={N} C={C} "
           f"D={D} mode={'exact' if args.exact else 'fast'}")
+    print(f"# measured envelope: copy {env['copy'] / 1e9:.1f} GB/s, bf16 "
+          f"mma.sync {env['bf16'] / 1e12:.2f} TF/s, fp32 FMA "
+          f"{env['fma'] / 1e12:.2f} TF/s")
     rows = []
 
     def report(name, ms, hbm_bytes, flops, peak):
         t_mem = hbm_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
         bound = max(t_mem, t_ops)
-        rows.append((name, ms, hbm_bytes, flops, bound))
+        t_env = max(hbm_bytes / env["copy"], flops / env_rate[peak]) * 1e3
+        rows.append((name, ms, hbm_bytes, flops, bound, t_env))
         bw = hbm_bytes / (ms * 1e-3) / 1e9
         fl = flops / (ms * 1e-3) / 1e12
         print(f"{name:34s} {ms:8.3f} ms  {bw:7.1f} GB/s "
               f"({bw / (HBM_BYTES_PER_S / 1e9) * 100:5.1f}% HBM)  "
               f"{fl:6.2f} TF/s  bound {bound:6.3f} ms "
               f"({'bytes' if t_mem >= t_ops else 'operations'}, "
-              f"{ms / bound:6.1f}x)")
+              f"{ms / bound:6.1f}x data sheet)  envelope {t_env:6.3f} ms "
+              f"({ms / t_env:6.1f}x measured)")
 
     peak = FP32_FLOPS if args.exact else BF16_FLOPS
     with torch.no_grad():
@@ -167,7 +178,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
            3 * egcl_bytes, 3 * egcl_flops, peak)
     print("# columns: achieved bandwidth and its share of 3.35 TB/s, "
           "achieved TFLOP/s, the least time by the data sheet's rates "
-          "(bytes or operations) and the multiple over it")
+          "(bytes or operations) and the multiple over it, the least time "
+          "by the envelope measured at start-up and the multiple over it")
     return rows
 
 
