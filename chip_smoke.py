@@ -18,12 +18,18 @@
    message passing) over the bench graph and the stress layouts (empty
    windows, few edges over many windows, masked edges, ragged E and N,
    with and without edge attributes), bitwise repeatable, masked rows of
-   d(hj) exactly 0;
+   d(hj) exactly 0; the same for K4/K5 at Cl(2) (C = 40, or 28 with
+   attributes) and for K4p/K5p, the pair form at Cl(5) (C = 28, the
+   layouts cut to at most 16,384 edges: the plain pair form holds
+   (E, C, 32, 32) products);
 4. times each kernel, its plain version, a PyTorch library call where one
    computes the same function, and states the least time the card could
    take (bytes over 3.35 TB/s or operations over the peak rate); for K4
    and K5 also the composed route (gather, edge CEMLP on K2/K3,
-   aggregation on K1) computing the same function;
+   aggregation on K1) computing the same function, and so for K4/K5 at
+   Cl(2) and K4p/K5p at the bench shape of their algebra (K4p/K5p held to
+   the composed route there, their plain versions timed on the cut
+   graph);
 5. checks the full-width motion model on the card against the same model
    on the CPU (loss and every gradient, exact mode);
 6. runs the motion task through its entry point (fire -> run_task ->
@@ -57,8 +63,11 @@
     Adam), shows that K1-K5 ran and counts their launches in one step,
     profiles a few steps, holds its fast-mode loss to its exact-mode loss,
     and, in fast mode, its loss and every gradient on K4/K5 to the same
-    stack on the composed route;
-11. prints the kernels JSON line (twelve kernels) and, last, the
+    stack on the composed route; then the same at ``--dim 2`` (Cl(2,0),
+    hidden 40: K1 2, K2/K3 at Cl(2) 6 + 6, K4/K5 at Cl(2) 3 + 3 launches
+    per step) and ``--dim 5`` (Cl(5,0), hidden 28: K1 2, K2p/K3p 6 + 6,
+    K4p/K5p 3 + 3);
+11. prints the kernels JSON line (sixteen kernels) and, last, the
     device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -156,6 +165,22 @@ TOL = {  # max |kernel - plain| allowed, relative to max |plain|: fp32
     # 1.0e-5 (the FFMA sum against cuBLAS's order, as large as the tensor
     # cores' against it), P3 4.1e-6
     "p2_bf16": 5e-5, "p2_tf32": 1e-4, "p2_fp32": 3e-5, "p3": 1e-5,
+    # K4/K5 at Cl(2) and K4p/K5p against their plain versions, K4's and
+    # K5's limits; readings of the first run on the H100 (PERF.md): K4/K5
+    # at Cl(2) exact 2.8e-7 / 1.1e-5, fast 4.6e-4 / 1.3e-2; K4p/K5p exact
+    # 3.0e-7 / 3.1e-6, fast 5.5e-4 / 7.8e-3.  At the bench shape K4p/K5p
+    # are held to the composed route with the same limits (read 2.2e-4 /
+    # 1.1e-4)
+    "k4_cl2_exact": 1e-5, "k4_cl2_fast": 1e-2,
+    "k5_cl2_exact": 1e-4, "k5_cl2_fast": 3e-2,
+    "k4p_exact": 1e-5, "k4p_fast": 1e-2, "k5p_exact": 1e-4, "k5p_fast": 3e-2,
+    # the bench stack at Cl(2) and Cl(5), the Cl(3) stack's limits (first
+    # run: fast vs exact loss 9.6e-6 and 3.4e-5; fused vs composed loss
+    # 1.3e-5 and 7.1e-6, worst gradient 4.9e-3 and 2.7e-3)
+    "bench_cl2_fast_loss": 1e-3, "bench_cl2_fused_loss": 3e-4,
+    "bench_cl2_fused_grad": 3e-2,
+    "bench_cl5_fast_loss": 1e-3, "bench_cl5_fused_loss": 3e-4,
+    "bench_cl5_fused_grad": 3e-2,
 }
 # the measured envelope of this card (phase_envelope): "bytes" (P1's best
 # copy bandwidth, bytes/s), "bf16" (P2's bf16 mma.sync rate) and "fp32"
@@ -165,6 +190,9 @@ ENVELOPE = {}
 # hidden 28, 3 EGCL layers, batch 16; the dataset cut from 16,384 samples
 # per split to these (the padding spec comes from the data)
 H_B, H_HID, H_TRAIN, H_VAL = 16, 28, 512, 256
+# the K4p/K5p checks cut a layout to this many edges: the plain pair form
+# holds (E, C, 32, 32) fp32 products, ~1.9 GB each at 28 channels
+PAIR_MAX_EDGES = 16384
 
 
 def card_line() -> str:
@@ -615,31 +643,42 @@ def fused_layouts():
     ]
 
 
-def edge_params(cin, c, gen, dev):
+def edge_params(cin, c, gen, dev, nb=8):
     """Random parameters of a 2-block edge CEMLP (cin -> c -> c)."""
-    _, p1, _ = block_inputs(1, cin, c, gen, dev)
-    _, p2, _ = block_inputs(1, c, c, gen, dev)
+    _, p1, _ = block_inputs(1, cin, c, gen, dev, nb=nb)
+    _, p2, _ = block_inputs(1, c, c, gen, dev, nb=nb)
     return p1 + p2
 
 
-def phase_fused(dev, gen, results):
+# the kernels' names in the lines chip_smoke prints
+LABEL = {"k4": "K4", "k5": "K5", "k4_cl2": "K4 at Cl(2)",
+         "k5_cl2": "K5 at Cl(2)", "k4p": "K4p", "k5p": "K5p"}
+
+
+def check_fused_form(dev, gen, alg, layouts, keys):
+    """Holds one form of the fused message-passing kernels (K4/K5 at Cl(3)
+    or Cl(2), K4p/K5p) to their plain versions over ``layouts`` (name,
+    dst, N, Cm, Ca, C, masked), exact and fast: the output, dh, dhj, dattr
+    and all 20 gradients, two launches bitwise equal, masked rows of
+    dhj/dattr exactly 0.  Returns the worst error per kernel and mode;
+    ``keys`` name the forward and backward kernels (their tolerances are
+    TOL[f"{key}_{mode}"])."""
     import torch as _t
-    from csmpn_torch.algebra import get_algebra
     from csmpn_torch.ops import fused_egcl as fe
 
-    alg = get_algebra((1.0, 1.0, 1.0))
-    print("K4 fused message passing forward / K5 backward vs plain")
-    errs = {"k4": {"exact": [], "fast": []}, "k5": {"exact": [], "fast": []}}
-    for name, dst_np, n, cm, ca, c, masked in fused_layouts():
+    nb = alg.n_blades
+    kf, kb = keys
+    errs = {k: {"exact": [], "fast": []} for k in keys}
+    for name, dst_np, n, cm, ca, c, masked in layouts:
         e = len(dst_np)
         dst = _t.from_numpy(dst_np.astype("int64")).to(dev)
         mask = ((_t.rand(e, generator=gen) > 0.2).to(dev) if masked
                 else None)
-        h = _t.randn(n, cm, 8, generator=gen).to(dev)
-        hj = _t.randn(e, cm, 8, generator=gen).to(dev)
-        attr = _t.randn(e, ca, 8, generator=gen).to(dev) if ca else None
-        params = edge_params(cm + ca, c, gen, dev)
-        dagg = _t.randn(n, c, 8, generator=gen).to(dev)
+        h = _t.randn(n, cm, nb, generator=gen).to(dev)
+        hj = _t.randn(e, cm, nb, generator=gen).to(dev)
+        attr = _t.randn(e, ca, nb, generator=gen).to(dev) if ca else None
+        params = edge_params(cm + ca, c, gen, dev, nb)
+        dagg = _t.randn(n, c, nb, generator=gen).to(dev)
         for exact in (True, False):
             mode = "exact" if exact else "fast"
             dt = _t.float32 if exact else _t.bfloat16
@@ -649,12 +688,14 @@ def phase_fused(dev, gen, results):
             out = fe.mp_forward(params, alg, hs, hjs, attrs, dst, mask, exact)
             ref = fe.message_aggregate_plain(params, alg, hs, hjs, attrs, dst,
                                              mask, False, exact)
-            errs["k4"][mode].append(check(f"K4 {tag}", out, ref,
-                                          TOL[f"k4_{mode}"]))
+            errs[kf][mode].append(check(f"{LABEL[kf]} {tag}", out, ref,
+                                        TOL[f"{kf}_{mode}"]))
             again = fe.mp_forward(params, alg, hs, hjs, attrs, dst, mask,
                                   exact)
             if not _t.equal(out, again):
-                raise AssertionError(f"K4 {tag}: two launches differ")
+                raise AssertionError(f"{LABEL[kf]} {tag}: two launches "
+                                     f"differ")
+            del out, ref, again
             got = fe.mp_backward(params, alg, hs, hjs, attrs, dst, mask, dagg,
                                  exact)
             want = fe.message_aggregate_grad_plain(params, alg, hs, hjs,
@@ -671,40 +712,105 @@ def phase_fused(dev, gen, results):
             for pn, g, w, g2 in zip(names, flat_got, flat_want, flat_again):
                 if g is None and w is None:
                     continue
-                errs["k5"][mode].append(check(f"K5 {tag} {pn}", g, w,
-                                              TOL[f"k5_{mode}"]))
+                errs[kb][mode].append(check(f"{LABEL[kb]} {tag} {pn}", g, w,
+                                            TOL[f"{kb}_{mode}"]))
                 if not _t.equal(g, g2):
-                    raise AssertionError(f"K5 {tag} {pn}: two launches "
-                                         f"differ")
+                    raise AssertionError(f"{LABEL[kb]} {tag} {pn}: two "
+                                         f"launches differ")
             if mask is not None:
                 off = ~mask
                 zero = (got[1][off] == 0).all() and (
                     got[2] is None or (got[2][off] == 0).all())
                 if not bool(zero):
-                    raise AssertionError(f"K5 {tag}: masked rows of dhj or "
-                                         f"dattr are not 0")
-        plan = fe.make_plan(dst, mask, n, cm, ca, c)
+                    raise AssertionError(f"{LABEL[kb]} {tag}: masked rows of "
+                                         f"dhj or dattr are not 0")
+            del got, want, again
+        _t.cuda.empty_cache()
+        plan = fe.make_plan(dst, mask, n, cm, ca, c, nb)
         print(f"  {name} ({plan.n_win} windows on {plan.grid} CTAs): both "
               f"launches bitwise equal"
               + ("; masked rows of dhj/dattr exactly 0" if masked else ""))
-    results["k4"] = dict(
-        name="fused_mp_fwd", route="cuda", source="csmpn_torch/csrc/fused_egcl.cu",
-        replaces="csmpn_tpu/ops/fused_egcl.py:102",
-        max_abs_err=max(errs["k4"]["exact"]),
-        max_abs_err_fast=max(errs["k4"]["fast"]))
-    results["k5"] = dict(
-        name="fused_mp_bwd", route="cuda", source="csmpn_torch/csrc/fused_egcl.cu",
-        replaces="csmpn_tpu/ops/fused_egcl.py:405",
-        max_abs_err=max(errs["k5"]["exact"]),
-        max_abs_err_fast=max(errs["k5"]["fast"]))
+    return {k: {m: max(v) for m, v in e.items()} for k, e in errs.items()}
 
 
-def phase_fused_time(dev, results):
-    """K4, K5, their plain versions and the composed route at the bench
-    shape (E = 131,072, N = 8,192, 32 -> 32, fast mode)."""
+def fused_entry(key, fn, src, line, errs):
+    return dict(name=fn, route="cuda", source=f"csmpn_torch/csrc/{src}",
+                replaces=f"csmpn_tpu/ops/fused_egcl.py:{line}",
+                max_abs_err=errs[key]["exact"],
+                max_abs_err_fast=errs[key]["fast"])
+
+
+def phase_fused(dev, gen, results):
+    from csmpn_torch.algebra import get_algebra
+
+    print("K4 fused message passing forward / K5 backward vs plain")
+    errs = check_fused_form(dev, gen, get_algebra((1.0, 1.0, 1.0)),
+                            fused_layouts(), ("k4", "k5"))
+    results["k4"] = fused_entry("k4", "fused_mp_fwd", "fused_egcl.cu", 102,
+                                errs)
+    results["k5"] = fused_entry("k5", "fused_mp_bwd", "fused_egcl.cu", 405,
+                                errs)
+
+
+def cl2_layouts():
+    """fused_layouts() at the NBA width: C = 40 (Cm 40), and Cm 28 + Ca 3
+    -> C 28 where a layout has attributes."""
+    return [(name, dst, n, cm if ca else N_HID, ca, c if ca else N_HID,
+             masked) for name, dst, n, cm, ca, c, masked in fused_layouts()]
+
+
+def pair_layouts(max_edges=PAIR_MAX_EDGES):
+    """fused_layouts() at the hulls width (C = 28, Cm 28, Ca as given),
+    each cut to at most ``max_edges`` edges: the plain pair form builds
+    (E, C, 32, 32) products, ~115 KB an edge.  A cut layout keeps its edges
+    into the first targets and its N, so its later windows are empty."""
+    out = []
+    for name, dst, n, _, ca, _, masked in fused_layouts():
+        if len(dst) > max_edges:
+            n_cut = int(dst[max_edges])
+            dst = dst[dst < n_cut]
+            name = f"{name}, cut to its {len(dst)} edges into targets < {n_cut}"
+        out.append((name, dst, n, H_HID, ca, H_HID, masked))
+    return out
+
+
+def phase_fused_cl2(dev, gen, results):
+    from csmpn_torch.algebra import get_algebra
+
+    print("K4/K5 at Cl(2,0) (dense form, 4 blades) vs plain")
+    errs = check_fused_form(dev, gen, get_algebra((1.0, 1.0)), cl2_layouts(),
+                            ("k4_cl2", "k5_cl2"))
+    results["k4_cl2"] = fused_entry("k4_cl2", "fused_mp_cl2_fwd",
+                                    "fused_egcl.cu", 102, errs)
+    results["k5_cl2"] = fused_entry("k5_cl2", "fused_mp_cl2_bwd",
+                                    "fused_egcl.cu", 405, errs)
+
+
+def phase_fused_pair(dev, gen, results):
+    from csmpn_torch.algebra import get_algebra
+
+    print(f"K4p/K5p (pair form, Cl(5,0)) vs plain, layouts cut to at most "
+          f"{PAIR_MAX_EDGES} edges")
+    errs = check_fused_form(dev, gen, get_algebra((1.0,) * 5),
+                            pair_layouts(), ("k4p", "k5p"))
+    results["k4p"] = fused_entry("k4p", "fused_mp_pair_fwd",
+                                 "fused_egcl_pair.cu", 102, errs)
+    results["k5p"] = fused_entry("k5p", "fused_mp_pair_bwd",
+                                 "fused_egcl_pair.cu", 405, errs)
+
+
+def phase_fused_time(dev, results, dim=3, keys=("k4", "k5")):
+    """K4 and K5 (Cl(3), Cl(2)) or K4p and K5p (Cl(5)) at the bench shape
+    of their algebra (E = 131,072, N = 8,192, bench.WIDTHS's width, fast
+    mode), held to their plain versions and to the composed route, then
+    timed beside both, with K1 at the source gather's width.  At Cl(5) the
+    plain pair form would hold ~15 GB products at this shape: K4p/K5p are
+    held to the composed route here (and to the plain version on the cut
+    layouts of phase_fused_pair), and the plain times are taken on the
+    bench graph's first PAIR_MAX_EDGES edges."""
     import torch as _t
     from csmpn_torch.algebra import get_algebra
-    from csmpn_torch.bench import workload
+    from csmpn_torch.bench import WIDTHS, workload
     from csmpn_torch.nn.egcl import EGCL
     from csmpn_torch.nn.modules import init_parameters
     from csmpn_torch.ops import fused_egcl as fe
@@ -712,9 +818,12 @@ def phase_fused_time(dev, results):
     from csmpn_torch.ops.segment import (set_aggregation_mode, take_rows,
                                          take_rows_sorted_idx)
 
-    alg = get_algebra((1.0, 1.0, 1.0))
+    kf, kb = keys
+    alg = get_algebra((1.0,) * dim)
+    nb = alg.n_blades
+    pair = nb > 8
     set_aggregation_mode("fast")
-    h, ei, src_sort = workload(dev)
+    h, ei, src_sort = workload(dev, hidden=WIDTHS[dim][0], dim=dim)
     src, dst = ei[0], ei[1]
     n, e, c = h.shape[0], dst.shape[0], h.shape[1]
     h_s = h.to(_t.bfloat16)
@@ -724,103 +833,133 @@ def phase_fused_time(dev, results):
     layer = EGCL(alg, c, c, c, aggr="sum")
     init_parameters(layer, _t.Generator().manual_seed(1))
     layer = layer.to(dev)
-    params = block_params(layer.edge_model, 0) + block_params(
+    live = block_params(layer.edge_model, 0) + block_params(
         layer.edge_model, 1)
-    params = [p.detach() for p in params]
-    dagg = _t.randn(n, c, 8, device=dev)
-    plan = fe.make_plan(dst, None, n, c, 0, c)
+    params = [p.detach() for p in live]
+    dagg = _t.randn(n, c, nb, device=dev)
+    plan = fe.make_plan(dst, None, n, c, 0, c, nb)
+    # the plain versions' inputs: the whole bench graph, or at Cl(5) its
+    # edges into the first targets
+    cut = int(dst[PAIR_MAX_EDGES]) if pair else n
+    pd = dst[dst < cut]
+    phj = hj[: pd.shape[0]]
 
     def composed(hh, hhj):
         h_i = take_rows_sorted_idx(hh, dst)
         msg = layer.message(h_i, hhj)
         return layer.aggregate(msg, dst, n)
 
-    print(f"K4/K5 at the bench shape ({plan.n_win} windows on {plan.grid} "
-          f"CTAs) vs their plain versions and the composed route, fast")
+    def plain_fwd():
+        return fe.message_aggregate_plain(params, alg, h_s, phj, None, pd,
+                                          None, False, False)
+
+    def plain_bwd():
+        return fe.message_aggregate_grad_plain(params, alg, h_s, phj, None,
+                                               pd, None, dagg, False)
+
+    lf, lb = LABEL[kf], LABEL[kb]
+    form = {3: "K4/K5", 2: "K4/K5 at Cl(2)", 5: "K4p/K5p"}[dim]
+    print(f"{form} at the bench shape ({plan.n_win} windows on "
+          f"{plan.grid} CTAs) vs their plain versions and the composed "
+          f"route, fast")
     with _t.no_grad():
         fused_out = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False,
                                   plan)
         again = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False,
                               plan)
-        plain_out = fe.message_aggregate_plain(params, alg, h_s, hj, None, dst,
-                                               None, False, False)
         comp_out = composed(h_s, hj)
-    results["k4"]["max_abs_err_fast"] = max(
-        results["k4"]["max_abs_err_fast"],
-        check("K4 vs plain, bench shape", fused_out, plain_out,
-              TOL["k4_fast"]))
-    check("K4 vs the composed route, bench shape", fused_out, comp_out,
-          TOL["k4_fast"])
+        if not pair:
+            results[kf]["max_abs_err_fast"] = max(
+                results[kf]["max_abs_err_fast"],
+                check(f"{lf} vs plain, bench shape", fused_out, plain_fwd(),
+                      TOL[f"{kf}_fast"]))
+    check(f"{lf} vs the composed route, bench shape", fused_out, comp_out,
+          TOL[f"{kf}_fast"])
     if not _t.equal(fused_out, again):
-        raise AssertionError("K4 at the bench shape: two launches differ")
+        raise AssertionError(f"{lf} at the bench shape: two launches differ")
+    del fused_out, again, comp_out
     got = fe.mp_backward(params, alg, h_s, hj, None, dst, None, dagg, False,
                          plan)
     again = fe.mp_backward(params, alg, h_s, hj, None, dst, None, dagg, False,
                            plan)
-    want = fe.message_aggregate_grad_plain(params, alg, h_s, hj, None, dst,
-                                           None, dagg, False)
+    if pair:     # the composed route's gradients, at the whole graph
+        hh = h_s.detach().requires_grad_(True)
+        hhj = hj.detach().requires_grad_(True)
+        want = _t.autograd.grad(composed(hh, hhj), [hh, hhj] + live, dagg)
+        want, what = [want[0], want[1]] + list(want[2:]), "the composed route"
+    else:
+        want = plain_bwd()
+        want, what = [want[0], want[1]] + want[3], "plain"
     names = ["dh", "dhj"] + [f"block{i} d{pn}" for i in (1, 2)
                              for pn in BLOCK_NAMES]
-    for pn, g, w, g2 in zip(names, [got[0], got[1]] + got[3],
-                            [want[0], want[1]] + want[3],
+    for pn, g, w, g2 in zip(names, [got[0], got[1]] + got[3], want,
                             [again[0], again[1]] + again[3]):
-        results["k5"]["max_abs_err_fast"] = max(
-            results["k5"]["max_abs_err_fast"],
-            check(f"K5 vs plain, bench shape, {pn}", g, w, TOL["k5_fast"]))
+        err = check(f"{lb} vs {what}, bench shape, {pn}", g, w,
+                    TOL[f"{kb}_fast"])
+        if not pair:
+            results[kb]["max_abs_err_fast"] = max(
+                results[kb]["max_abs_err_fast"], err)
         if not _t.equal(g, g2):
-            raise AssertionError(f"K5 at the bench shape, {pn}: two launches "
-                                 f"differ")
+            raise AssertionError(f"{lb} at the bench shape, {pn}: two "
+                                 f"launches differ")
     print("  both launches bitwise equal")
     del got, again, want
+    _t.cuda.empty_cache()
+    it4, it5, itc = (5, 3, 3) if pair else (20, 10, 10)
     k4 = time_ms(lambda: fe.mp_forward(params, alg, h_s, hj, None, dst, None,
-                                       False, plan), iters=20)
-    k4_plain = time_ms(lambda: fe.message_aggregate_plain(
-        params, alg, h_s, hj, None, dst, None, False, False), iters=3,
-        warmup=1)
+                                       False, plan), iters=it4)
+    k4_plain = time_ms(plain_fwd, iters=3, warmup=1)
     with _t.no_grad():
-        k4_comp = time_ms(lambda: composed(h_s, hj), iters=10)
+        k4_comp = time_ms(lambda: composed(h_s, hj), iters=itc)
     k5 = time_ms(lambda: fe.mp_backward(params, alg, h_s, hj, None, dst, None,
-                                        dagg, False, plan), iters=10)
-    k5_plain = time_ms(lambda: fe.message_aggregate_grad_plain(
-        params, alg, h_s, hj, None, dst, None, dagg, False), iters=2,
-        warmup=1)
+                                        dagg, False, plan), iters=it5)
+    k5_plain = time_ms(plain_bwd, iters=2, warmup=1)
     hh = h_s.detach().requires_grad_(True)
     hhj = hj.detach().requires_grad_(True)
     out = composed(hh, hhj)
     wrt = [hh, hhj] + list(layer.edge_model.parameters())
     k5_comp = time_ms(lambda: _t.autograd.grad(out, wrt, dagg,
-                                               retain_graph=True), iters=10)
+                                               retain_graph=True), iters=itc)
     del out
+    _t.cuda.empty_cache()
     # K1 on the bench path: the source gather's backward, bf16 rows of
-    # D = 256 over the sorted sources
+    # D = C * nb over the sorted sources
     from csmpn_torch.ops import segment_kernel as sk
 
-    rows = _t.randn(e, c * 8, device=dev).to(_t.bfloat16)
+    d = c * nb
+    rows = _t.randn(e, d, device=dev).to(_t.bfloat16)
     k1 = time_ms(lambda: sk.sorted_segment_sum(rows, src_sort[1], n, False))
-    b1, _, _ = bound(e * c * 16 + n * c * 32 + e * 8, e * c * 8, FP32_PEAK)
-    print(f"K1 at the bench shape (E={e} N={n} D={c * 8} bf16, sorted "
+    b1, _, _ = bound(e * d * 2 + n * d * 4 + e * 8, e * d, FP32_PEAK)
+    print(f"K1 at the bench shape (E={e} N={n} D={d} bf16, sorted "
           f"sources): {k1*1e3:.1f} us  bound {b1*1e3:.1f} us")
-    results["k1"]["bench_ms"] = k1
+    results["k1"]["bench_ms" if dim == 3 else f"bench_cl{dim}_ms"] = k1
+    del rows
     pbytes = sum(p.numel() for p in params) * 4
-    flops = block_flops(e, c, c) * 2
-    in_bytes = n * c * 16 + e * c * 16 + e * 4      # h, hj bf16; ids
-    b4, b4by, b4env = bound(in_bytes + pbytes + n * c * 32, flops,
+    flops = block_flops(e, c, c, nb) * 2
+    in_bytes = n * c * nb * 2 + e * c * nb * 2 + e * 4   # h, hj bf16; ids
+    b4, b4by, b4env = bound(in_bytes + pbytes + n * c * nb * 4, flops,
                             BF16_PEAK)
     # K5: also reads d(agg) fp32; writes dh fp32, dhj bf16, the gradients
-    b5, b5by, b5env = bound(in_bytes + n * c * 32 + 2 * pbytes
-                            + n * c * 32 + e * c * 16, 3 * flops, BF16_PEAK)
-    shape = f"E={e} N={n} Cm=C={c} fast"
-    print(f"K4/K5 time at the bench shape ({shape}):")
-    print(f"  K4 {k4*1e3:.1f} us  plain {k4_plain*1e3:.1f} us  composed "
+    b5, b5by, b5env = bound(in_bytes + n * c * nb * 4 + 2 * pbytes
+                            + n * c * nb * 4 + e * c * nb * 2, 3 * flops,
+                            BF16_PEAK)
+    shape = f"E={e} N={n} Cm=C={c} nb={nb} fast" if dim != 3 else \
+        f"E={e} N={n} Cm=C={c} fast"
+    plain_at = (f" (plain at the first {pd.shape[0]} edges, targets < "
+                f"{cut})" if pair else "")
+    print(f"{form} time at the bench shape ({shape}){plain_at}:")
+    print(f"  {lf} {k4*1e3:.1f} us  plain {k4_plain*1e3:.1f} us  composed "
           f"route {k4_comp*1e3:.1f} us  bound {b4*1e3:.1f} us ({b4by})")
-    print(f"  K5 {k5*1e3:.1f} us  plain {k5_plain*1e3:.1f} us  composed "
+    print(f"  {lb} {k5*1e3:.1f} us  plain {k5_plain*1e3:.1f} us  composed "
           f"route {k5_comp*1e3:.1f} us  bound {b5*1e3:.1f} us ({b5by})")
-    results["k4"].update(ms=k4, plain_ms=k4_plain, bound_ms=b4, bound_by=b4by,
-                         library_ms=None, bound_env_ms=b4env,
-                         composed_ms=k4_comp, shape=shape)
-    results["k5"].update(ms=k5, plain_ms=k5_plain, bound_ms=b5, bound_by=b5by,
-                         library_ms=None, bound_env_ms=b5env,
-                         composed_ms=k5_comp, shape=shape)
+    extra = ({"plain_shape": f"E={pd.shape[0]} N={n} (edges into targets "
+                             f"< {cut})"} if pair else {})
+    results[kf].update(ms=k4, plain_ms=k4_plain, bound_ms=b4, bound_by=b4by,
+                       library_ms=None, bound_env_ms=b4env,
+                       composed_ms=k4_comp, shape=shape, **extra)
+    results[kb].update(ms=k5, plain_ms=k5_plain, bound_ms=b5, bound_by=b5by,
+                       library_ms=None, bound_env_ms=b5env,
+                       composed_ms=k5_comp, shape=shape, **extra)
     set_aggregation_mode("exact")
 
 
@@ -1399,21 +1538,31 @@ def phase_md17(dev, gen, results, dataroot, counters):
 # ------------------------------------------------------- the bench path
 
 BENCH_PER_STEP = {"k1": 2, "k2": 6, "k3": 6, "k4": 3, "k5": 3}
+BENCH_CL2_PER_STEP = {"k1": 2, "k2_cl2": 6, "k3_cl2": 6, "k4_cl2": 3,
+                      "k5_cl2": 3}
+BENCH_CL5_PER_STEP = {"k1": 2, "k2p": 6, "k3p": 6, "k4p": 3, "k5p": 3}
 
 
-def phase_bench(counters):
-    """csmpn_torch.bench through its entry point at full width, then one
-    step's launches, a profile, the fast-mode loss against exact, and the
-    stack's loss and gradients on K4/K5 against the composed route."""
+def phase_bench(counters, dim=3, per_step_want=BENCH_PER_STEP):
+    """csmpn_torch.bench through its entry point at full width (``--dim``
+    for Cl(2) and Cl(5)), then one step's launches, a profile, the
+    fast-mode loss against exact, and the stack's loss and gradients on
+    the fused kernels against the composed route."""
     from csmpn_torch import bench
     from csmpn_torch.ops import fused_egcl as fe
     from csmpn_torch.ops.segment import set_aggregation_mode
 
-    print("bench path via csmpn_torch.bench.main: 3 EGCL layers, hidden 32, "
-          "E=131072, N=8192, fast, 10 steps x 3 windows")
+    hidden = bench.WIDTHS[dim][0]
+    tag = "" if dim == 3 else f"_cl{dim}"
+    fused = "K4/K5" if dim != 5 else "K4p/K5p"
+    print(f"bench path via csmpn_torch.bench.main"
+          f"{'' if dim == 3 else f' --dim {dim}'}: 3 EGCL layers"
+          f"{'' if dim == 3 else f' at Cl({dim},0)'}, hidden {hidden}, "
+          f"E=131072, N=8192, fast, 10 steps x 3 windows")
     for c in counters.values():
         c.reset()
-    res = bench.main(["--device=cuda"])
+    res = bench.main(["--device=cuda"]
+                     + ([] if dim == 3 else ["--dim", str(dim)]))
     torch.cuda.synchronize()
     launches = {k: c.count for k, c in counters.items()}
     st = [t * 1e3 for t in res["step_times_s"]]
@@ -1436,10 +1585,10 @@ def phase_bench(counters):
     torch.cuda.synchronize()
     per_step = {k: c.count for k, c in counters.items()}
     print(f"  launches per training step: {per_step} (expected "
-          f"{BENCH_PER_STEP})")
-    if per_step != BENCH_PER_STEP:
+          f"{per_step_want})")
+    if per_step != per_step_want:
         raise AssertionError(f"launches per bench step {per_step} != "
-                             f"{BENCH_PER_STEP}")
+                             f"{per_step_want}")
 
     def step():
         return float(bench.train_step(model, opt, h, ei, src_sort))
@@ -1460,25 +1609,25 @@ def phase_bench(counters):
         return loss.detach().cpu(), [p.grad.detach().clone()
                                      for p in model.parameters()]
 
-    lf, gf = loss_and_grads("fast")                # K4/K5 on the edge side
+    lf, gf = loss_and_grads("fast")                # fused on the edge side
     lc, gc = loss_and_grads("fast", fused=False)   # the composed route
     le, _ = loss_and_grads("exact")
     check("bench stack: fast-mode loss vs exact-mode loss (card)", lf, le,
-          TOL["bench_fast_loss"])
-    check("bench stack, fast: loss on K4/K5 vs on the composed route", lf,
-          lc, TOL["bench_fused_loss"])
+          TOL[f"bench{tag}_fast_loss"])
+    check(f"bench stack, fast: loss on {fused} vs on the composed route", lf,
+          lc, TOL[f"bench{tag}_fused_loss"])
     errs = sorted(((rel_err(a, b)[1], k) for a, b, (k, _) in
                    zip(gf, gc, model.named_parameters())), reverse=True)
     worst = errs[0][0]
-    ok = worst <= TOL["bench_fused_grad"] and all(
-        torch.isfinite(g).all().item() for g in gf)
-    print(f"  bench stack, fast: gradients on K4/K5 vs on the composed "
+    tol = TOL[f"bench{tag}_fused_grad"]
+    ok = worst <= tol and all(torch.isfinite(g).all().item() for g in gf)
+    print(f"  bench stack, fast: gradients on {fused} vs on the composed "
           f"route, worst of {len(gf)} tensors rel {worst:.3e}  tol "
-          f"{TOL['bench_fused_grad']:.0e}  {'ok' if ok else 'FAIL'}; median "
+          f"{tol:.0e}  {'ok' if ok else 'FAIL'}; median "
           f"{statistics.median(e for e, _ in errs):.3e}; worst "
           f"{[(k, round(e, 5)) for e, k in errs[:3]]}")
     if not ok:
-        raise AssertionError(f"bench stack gradients: K4/K5 vs composed "
+        raise AssertionError(f"bench stack gradients: {fused} vs composed "
                              f"{worst:.3e}")
     return launches, per_step, res, busy_ms, wall_ms
 
@@ -1521,6 +1670,10 @@ def main() -> int:
                       "k3p": ck.PAIR_BWD_LAUNCHES}
     nba_counters = {"k1": sk.LAUNCHES, "k2_cl2": ck.CL2_FWD_LAUNCHES,
                     "k3_cl2": ck.CL2_BWD_LAUNCHES}
+    cl2_counters = dict(nba_counters, k4_cl2=fe.CL2_FWD_LAUNCHES,
+                        k5_cl2=fe.CL2_BWD_LAUNCHES)
+    cl5_counters = dict(hulls_counters, k4p=fe.PAIR_FWD_LAUNCHES,
+                        k5p=fe.PAIR_BWD_LAUNCHES)
     runs = {"envelope": (phase_envelope(dev, results), None)}
     with tempfile.TemporaryDirectory() as dataroot:
         real = motion_ids(dataroot, dev)
@@ -1528,6 +1681,10 @@ def main() -> int:
         phase_cemlp(dev, gen, results)
         phase_fused(dev, gen, results)
         phase_fused_time(dev, results)
+        phase_fused_cl2(dev, gen, results)
+        phase_fused_time(dev, results, 2, ("k4_cl2", "k5_cl2"))
+        phase_fused_pair(dev, gen, results)
+        phase_fused_time(dev, results, 5, ("k4p", "k5p"))
         phase_model(dev, dataroot)
         runs["motion"] = phase_task(dataroot, motion_counters)[:2]
         runs["hulls"] = phase_hulls(dev, gen, results, dataroot,
@@ -1537,16 +1694,19 @@ def main() -> int:
         runs["md17"] = phase_md17(dev, gen, results, dataroot,
                                   motion_counters)[:2]
     runs["bench"] = phase_bench(counters)[:2]
+    runs["bench_cl2"] = phase_bench(cl2_counters, 2, BENCH_CL2_PER_STEP)[:2]
+    runs["bench_cl5"] = phase_bench(cl5_counters, 5, BENCH_CL5_PER_STEP)[:2]
     # each kernel's launches on the path that runs it (the bench for
-    # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2), the probe's own
-    # run for P1-P3, which has no training step), the other paths' beside
-    # them
+    # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2), the bench at
+    # Cl(2) and Cl(5) for K4/K5 at Cl(2) and K4p/K5p, the probe's own run
+    # for P1-P3, which has no training step), the other paths' beside them
     home = {"k2p": "hulls", "k3p": "hulls", "k2_cl2": "nba",
-            "k3_cl2": "nba", "p1": "envelope", "p2": "envelope",
-            "p3": "envelope"}
+            "k3_cl2": "nba", "k4_cl2": "bench_cl2", "k5_cl2": "bench_cl2",
+            "k4p": "bench_cl5", "k5p": "bench_cl5", "p1": "envelope",
+            "p2": "envelope", "p3": "envelope"}
     kernels = []
     for k in ("k1", "k2", "k3", "k4", "k5", "k2p", "k3p", "k2_cl2",
-              "k3_cl2", "p1", "p2", "p3"):
+              "k3_cl2", "k4_cl2", "k5_cl2", "k4p", "k5p", "p1", "p2", "p3"):
         entry = dict(results[k])
         own = home.get(k, "bench")
         entry["launches"] = runs[own][0][k]

@@ -9,12 +9,21 @@ On the card in fast mode each layer's edge side runs the fused kernels K4
 (forward) and K5 (backward); the node side runs K2/K3 and the source
 gather's backward K1.
 
-    python -m csmpn_torch.bench [--quick] [--device=cuda|cpu]
+    python -m csmpn_torch.bench [--quick] [--device=cuda|cpu] [--dim 2|3|5]
+
+``--dim`` (the port's own option; the reference bench builds Cl(3) only)
+sets the stack's algebra Cl(dim, 0) and takes its width from the task
+config of that algebra (``WIDTHS``): Cl(2,0) at hidden 40 (the NBA task)
+runs K4/K5 at Cl(2) on the edge side and K2/K3 at Cl(2) on the node side;
+Cl(5,0) at hidden 28 (the hulls task) runs their pair form, K4p/K5p and
+K2p/K3p.  The graph, the seed and the random stream are the same; the
+features are (N, hidden, 2**dim).
 
 Times windows of 10 steps (3 with ``--quick``), each ending on a loss
 read-back, and reports the fastest of 3 windows as edges/s =
-4 * 32,768 * 3 / step seconds, on one JSON line with the device's name.
-The default device is ``cuda``; without a card it raises.
+4 * 32,768 * 3 / step seconds, on one JSON line with the device's name
+(and, away from Cl(3), the algebra and the width).  The default device is
+``cuda``; without a card it raises.
 """
 from __future__ import annotations
 
@@ -41,6 +50,14 @@ HIDDEN = 32
 LAYERS = 3
 STEPS = 10
 WINDOWS = 3
+DIM = 3
+# --dim -> (hidden width, its source): the width of the task that runs
+# that algebra
+WIDTHS = {
+    3: (HIDDEN, "bench.py"),
+    2: (40, "configs/nba.yaml (model.num_hidden, NBA at Cl(2,0))"),
+    5: (28, "HullsModel's default hidden_features (hulls at Cl(5,0))"),
+}
 
 
 def synthetic_edges(rng: np.random.RandomState, n_nodes: int,
@@ -54,14 +71,16 @@ def synthetic_edges(rng: np.random.RandomState, n_nodes: int,
 
 
 def workload(device, n_nodes: int = N_NODES, n_edges: int = N_EDGES,
-             batch: int = BATCH, hidden: int = HIDDEN, seed: int = 0):
+             batch: int = BATCH, hidden: int = HIDDEN, seed: int = 0,
+             dim: int = DIM):
     """(h, edge_index, src_sort) of ``batch`` graphs flattened, as the
-    reference bench makes them: edges, then features, from one numpy
-    stream, and the stable sort of the sources on the host."""
+    reference bench makes them: edges, then features (N, hidden, 2**dim),
+    from one numpy stream, and the stable sort of the sources on the
+    host."""
     rng = np.random.RandomState(seed)
     ei = np.concatenate([synthetic_edges(rng, n_nodes, n_edges) + b * n_nodes
                          for b in range(batch)], axis=1)
-    h = rng.randn(batch * n_nodes, hidden, 8).astype(np.float32)
+    h = rng.randn(batch * n_nodes, hidden, 2 ** dim).astype(np.float32)
     order = np.argsort(ei[0], kind="stable")
     src_sort = (torch.from_numpy(order).to(device),
                 torch.from_numpy(ei[0][order].astype(np.int64)).to(device))
@@ -73,9 +92,10 @@ class Stack(nn.Module):
     """The bench model: EGCL layers ``egcl_{i}``, as the reference's flax
     ``Stack`` names them, so ``convert.params_from_jax`` carries it over."""
 
-    def __init__(self, hidden: int = HIDDEN, layers: int = LAYERS):
+    def __init__(self, hidden: int = HIDDEN, layers: int = LAYERS,
+                 dim: int = DIM):
         super().__init__()
-        alg = get_algebra((1.0, 1.0, 1.0))
+        alg = get_algebra((1.0,) * dim)
         self.layers = layers
         for i in range(layers):
             setattr(self, f"egcl_{i}", EGCL(alg, hidden, hidden, hidden,
@@ -125,12 +145,14 @@ class _StepClock:
 
 def run(device, steps: int = STEPS, windows: int = WINDOWS,
         n_nodes: int = N_NODES, n_edges: int = N_EDGES, batch: int = BATCH,
-        hidden: int = HIDDEN, layers: int = LAYERS, seed: int = 0) -> Dict:
+        hidden: int = HIDDEN, layers: int = LAYERS, seed: int = 0,
+        dim: int = DIM) -> Dict:
     """Builds the workload and the model (weights from ``seed``), runs one
     warm-up window, then ``windows`` timed windows of ``steps`` steps."""
     device = torch.device(device)
-    h, ei, src_sort = workload(device, n_nodes, n_edges, batch, hidden, seed)
-    model = Stack(hidden, layers)
+    h, ei, src_sort = workload(device, n_nodes, n_edges, batch, hidden, seed,
+                               dim)
+    model = Stack(hidden, layers, dim)
     init_parameters(model, torch.Generator().manual_seed(seed))
     model = model.to(device)
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
@@ -169,15 +191,25 @@ def device_name(device: torch.device) -> str:
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     argv = sys.argv[1:] if argv is None else list(argv)
     quick = "--quick" in argv
-    dev = "cuda"
-    for a in argv:
+    dev, dim = "cuda", DIM
+    args = iter(argv)
+    for a in args:
         if a.startswith("--device="):
             dev = a.split("=", 1)[1]
+        elif a == "--dim":
+            dim = int(next(args))
+        elif a.startswith("--dim="):
+            dim = int(a.split("=", 1)[1])
+    if dim not in WIDTHS:
+        raise ValueError(f"--dim takes {sorted(WIDTHS)}, got {dim}")
     device = resolve_device(dev)
     set_aggregation_mode("fast")
-    res = run(device, steps=3 if quick else STEPS)
+    hidden = WIDTHS[dim][0]
+    res = run(device, steps=3 if quick else STEPS, hidden=hidden, dim=dim)
     res["line"] = {"metric": METRIC, "value": round(res["edges_per_s"], 1),
                    "unit": "edges/s", "device": device_name(device)}
+    if dim != DIM:
+        res["line"].update(algebra=f"Cl({dim},0)", hidden=hidden)
     print(json.dumps(res["line"]))
     return res
 

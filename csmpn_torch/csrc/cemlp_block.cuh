@@ -1,6 +1,6 @@
 // One CEMLP block for one row per warp: the device code shared by the
 // block kernels (cemlp.cu, K2 and K3 at Cl(3,0) and Cl(2,0)) and the fused
-// message-passing kernels (fused_egcl.cu, K4 and K5 at Cl(3,0)).
+// message-passing kernels (fused_egcl.cu, K4 and K5 at Cl(3,0) and Cl(2,0)).
 //
 // A block is
 //     MVLinear -> MVSiLU -> SGP (right linear, grade-norm normalisation,

@@ -14,9 +14,10 @@ stream move bf16 rows and ``bf16_out`` hands bf16 features to the next
 layer; on the CPU everything stays fp32, as in the reference off the TPU.
 
 The flat big-graph path (``batch_shape is None``, edges sorted by target)
-runs the edge side as one fused pass, K4 forward and K5 backward
-(``ops/fused_egcl.py``), on the card in fast mode.  In exact mode and on
-the CPU it composes the target gather, the edge CEMLP and the
+runs the edge side as one fused pass (``ops/fused_egcl.py``) on the card
+in fast mode: K4 forward and K5 backward at Cl(2) and Cl(3), their pair
+form K4p/K5p at Cl(5); at Cl(4) it raises (no kernel yet).  In exact mode
+and on the CPU it composes the target gather, the edge CEMLP and the
 aggregation, as the reference keeps the composed path in exact mode.
 """
 from __future__ import annotations
@@ -60,8 +61,9 @@ class EGCL(nn.Module):
             normalization_init=normalization_init)
 
     def _use_fused_mp(self, batch_shape, x: torch.Tensor) -> bool:
-        """K4/K5 on the flat big-graph path: on the card in fast mode, for
-        the 2-block edge CEMLP with hidden == out width."""
+        """K4/K5 (K4p/K5p at Cl(5)) on the flat big-graph path: on the card
+        in fast mode, for the 2-block edge CEMLP with hidden == out
+        width."""
         if not self.edges_sorted or batch_shape is not None:
             return False
         from ..ops.fused_egcl import fused_mp_supported

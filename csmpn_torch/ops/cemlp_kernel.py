@@ -191,24 +191,24 @@ def _fn(name, nargs_ptr, nargs_int, source):
 
 
 @functools.lru_cache(maxsize=None)
-def _alg_tables(metric: tuple, source: str = ""):
+def _alg_tables(metric: tuple, source: str = "", symbol: str = ""):
     """(bc, sign) host arrays for the kernels, after checking that the
     algebra's structure is the one compiled into the block kernels of its
-    blade count (or into csrc/{source}.cu, which includes their device
-    code): the left blade and the grade path of every Cayley pair (j, k),
-    the grade of every blade and, for the pair kernels, which compute it,
-    the pair's sign."""
+    blade count (or into csrc/{source}.cu, whose entry points prefixed
+    ``symbol`` include their device code): the left blade and the grade
+    path of every Cayley pair (j, k), the grade of every blade and, for the
+    pair kernels, which compute it, the pair's sign."""
     from ..algebra.clifford import get_algebra
 
     alg = get_algebra(metric)
     kern = block_kernel(alg.n_blades)
     nb = kern.n_blades
     source = source or kern.source
+    symbol = symbol or kern.symbol
     if alg.n_product_paths != kern.n_paths:
         raise NotImplementedError(
             f"csrc/{source}.cu is compiled for {kern.algebra} with "
             f"{kern.n_paths} grade paths, got metric {metric}")
-    symbol = kern.symbol if source == kern.source else f"csmpn_{source}"
     lib = _build.load(source)
     fn = getattr(lib, f"{symbol}_tables")
     i_of = np.zeros(nb * nb, np.int32)
@@ -240,18 +240,20 @@ def _alg_tables(metric: tuple, source: str = ""):
 
 
 @functools.lru_cache(maxsize=None)
-def _pair_tabs(metric: tuple, device: torch.device) -> torch.Tensor:
-    """The pair kernels' packed Cayley-pair tables (built by
-    csrc/cemlp_pair.cu's host code, after `_alg_tables` checked its
+def _pair_tabs(metric: tuple, device: torch.device,
+               source: str = "cemlp_pair",
+               symbol: str = "csmpn_cemlp_pair") -> torch.Tensor:
+    """The pair kernels' packed Cayley-pair tables (built by the host code
+    of cemlp_pair.cuh in csrc/{source}.cu, after `_alg_tables` checked its
     structure) on ``device``; each CTA copies them to shared memory."""
-    _alg_tables(metric)
-    fn = _build.load("cemlp_pair").csmpn_cemlp_pair_packed
+    _alg_tables(metric, source, symbol)
+    fn = getattr(_build.load(source), f"{symbol}_packed")
     fn.argtypes = [_P, _I]
     fn.restype = ctypes.c_int
     buf = np.zeros(8192, np.uint16)
     n = fn(buf.ctypes.data, buf.size)
     if n <= 0:
-        raise RuntimeError("csrc/cemlp_pair.cu: packed tables do not fit")
+        raise RuntimeError(f"csrc/{source}.cu: packed tables do not fit")
     return torch.from_numpy(buf[:n].view(np.int16).copy()).to(device)
 
 

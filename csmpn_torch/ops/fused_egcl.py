@@ -10,13 +10,22 @@ hidden width equals its output width,
 with ``dst`` sorted ascending, ``hj`` the pre-gathered source rows (their
 cotangent flows back through the caller's gather), masked edges
 contributing nothing, and the mean taken outside the kernel with the
-masked in-degree (an empty segment gives 0).  The kernels are
-``csrc/fused_egcl.cu``: K4 computes the sum without writing a message to
-device memory; K5 recomputes both blocks and returns d(h), d(hj), d(attr)
-and the 20 parameter gradients in one pass (the TPU kernel's 21 tables:
-its block-1 input linear is split over message and attribute lanes; here
-the message and the attributes are one input row, so it is one tensor of
-the flax shape (C, Cm + Ca, 4)).
+masked in-degree (an empty segment gives 0).  K4 computes the sum without
+writing a message to device memory; K5 recomputes both blocks and returns
+d(h), d(hj), d(attr) and the 20 parameter gradients in one pass (the TPU
+kernel's 21 tables: its block-1 input linear is split over message and
+attribute lanes; here the message and the attributes are one input row,
+so it is one tensor of the flax shape (C, Cm + Ca, G)).  One pair of
+kernels per algebra (``FusedKernel``, ``fused_kernel``):
+
+  * K4/K5, ``csrc/fused_egcl.cu``, dense form: Cl(3,0) (8 blades, up to 32
+    channels) and Cl(2,0) (4 blades; a lane holds channels n and n + 32);
+  * K4p/K5p, ``csrc/fused_egcl_pair.cu``, pair form: Cl(5,0) (32 blades,
+    up to 28 channels, which both blocks' fp32 parameters and the row
+    buffers leave in one CTA's shared memory).
+
+Cl(4) (16 blades), which the reference's pair form also serves, has no
+kernel yet and raises, as do widths whose kernels do not fit.
 
 On a CUDA tensor the wrappers launch the kernels (or raise); on a CPU
 tensor they compute the plain versions:
@@ -27,13 +36,16 @@ tensor they compute the plain versions:
     backward of the kernel is checked independently.
 
 ``exact=False`` (fast mode) streams h, hj and attr as bf16, rounds the
-operands of every product as K2 does, rounds each message row to bf16
-before the sum and d(agg) before the backward, and accumulates in fp32.
+operands of every product as K2 (K2p) does, rounds each message row to
+bf16 before the sum and d(agg) before the backward, and accumulates in
+fp32.
 
 The TPU kernel's one-hot window matrix products and their band switch
 ``CSMPN_ONEHOT_BANDS`` are a device of the TPU's matrix unit: on the card
 the target gather is an indexed load and the reduce a sum in shared
-memory, so the switch has no counterpart.
+memory, so the switch has no counterpart.  Its window of 128 targets is
+``wn`` here, per kernel: 32 for K4/K5, 4 for K4p/K5p (a Cl(5) window sum
+takes 3.5 KB a target at 28 channels).
 """
 from __future__ import annotations
 
@@ -47,21 +59,69 @@ import torch
 from . import _build
 from .cemlp_kernel import (
     _alg_tables,
+    _pair_tabs,
     _rounder,
     block_forward_plain,
+    block_kernel,
     block_params,
     check_block_params,
 )
 
 FWD_LAUNCHES = _build.LaunchCounter("fused_mp_fwd")
 BWD_LAUNCHES = _build.LaunchCounter("fused_mp_bwd")
+CL2_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_cl2_fwd")
+CL2_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_cl2_bwd")
+PAIR_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_fwd")
+PAIR_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_bwd")
 
-WN = 32                 # target nodes per CTA window
-NLOC = 35              # per-channel gradient rows, as in cemlp_block.cuh
 MAX_SMEM = 232448       # 227 KB opt-in per block (kMaxSmem there)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+@dataclass(frozen=True)
+class FusedKernel:
+    """What one pair of fused message-passing kernels takes, and where it
+    lives."""
+    label: str
+    source: str           # csrc/{source}.cu
+    symbol: str           # prefix of its C entry points
+    n_blades: int
+    n_grades: int
+    n_paths: int
+    max_channels: int     # output channels C the kernels take
+    wn: int               # target nodes per CTA window
+    fwd: _build.LaunchCounter
+    bwd: _build.LaunchCounter
+
+    @property
+    def nloc(self) -> int:
+        """Per-channel gradient rows of a block in K5's partial vector: b1,
+        silu.a and silu.b (G each), gp.weight (P), d sigmoid(norm.a) (G),
+        bL, ln.a."""
+        return 3 + 3 * self.n_grades + self.n_paths
+
+
+DENSE = FusedKernel("K4/K5", "fused_egcl", "csmpn_fused_mp", 8, 4, 20, 32, 32,
+                    FWD_LAUNCHES, BWD_LAUNCHES)
+DENSE_CL2 = FusedKernel("K4/K5 at Cl(2)", "fused_egcl", "csmpn_fused_mp_cl2",
+                        4, 3, 10, 64, 32, CL2_FWD_LAUNCHES, CL2_BWD_LAUNCHES)
+PAIR = FusedKernel("K4p/K5p", "fused_egcl_pair", "csmpn_fused_mp_pair", 32,
+                   6, 56, 28, 4, PAIR_FWD_LAUNCHES, PAIR_BWD_LAUNCHES)
+
+
+def fused_kernel(nb: int) -> FusedKernel:
+    """The fused message-passing kernels for nb blades, or
+    NotImplementedError."""
+    for k in (DENSE_CL2, DENSE, PAIR):
+        if k.n_blades == nb:
+            return k
+    raise NotImplementedError(
+        f"no fused message-passing kernel for {nb} blades: K4/K5 take 2- "
+        f"and 3-dim algebras (4 and 8 blades), K4p/K5p Cl(5,0) (32 blades); "
+        f"Cl(4) (16 blades) is still to port (ROADMAP Queue 2, K2p/K3p and "
+        f"K4p/K5p at nb 16)")
 
 
 # ------------------------------------------------------------ plain version
@@ -72,7 +132,7 @@ def message_aggregate_plain(params: Sequence[torch.Tensor], alg,
                             mask: Optional[torch.Tensor] = None,
                             mean: bool = False,
                             exact: bool = True) -> torch.Tensor:
-    """The edge side in PyTorch: (N, C, 8) float32.  ``params`` are the 20
+    """The edge side in PyTorch: (N, C, nb) float32.  ``params`` are the 20
     block parameters of the edge CEMLP (block 0, then block 1)."""
     r = _rounder(exact)
     n = h.shape[0]
@@ -111,8 +171,8 @@ def message_aggregate_grad_plain(params, alg, h, hj, attr, dst, mask, dagg,
 
 # ------------------------------------------------------------ CUDA wrappers
 
-def _lib_fn(name: str, argtypes, restype=ctypes.c_int):
-    fn = getattr(_build.load("fused_egcl"), name)
+def _lib_fn(kern: FusedKernel, name: str, argtypes, restype=ctypes.c_int):
+    fn = getattr(_build.load(kern.source), f"{kern.symbol}_{name}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = restype
@@ -120,15 +180,14 @@ def _lib_fn(name: str, argtypes, restype=ctypes.c_int):
 
 
 @functools.lru_cache(maxsize=None)
-def _check_smem(cm: int, ca: int, c: int) -> None:
-    """Raise unless the forward and backward fit in shared memory at WN."""
-    fn = _lib_fn("csmpn_fused_mp_smem_bytes", [_I, _I, _I, _I, _I],
-                 ctypes.c_size_t)
-    sizes = [int(fn(cm, ca, c, WN, b)) for b in (0, 1)]
+def _check_smem(kern: FusedKernel, cm: int, ca: int, c: int) -> None:
+    """Raise unless the forward and backward fit in shared memory."""
+    fn = _lib_fn(kern, "smem_bytes", [_I, _I, _I, _I, _I], ctypes.c_size_t)
+    sizes = [int(fn(cm, ca, c, kern.wn, b)) for b in (0, 1)]
     if not 0 < max(sizes) <= MAX_SMEM:
         raise NotImplementedError(
-            f"the fused message-passing kernels do not fit in shared memory "
-            f"at {cm} message + {ca} attribute -> {c} channels")
+            f"{kern.label}: the fused message-passing kernels do not fit in "
+            f"shared memory at {cm} message + {ca} attribute -> {c} channels")
 
 
 @dataclass
@@ -148,29 +207,34 @@ def window_bounds(dst: torch.Tensor, n_nodes: int, wn: int) -> torch.Tensor:
     return torch.searchsorted(dst, starts, side="left")
 
 
-def make_plan(dst, mask, n_nodes: int, cm: int, ca: int, c: int) -> _Plan:
-    """The window layout of a call on the card (dst on the card)."""
-    _check_smem(cm, ca, c)
+def make_plan(dst, mask, n_nodes: int, cm: int, ca: int, c: int,
+              nb: int = 8) -> _Plan:
+    """The window layout of a call on the card (dst on the card) for the
+    kernels of nb blades."""
+    kern = fused_kernel(nb)
+    _check_smem(kern, cm, ca, c)
     dst32 = dst.to(torch.int32).contiguous()
-    bounds = window_bounds(dst32, n_nodes, WN).to(torch.int64).contiguous()
+    bounds = window_bounds(dst32, n_nodes, kern.wn).to(torch.int64)
     n_win = bounds.shape[0] - 1
     m = (mask.to(torch.bool).contiguous().view(torch.uint8)
          if mask is not None else None)
     props = torch.cuda.get_device_properties(dst.device)
     grid = max(1, min(n_win, props.multi_processor_count))
-    return _Plan(n_win, bounds, dst32, m, grid)
+    return _Plan(n_win, bounds.contiguous(), dst32, m, grid)
 
 
 def _check(params, h, hj, attr, dst, mask):
-    if h.dim() != 3 or h.shape[2] != 8 or hj.dim() != 3 \
-            or hj.shape[1:] != h.shape[1:]:
-        raise ValueError(f"h (N, Cm, 8) and hj (E, Cm, 8) expected, got "
+    nb = h.shape[2] if h.dim() == 3 else -1
+    if h.dim() != 3 or hj.dim() != 3 or hj.shape[1:] != h.shape[1:]:
+        raise ValueError(f"h (N, Cm, nb) and hj (E, Cm, nb) expected, got "
                          f"{tuple(h.shape)} and {tuple(hj.shape)}")
+    kern = fused_kernel(nb)
     e, cm = hj.shape[0], h.shape[1]
     ca = 0 if attr is None else attr.shape[1]
-    if attr is not None and (attr.shape != (e, ca, 8)
+    if attr is not None and (attr.shape != (e, ca, nb)
                              or attr.device != h.device):
-        raise ValueError(f"attr (E, Ca, 8) expected, got {tuple(attr.shape)}")
+        raise ValueError(f"attr (E, Ca, {nb}) expected, got "
+                         f"{tuple(attr.shape)}")
     if dst.shape != (e,) or hj.device != h.device or dst.device != h.device:
         raise ValueError("dst (E,) and hj must lie on h's device")
     if mask is not None and (mask.shape != (e,) or mask.device != h.device):
@@ -178,9 +242,10 @@ def _check(params, h, hj, attr, dst, mask):
     if len(params) != 20:
         raise ValueError(f"20 block parameters expected, got {len(params)}")
     c = params[0].shape[0]
-    check_block_params(params[:10], cm + ca, c, h.device)
-    check_block_params(params[10:], c, c, h.device)
-    return e, cm, ca, c
+    block = block_kernel(nb)
+    check_block_params(params[:10], cm + ca, c, h.device, block)
+    check_block_params(params[10:], c, c, h.device, block)
+    return kern, e, cm, ca, c
 
 
 def _stream(t: Optional[torch.Tensor], exact: bool):
@@ -197,107 +262,134 @@ def _param_ptrs(params):
     return (ctypes.c_void_p * 20)(*[p.data_ptr() for p in params])
 
 
+def _tables(kern: FusedKernel, alg, device):
+    """(bc host array, pointer to the kernels' table operand): the Cayley
+    signs on the host for K4/K5, the packed pair tables on the card for
+    K4p/K5p, after checking the algebra against the compiled structure."""
+    metric = tuple(alg.metric.tolist())
+    bc, sign = _alg_tables(metric, kern.source, kern.symbol)
+    if kern is PAIR:
+        return bc, _pair_tabs(metric, device, kern.source,
+                              kern.symbol).data_ptr()
+    return bc, sign.ctypes.data
+
+
 def mp_forward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst,
                mask=None, exact: bool = True,
                plan: Optional[_Plan] = None) -> torch.Tensor:
-    """K4: the sum over unmasked edges, (N, C, 8) float32."""
+    """K4 (K4p at Cl(5)): the sum over unmasked edges, (N, C, nb)
+    float32."""
     if not h.is_cuda:
         return message_aggregate_plain(params, alg, h, hj, attr, dst, mask,
                                        False, exact)
     params = [p.contiguous() for p in params]
-    e, cm, ca, c = _check(params, h, hj, attr, dst, mask)
-    n = h.shape[0]
+    kern, e, cm, ca, c = _check(params, h, hj, attr, dst, mask)
+    n, nb = h.shape[0], kern.n_blades
     if plan is None:
-        plan = make_plan(dst, mask, n, cm, ca, c)
-    bc, sign = _alg_tables(tuple(alg.metric.tolist()), "fused_egcl")
+        plan = make_plan(dst, mask, n, cm, ca, c, nb)
+    bc, tabs = _tables(kern, alg, h.device)
     h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
-    out = torch.empty((n, c, 8), dtype=torch.float32, device=h.device)
+    out = torch.empty((n, c, nb), dtype=torch.float32, device=h.device)
     if n == 0:
         return out
-    fn = _lib_fn("csmpn_fused_mp_fwd", [_P] * 10 + [_I] * 8 + [_P])
+    fn = _lib_fn(kern, "fwd", [_P] * 10 + [_I] * 8 + [_P])
     err = fn(h_s.data_ptr(), hj_s.data_ptr(), _ptr(attr_s),
              plan.dst.data_ptr(), _ptr(plan.mask), plan.bounds.data_ptr(),
-             _param_ptrs(params), bc.ctypes.data, sign.ctypes.data,
-             out.data_ptr(), n, cm, ca, c, WN, plan.n_win,
-             0 if exact else 1, plan.grid,
+             _param_ptrs(params), bc.ctypes.data, tabs, out.data_ptr(), n,
+             cm, ca, c, kern.wn, plan.n_win, 0 if exact else 1, plan.grid,
              torch.cuda.current_stream(h.device).cuda_stream)
-    _build.check(err, "fused message-passing forward kernel")
-    FWD_LAUNCHES.add()
+    _build.check(err, f"{kern.label} forward kernel")
+    kern.fwd.add()
     return out
 
 
-def _block_grads(v: torch.Tensor, cin: int, c: int, na: torch.Tensor
-                 ) -> List[torch.Tensor]:
+def block_part_floats(kern: FusedKernel, cin: int, c: int) -> int:
+    """Floats of one block's slice of K5's summed partial vector."""
+    return (cin + 2 * c) * kern.n_grades * c + kern.nloc * c
+
+
+def _block_grads(v: torch.Tensor, cin: int, c: int, na: torch.Tensor,
+                 kern: FusedKernel = DENSE) -> List[torch.Tensor]:
     """One block's slice of the summed partial vector -> its 10 gradients
-    in flax shapes (layout in csrc/fused_egcl.cu)."""
-    sizes = [cin * 4 * c, c * 4 * c, c * 4 * c, NLOC * c]
+    in flax shapes.  The slice is
+        aw1 [(m*G+g)*C + n] (Cin) | awr (C) | awl (C) | loc [nloc][C]
+    with loc rows b1, silu.a (G), silu.b (G), gp.weight (P),
+    d sigmoid(norm.a) (G), bL, ln.a (csrc/fused_egcl.cu and
+    csrc/fused_egcl_pair.cu write it)."""
+    ng, npath = kern.n_grades, kern.n_paths
+    sizes = [cin * ng * c, c * ng * c, c * ng * c, kern.nloc * c]
     aw1, awr, awl, loc = torch.split(v, sizes)
 
-    def mix(t, m):   # [(m*4+g)*C + n] -> (C, m, 4)
-        return t.view(m, 4, c).permute(2, 0, 1).contiguous()
+    def mix(t, m):   # [(m*G+g)*C + n] -> (C, m, G)
+        return t.view(m, ng, c).permute(2, 0, 1).contiguous()
 
-    loc = loc.view(NLOC, c)
+    loc = loc.view(kern.nloc, c)
+    sa, sb, gw = 1, 1 + ng, 1 + 2 * ng
+    ns = gw + npath
     s = torch.sigmoid(na)
-    return [mix(aw1, cin), loc[0].reshape(c, 1), loc[1:5].t().contiguous(),
-            loc[5:9].t().contiguous(), loc[9:29].t().contiguous(),
+    return [mix(aw1, cin), loc[0].reshape(c, 1), loc[sa:sb].t().contiguous(),
+            loc[sb:gw].t().contiguous(), loc[gw:ns].t().contiguous(),
             mix(awr, c),
             # the kernel returns d/d sigmoid(normalization.a); chain to a
-            loc[29:33].t() * s * (1.0 - s),
-            mix(awl, c), loc[33].reshape(c, 1), loc[34].contiguous()]
+            loc[ns:ns + ng].t() * s * (1.0 - s),
+            mix(awl, c), loc[ns + ng].reshape(c, 1),
+            loc[ns + ng + 1].contiguous()]
 
 
 def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
                 dagg: torch.Tensor, exact: bool = True,
                 plan: Optional[_Plan] = None):
-    """K5: (dh, dhj, dattr or None, the 20 parameter gradients) of the sum,
-    given its cotangent ``dagg`` (N, C, 8).  dh, dhj and dattr come back in
-    the dtypes of h, hj and attr."""
+    """K5 (K5p at Cl(5)): (dh, dhj, dattr or None, the 20 parameter
+    gradients) of the sum, given its cotangent ``dagg`` (N, C, nb).  dh,
+    dhj and dattr come back in the dtypes of h, hj and attr."""
     if not h.is_cuda:
         return message_aggregate_grad_plain(params, alg, h, hj, attr, dst,
                                             mask, dagg, exact)
     params = [p.contiguous() for p in params]
-    e, cm, ca, c = _check(params, h, hj, attr, dst, mask)
-    n = h.shape[0]
-    if dagg.shape != (n, c, 8):
-        raise ValueError(f"dagg shape {tuple(dagg.shape)} != {(n, c, 8)}")
+    kern, e, cm, ca, c = _check(params, h, hj, attr, dst, mask)
+    n, nb = h.shape[0], kern.n_blades
+    if dagg.shape != (n, c, nb):
+        raise ValueError(f"dagg shape {tuple(dagg.shape)} != {(n, c, nb)}")
     if plan is None:
-        plan = make_plan(dst, mask, n, cm, ca, c)
-    bc, sign = _alg_tables(tuple(alg.metric.tolist()), "fused_egcl")
+        plan = make_plan(dst, mask, n, cm, ca, c, nb)
+    bc, tabs = _tables(kern, alg, h.device)
     h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
     dagg = dagg.to(torch.float32).contiguous()
     dev = h.device
     # the kernel writes every row of dh, dhj and dattr (zeros for masked
     # edges and empty windows)
-    dh = torch.empty((n, cm, 8), dtype=torch.float32, device=dev)
+    dh = torch.empty((n, cm, nb), dtype=torch.float32, device=dev)
     dhj = torch.empty_like(hj_s)
     dattr = torch.empty_like(attr_s) if attr_s is not None else None
-    n_part = int(_lib_fn("csmpn_fused_mp_partial_floats", [_I, _I, _I],
-                         ctypes.c_int64)(cm, ca, c))
-    flat = torch.zeros(n_part, dtype=torch.float32, device=dev)
+    part1 = block_part_floats(kern, cm + ca, c)      # block 0's slice
+    flat = torch.zeros(part1 + block_part_floats(kern, c, c),
+                       dtype=torch.float32, device=dev)
     if n > 0:
-        dx2 = torch.empty((e, c, 8), dtype=torch.float32, device=dev)
-        partials = torch.empty((plan.grid, n_part), dtype=torch.float32,
+        n_slice = int(_lib_fn(kern, "partial_floats", [_I, _I, _I],
+                              ctypes.c_int64)(cm, ca, c))
+        dx2 = torch.empty((e, c, nb), dtype=torch.float32, device=dev)
+        partials = torch.empty((plan.grid, n_slice), dtype=torch.float32,
                                device=dev)
-        fn = _lib_fn("csmpn_fused_mp_bwd", [_P] * 16 + [_I] * 8 + [_P])
+        fn = _lib_fn(kern, "bwd", [_P] * 16 + [_I] * 8 + [_P])
         err = fn(h_s.data_ptr(), hj_s.data_ptr(), _ptr(attr_s),
                  plan.dst.data_ptr(), _ptr(plan.mask),
                  plan.bounds.data_ptr(), dagg.data_ptr(),
-                 _param_ptrs(params), bc.ctypes.data, sign.ctypes.data,
+                 _param_ptrs(params), bc.ctypes.data, tabs,
                  dh.data_ptr(), dhj.data_ptr(), _ptr(dattr), dx2.data_ptr(),
                  partials.data_ptr(), flat.data_ptr(), n, cm, ca, c,
-                 WN, plan.n_win, 0 if exact else 1, plan.grid,
+                 kern.wn, plan.n_win, 0 if exact else 1, plan.grid,
                  torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(err, "fused message-passing backward kernel")
-        BWD_LAUNCHES.add()
-    part1 = (cm + ca + 2 * c) * 4 * c + NLOC * c   # block 0's slice
-    grads = (_block_grads(flat[:part1], cm + ca, c, params[6])
-             + _block_grads(flat[part1:], c, c, params[16]))
+        _build.check(err, f"{kern.label} backward kernel")
+        kern.bwd.add()
+    grads = (_block_grads(flat[:part1], cm + ca, c, params[6], kern)
+             + _block_grads(flat[part1:], c, c, params[16], kern))
     return (dh.to(h.dtype), dhj.to(hj.dtype),
             dattr.to(attr.dtype) if attr is not None else None, grads)
 
 
 class _FusedMP(torch.autograd.Function):
-    """The edge side's sum, whose forward is K4 and backward is K5."""
+    """The edge side's sum, whose forward is K4 (K4p) and backward K5
+    (K5p)."""
 
     @staticmethod
     def forward(ctx, h, hj, attr, dst, mask, plan, alg, exact, *params):
@@ -317,10 +409,11 @@ class _FusedMP(torch.autograd.Function):
 # ------------------------------------------------------------- public API
 
 def fused_mp_supported(algebra, edge_model, x: torch.Tensor) -> bool:
-    """K4/K5 serve the flat EGCL path on the card in fast mode, for the
-    2-block edge CEMLP with hidden == out width; exact mode and the CPU
-    keep the composed path.  On the card in fast mode an algebra or a width
-    the kernels are not compiled for raises, as K2/K3 do."""
+    """The fused kernels serve the flat EGCL path on the card in fast mode,
+    for the 2-block edge CEMLP with hidden == out width: K4/K5 at Cl(2) and
+    Cl(3), K4p/K5p at Cl(5).  Exact mode and the CPU keep the composed
+    path.  On the card in fast mode an algebra or a width the kernels are
+    not compiled for raises, as K2/K3 do; it never falls back."""
     from .segment import aggregation_exact
 
     if not x.is_cuda or aggregation_exact():
@@ -328,14 +421,11 @@ def fused_mp_supported(algebra, edge_model, x: torch.Tensor) -> bool:
     if edge_model.n_layers != 2 \
             or edge_model.hidden_features != edge_model.out_features:
         return False
-    if algebra.n_blades != 8:
+    kern = fused_kernel(algebra.n_blades)
+    if edge_model.hidden_features > kern.max_channels:
         raise NotImplementedError(
-            f"the fused message-passing kernels are compiled for 3-dim "
-            f"algebras (8 blades), got {algebra.n_blades} blades")
-    if edge_model.hidden_features > 32:
-        raise NotImplementedError(
-            f"the fused message-passing kernels take at most 32 channels, "
-            f"got {edge_model.hidden_features}")
+            f"{kern.label} take at most {kern.max_channels} channels, got "
+            f"{edge_model.hidden_features}")
     return True
 
 
@@ -345,8 +435,9 @@ def fused_message_aggregate(edge_model, h: torch.Tensor, hj: torch.Tensor,
                             edge_mask: Optional[torch.Tensor] = None, *,
                             mean: bool) -> torch.Tensor:
     """EGCL edge side — ``reduce_dst(edge_cemlp(h[dst] - hj ++ attr))`` —
-    in one pass.  ``h``: (N, Cm, 8); ``hj``: (E, Cm, 8) pre-gathered source
-    rows; ``dst``: (E,) sorted ascending.  Returns (N, C, 8) float32."""
+    in one pass.  ``h``: (N, Cm, nb); ``hj``: (E, Cm, nb) pre-gathered
+    source rows; ``dst``: (E,) sorted ascending.  Returns (N, C, nb)
+    float32."""
     from .segment import aggregation_exact, segment_counts
 
     alg = edge_model.algebra
@@ -357,8 +448,8 @@ def fused_message_aggregate(edge_model, h: torch.Tensor, hj: torch.Tensor,
         raise ValueError(f"edge model takes {ca} attribute channels, "
                          f"edge_attr is {edge_attr is not None}")
     params = block_params(edge_model, 0) + block_params(edge_model, 1)
-    plan = (make_plan(dst, edge_mask, n, cm, ca, edge_model.hidden_features)
-            if h.is_cuda else None)
+    plan = (make_plan(dst, edge_mask, n, cm, ca, edge_model.hidden_features,
+                      alg.n_blades) if h.is_cuda else None)
     agg = _FusedMP.apply(h, hj, edge_attr, dst, edge_mask, plan, alg, exact,
                          *params)
     if mean:

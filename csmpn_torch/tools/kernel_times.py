@@ -6,8 +6,9 @@ checkout, for comparing two trees on the same card:
 imports ``csmpn_torch`` from the checkout at ROOT (default: this one),
 builds its kernels, and prints one line ``kernel_times {json}`` with the
 device µs per launch, fast mode, of K2 and K3 at the motion edge block 0
-(23,200 rows, 34 -> 28 channels) and of K4 and K5 at the bench shape
-(E = 131,072, N = 8,192, 32 -> 32), and the card.  Run it for two trees
+(23,200 rows, 34 -> 28 channels), of K2p and K3p at the hulls edge block 0
+(13,184 rows, 34 -> 28 channels, Cl(5,0)) and of K4 and K5 at the bench
+shape (E = 131,072, N = 8,192, 32 -> 32), and the card.  Run it for two trees
 in turns in one call (parent, change, change, parent): two calls may land
 on two cards.  It needs a CUDA card.
 """
@@ -59,6 +60,18 @@ def main(root: str) -> dict:
                            100)
     out["k3_us"] = time_us(
         lambda: ck.block_backward(x, dout, params, alg, False), 40)
+
+    alg5 = get_algebra((1.0,) * 5)
+    rows5 = 13184
+    x5 = torch.randn(rows5, cin, 32, generator=gen).to(dev)
+    cemlp5 = CEMLP(alg5, cin, c, c, n_layers=1)
+    init_parameters(cemlp5, gen)
+    params5 = [p.detach().to(dev) for p in ck.block_params(cemlp5, 0)]
+    dout5 = torch.randn(rows5, c, 32, generator=gen).to(dev)
+    out["k2p_us"] = time_us(
+        lambda: ck.block_forward(x5, params5, alg5, False), 40)
+    out["k3p_us"] = time_us(
+        lambda: ck.block_backward(x5, dout5, params5, alg5, False), 10)
 
     set_aggregation_mode("fast")
     h, ei, _ = workload(dev)

@@ -341,9 +341,13 @@ def test_bench_main_needs_a_card_by_default(monkeypatch):
 def test_cpu_dispatch_takes_plain_versions_and_counts_nothing():
     """On CPU tensors fused_mp_supported is false in both modes, the
     wrappers compute the plain versions, and no counter moves through a
-    fused call, a forced fused EGCL layer or the bench stack."""
-    counters = (fe.FWD_LAUNCHES, fe.BWD_LAUNCHES, sk.LAUNCHES,
-                ck.FWD_LAUNCHES, ck.BWD_LAUNCHES)
+    fused call, a forced fused EGCL layer or the bench stack at Cl(2),
+    Cl(3) and Cl(5)."""
+    counters = (fe.FWD_LAUNCHES, fe.BWD_LAUNCHES, fe.CL2_FWD_LAUNCHES,
+                fe.CL2_BWD_LAUNCHES, fe.PAIR_FWD_LAUNCHES,
+                fe.PAIR_BWD_LAUNCHES, sk.LAUNCHES, ck.FWD_LAUNCHES,
+                ck.BWD_LAUNCHES, ck.CL2_FWD_LAUNCHES, ck.CL2_BWD_LAUNCHES,
+                ck.PAIR_FWD_LAUNCHES, ck.PAIR_BWD_LAUNCHES)
     for cnt in counters:
         cnt.reset()
     alg = get_algebra(CL3)
@@ -365,9 +369,10 @@ def test_cpu_dispatch_takes_plain_versions_and_counts_nothing():
     for a, b in zip(got[:2] + tuple(got[3]), want[:2] + tuple(want[3])):
         torch.testing.assert_close(a, b)
     seg.set_aggregation_mode("fast")
-    bench.run("cpu", steps=1, windows=1, n_nodes=12, n_edges=30, batch=1,
-              hidden=4)
-    assert [cnt.count for cnt in counters] == [0] * 5
+    for dim in (2, 3, 5):
+        bench.run("cpu", steps=1, windows=1, n_nodes=12, n_edges=30,
+                  batch=1, hidden=4, dim=dim)
+    assert [cnt.count for cnt in counters] == [0] * len(counters)
 
 
 def test_fused_mp_supported_raises_on_the_card_for_other_algebras():
@@ -389,24 +394,31 @@ def test_fused_mp_supported_raises_on_the_card_for_other_algebras():
     assert not fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 4, 4), on_card)
 
 
-def test_partial_slice_maps_onto_flax_shapes():
-    """K5's summed partial vector (layout in csrc/fused_egcl.cu) maps onto
-    the 10 flax-shaped gradients of each block, d sigmoid(a) chained."""
+@pytest.mark.parametrize("nb", [4, 8, 32])
+def test_partial_slice_maps_onto_flax_shapes(nb):
+    """K5's summed partial vector (layout in csrc/fused_egcl.cu and
+    csrc/fused_egcl_pair.cu) maps onto the 10 flax-shaped gradients of each
+    block, d sigmoid(a) chained, at Cl(2), Cl(3) and Cl(5) (G grades, P
+    paths)."""
+    kern = fe.fused_kernel(nb)
+    g, npath = kern.n_grades, kern.n_paths
     rng = np.random.RandomState(0)
     cin, c = 5, 3
     grads = [rng.randn(*s).astype(np.float32) for s in
-             [(c, cin, 4), (c, 1), (c, 4), (c, 4), (c, 20), (c, c, 4),
-              (c, 4), (c, c, 4), (c, 1), (c,)]]
-    na = torch.from_numpy(rng.randn(c, 4).astype(np.float32))
+             [(c, cin, g), (c, 1), (c, g), (c, g), (c, npath), (c, c, g),
+              (c, g), (c, c, g), (c, 1), (c,)]]
+    na = torch.from_numpy(rng.randn(c, g).astype(np.float32))
 
-    def internal(w):   # flax (C, m, 4) -> [(m*4+g)*C + n]
+    def internal(w):   # flax (C, m, G) -> [(m*G+g)*C + n]
         return np.transpose(w, (1, 2, 0)).reshape(-1)
 
     loc = np.concatenate([grads[1].T, grads[2].T, grads[3].T, grads[4].T,
                           grads[6].T, grads[8].T, grads[9][None]], axis=0)
+    assert loc.shape == (kern.nloc, c)
     flat = np.concatenate([internal(grads[0]), internal(grads[5]),
                            internal(grads[7]), loc.reshape(-1)])
-    got = fe._block_grads(torch.from_numpy(flat), cin, c, na)
+    assert flat.size == fe.block_part_floats(kern, cin, c)
+    got = fe._block_grads(torch.from_numpy(flat), cin, c, na, kern)
     s = torch.sigmoid(na)
     want = [torch.from_numpy(g) for g in grads]
     want[6] = want[6] * s * (1 - s)
