@@ -21,15 +21,16 @@
    d(hj) exactly 0; the same for K4/K5 at Cl(2) (C = 40, or 28 with
    attributes) and for K4p/K5p, the pair form at Cl(5) (C = 28, the
    layouts cut to at most 16,384 edges: the plain pair form holds
-   (E, C, 32, 32) products);
+   (E, C, 32, 32) products) and at Cl(4) (C = 28, cut to at most 65,536
+   edges: (E, C, 16, 16) products, a quarter of Cl(5)'s a row);
 4. times each kernel, its plain version, a PyTorch library call where one
    computes the same function, and states the least time the card could
    take (bytes over 3.35 TB/s or operations over the peak rate); for K4
    and K5 also the composed route (gather, edge CEMLP on K2/K3,
    aggregation on K1) computing the same function, and so for K4/K5 at
-   Cl(2) and K4p/K5p at the bench shape of their algebra (K4p/K5p held to
-   the composed route there, their plain versions timed on the cut
-   graph);
+   Cl(2) and K4p/K5p at Cl(5) and Cl(4) at the bench shape of their
+   algebra (K4p/K5p held to the composed route there, their plain
+   versions timed on the cut graph);
 5. checks the full-width motion model on the card against the same model
    on the CPU (loss and every gradient, exact mode);
 6. runs the motion task through its entry point (fire -> run_task ->
@@ -65,10 +66,14 @@
     and, in fast mode, its loss and every gradient on K4/K5 to the same
     stack on the composed route; then the same at ``--dim 2`` (Cl(2,0),
     hidden 40: K1 2, K2/K3 at Cl(2) 6 + 6, K4/K5 at Cl(2) 3 + 3 launches
-    per step) and ``--dim 5`` (Cl(5,0), hidden 28: K1 2, K2p/K3p 6 + 6,
-    K4p/K5p 3 + 3);
-11. prints the kernels JSON line (sixteen kernels) and, last, the
-    device JSON line.
+    per step), ``--dim 5`` (Cl(5,0), hidden 28: K1 2, K2p/K3p 6 + 6,
+    K4p/K5p 3 + 3) and ``--dim 4`` (Cl(4,0), hidden 28: K1 2, K2p/K3p at
+    Cl(4) 6 + 6, K4p/K5p at Cl(4) 3 + 3, no Cl(5) launch), after K2p/K3p
+    at Cl(4) are held to their plain versions at the bench's node-block
+    shapes (8,192 rows, 56 -> 28 and 28 -> 28), a narrow one (3 -> 4) and
+    one with attribute-width input (34 -> 28), as in 7, and timed;
+11. prints the kernels JSON line (twenty kernels) and, last, the device
+    JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one card and imports nothing of JAX.
@@ -181,6 +186,21 @@ TOL = {  # max |kernel - plain| allowed, relative to max |plain|: fp32
     "bench_cl2_fused_grad": 3e-2,
     "bench_cl5_fast_loss": 1e-3, "bench_cl5_fused_loss": 3e-4,
     "bench_cl5_fused_grad": 3e-2,
+    # the pair form at Cl(4): K2p/K3p and K4p/K5p against their plain
+    # versions and the bench stack at --dim 4, the Cl(5) pair kernels' and
+    # the Cl(5) stack's limits (the same rounding points, a grade sum over
+    # runs of at most 6 blades instead of 10).  Readings of the first run
+    # on the H100 (PERF.md): K2p/K3p exact 3.2e-7 / 3.3e-6, fast 1.6e-3 /
+    # 7.0e-3; K4p/K5p exact 3.7e-7 / 6.5e-6, fast 6.4e-4 / 1.2e-2, against
+    # the composed route at the bench shape 3.8e-4 / 1.6e-4; the stack's
+    # fast vs exact loss 7.3e-5, fused vs composed loss 1.1e-5, worst
+    # gradient 3.9e-3
+    "k2p_cl4_exact": 2e-6, "k2p_cl4_fast": 5e-3,
+    "k3p_cl4_exact": 2e-5, "k3p_cl4_fast": 2e-2,
+    "k4p_cl4_exact": 1e-5, "k4p_cl4_fast": 1e-2,
+    "k5p_cl4_exact": 1e-4, "k5p_cl4_fast": 3e-2,
+    "bench_cl4_fast_loss": 1e-3, "bench_cl4_fused_loss": 3e-4,
+    "bench_cl4_fused_grad": 3e-2,
 }
 # the measured envelope of this card (phase_envelope): "bytes" (P1's best
 # copy bandwidth, bytes/s), "bf16" (P2's bf16 mma.sync rate) and "fp32"
@@ -191,8 +211,10 @@ ENVELOPE = {}
 # per split to these (the padding spec comes from the data)
 H_B, H_HID, H_TRAIN, H_VAL = 16, 28, 512, 256
 # the K4p/K5p checks cut a layout to this many edges: the plain pair form
-# holds (E, C, 32, 32) fp32 products, ~1.9 GB each at 28 channels
+# holds (E, C, 32, 32) fp32 products, ~1.9 GB each at 28 channels; at
+# Cl(4) (E, C, 16, 16), the same bytes at four times the edges
 PAIR_MAX_EDGES = 16384
+PAIR_MAX_EDGES_CL4 = 65536
 
 
 def card_line() -> str:
@@ -205,7 +227,7 @@ def card_line() -> str:
 def kernel_name(ptxas_line: str) -> str:
     """'name<args>' from ptxas's 'Compiling entry function' line: the
     kernel's name (lower-case words ending in '_kernel', which no digit of
-    the mangled prefix can join), its algebra (Cl2E / Cl3E) and its bool
+    the mangled prefix can join), its algebra (Cl2E ... Cl5E) and its bool
     template arguments (Lb0E / Lb1E)."""
     m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(I\w*?Ev)?", ptxas_line)
     if m is None:
@@ -481,9 +503,9 @@ def phase_k1(dev, gen, results, real):
 
 def block_inputs(rows, cin, c, gen, dev, nb=8):
     """Random input, parameters and output cotangent of one block at
-    nb = 4 (Cl(2): 3 grades, 10 paths), nb = 8 (Cl(3): 4, 20) or nb = 32
-    (Cl(5): 6, 56)."""
-    ng, npath = {4: (3, 10), 8: (4, 20), 32: (6, 56)}[nb]
+    nb = 4 (Cl(2): 3 grades, 10 paths), nb = 8 (Cl(3): 4, 20), nb = 16
+    (Cl(4): 5, 35) or nb = 32 (Cl(5): 6, 56)."""
+    ng, npath = {4: (3, 10), 8: (4, 20), 16: (5, 35), 32: (6, 56)}[nb]
     x = torch.randn(rows, cin, nb, generator=gen)
 
     def r(*shape, scale=1.0, base=0.0):
@@ -652,7 +674,8 @@ def edge_params(cin, c, gen, dev, nb=8):
 
 # the kernels' names in the lines chip_smoke prints
 LABEL = {"k4": "K4", "k5": "K5", "k4_cl2": "K4 at Cl(2)",
-         "k5_cl2": "K5 at Cl(2)", "k4p": "K4p", "k5p": "K5p"}
+         "k5_cl2": "K5 at Cl(2)", "k4p": "K4p", "k5p": "K5p",
+         "k4p_cl4": "K4p at Cl(4)", "k5p_cl4": "K5p at Cl(4)"}
 
 
 def check_fused_form(dev, gen, alg, layouts, keys):
@@ -762,8 +785,9 @@ def cl2_layouts():
 def pair_layouts(max_edges=PAIR_MAX_EDGES):
     """fused_layouts() at the hulls width (C = 28, Cm 28, Ca as given),
     each cut to at most ``max_edges`` edges: the plain pair form builds
-    (E, C, 32, 32) products, ~115 KB an edge.  A cut layout keeps its edges
-    into the first targets and its N, so its later windows are empty."""
+    (E, C, nb, nb) products, ~115 KB an edge at Cl(5) and ~29 KB at Cl(4).
+    A cut layout keeps its edges into the first targets and its N, so its
+    later windows are empty."""
     out = []
     for name, dst, n, _, ca, _, masked in fused_layouts():
         if len(dst) > max_edges:
@@ -799,15 +823,30 @@ def phase_fused_pair(dev, gen, results):
                                  "fused_egcl_pair.cu", 405, errs)
 
 
+def phase_fused_pair_cl4(dev, gen, results):
+    from csmpn_torch.algebra import get_algebra
+
+    print(f"K4p/K5p at Cl(4,0) (pair form, 16 blades) vs plain, layouts cut "
+          f"to at most {PAIR_MAX_EDGES_CL4} edges")
+    errs = check_fused_form(dev, gen, get_algebra((1.0,) * 4),
+                            pair_layouts(PAIR_MAX_EDGES_CL4),
+                            ("k4p_cl4", "k5p_cl4"))
+    results["k4p_cl4"] = fused_entry("k4p_cl4", "fused_mp_pair_cl4_fwd",
+                                     "fused_egcl_pair_cl4.cu", 102, errs)
+    results["k5p_cl4"] = fused_entry("k5p_cl4", "fused_mp_pair_cl4_bwd",
+                                     "fused_egcl_pair_cl4.cu", 405, errs)
+
+
 def phase_fused_time(dev, results, dim=3, keys=("k4", "k5")):
-    """K4 and K5 (Cl(3), Cl(2)) or K4p and K5p (Cl(5)) at the bench shape
-    of their algebra (E = 131,072, N = 8,192, bench.WIDTHS's width, fast
-    mode), held to their plain versions and to the composed route, then
-    timed beside both, with K1 at the source gather's width.  At Cl(5) the
-    plain pair form would hold ~15 GB products at this shape: K4p/K5p are
-    held to the composed route here (and to the plain version on the cut
-    layouts of phase_fused_pair), and the plain times are taken on the
-    bench graph's first PAIR_MAX_EDGES edges."""
+    """K4 and K5 (Cl(3), Cl(2)) or K4p and K5p (Cl(5), Cl(4)) at the bench
+    shape of their algebra (E = 131,072, N = 8,192, bench.WIDTHS's width,
+    fast mode), held to their plain versions and to the composed route,
+    then timed beside both, with K1 at the source gather's width.  At Cl(5)
+    the plain pair form would hold ~15 GB products at this shape (~3.8 GB
+    at Cl(4)): K4p/K5p are held to the composed route here (and to the
+    plain version on the cut layouts of phase_fused_pair and
+    phase_fused_pair_cl4), and the plain times are taken on the bench
+    graph's first PAIR_MAX_EDGES (Cl(4): PAIR_MAX_EDGES_CL4) edges."""
     import torch as _t
     from csmpn_torch.algebra import get_algebra
     from csmpn_torch.bench import WIDTHS, workload
@@ -838,9 +877,10 @@ def phase_fused_time(dev, results, dim=3, keys=("k4", "k5")):
     params = [p.detach() for p in live]
     dagg = _t.randn(n, c, nb, device=dev)
     plan = fe.make_plan(dst, None, n, c, 0, c, nb)
-    # the plain versions' inputs: the whole bench graph, or at Cl(5) its
-    # edges into the first targets
-    cut = int(dst[PAIR_MAX_EDGES]) if pair else n
+    # the plain versions' inputs: the whole bench graph, or in the pair
+    # form its edges into the first targets
+    max_edges = PAIR_MAX_EDGES_CL4 if nb == 16 else PAIR_MAX_EDGES
+    cut = int(dst[max_edges]) if pair else n
     pd = dst[dst < cut]
     phj = hj[: pd.shape[0]]
 
@@ -858,7 +898,8 @@ def phase_fused_time(dev, results, dim=3, keys=("k4", "k5")):
                                                pd, None, dagg, False)
 
     lf, lb = LABEL[kf], LABEL[kb]
-    form = {3: "K4/K5", 2: "K4/K5 at Cl(2)", 5: "K4p/K5p"}[dim]
+    form = {3: "K4/K5", 2: "K4/K5 at Cl(2)", 5: "K4p/K5p",
+            4: "K4p/K5p at Cl(4)"}[dim]
     print(f"{form} at the bench shape ({plan.n_win} windows on "
           f"{plan.grid} CTAs) vs their plain versions and the composed "
           f"route, fast")
@@ -1541,30 +1582,62 @@ BENCH_PER_STEP = {"k1": 2, "k2": 6, "k3": 6, "k4": 3, "k5": 3}
 BENCH_CL2_PER_STEP = {"k1": 2, "k2_cl2": 6, "k3_cl2": 6, "k4_cl2": 3,
                       "k5_cl2": 3}
 BENCH_CL5_PER_STEP = {"k1": 2, "k2p": 6, "k3p": 6, "k4p": 3, "k5p": 3}
+BENCH_CL4_PER_STEP = {"k1": 2, "k2p_cl4": 6, "k3p_cl4": 6, "k4p_cl4": 3,
+                      "k5p_cl4": 3}
+# the bench at --dim 4 (Cl(4,0), hidden 28): the node blocks K2p/K3p at
+# Cl(4) run on its path (name, rows, Cin, C, launches per step), then a
+# narrow block and one with the attribute-width input of a hulls edge
+# block, which the kernels take too
+BENCH_CL4_SHAPES = [
+    ("node_block0", BN, 56, 28, 3),
+    ("node_block1", BN, 28, 28, 3),
+    ("narrow", 4099, 3, 4, 0),
+    ("attr_width", BN, 34, 28, 0),
+]
 
 
-def phase_bench(counters, dim=3, per_step_want=BENCH_PER_STEP):
+def phase_block_cl4(dev, gen, results):
+    """K2p/K3p at Cl(4) against their plain versions at the bench's
+    --dim 4 block shapes and two more, then their times."""
+    print("K2p pair-form CEMLP block forward / K3p backward at Cl(4,0) vs "
+          "plain (bench --dim 4 node blocks, narrow, attribute width)")
+    phase_block_form(dev, gen, results, BENCH_CL4_SHAPES, (1.0,) * 4,
+                     ("k2p_cl4", "k3p_cl4"), "cemlp_pair_cl4",
+                     "cemlp_pair_cl4.cu", (20, 10, 3, 2))
+
+
+def phase_bench(counters, dim=3, per_step_want=BENCH_PER_STEP, idle=None):
     """csmpn_torch.bench through its entry point at full width (``--dim``
-    for Cl(2) and Cl(5)), then one step's launches, a profile, the
+    for Cl(2), Cl(4) and Cl(5)), then one step's launches, a profile, the
     fast-mode loss against exact, and the stack's loss and gradients on
-    the fused kernels against the composed route."""
+    the fused kernels against the composed route.  The counters of
+    ``idle`` (another algebra's kernels) must not move in the run or the
+    step."""
     from csmpn_torch import bench
     from csmpn_torch.ops import fused_egcl as fe
     from csmpn_torch.ops.segment import set_aggregation_mode
 
     hidden = bench.WIDTHS[dim][0]
     tag = "" if dim == 3 else f"_cl{dim}"
-    fused = "K4/K5" if dim != 5 else "K4p/K5p"
+    fused = {5: "K4p/K5p", 4: "K4p/K5p at Cl(4)"}.get(dim, "K4/K5")
+    idle = idle or {}
+
+    def check_idle(what):
+        moved = {k: c.count for k, c in idle.items() if c.count}
+        if moved:
+            raise AssertionError(f"{what} at --dim {dim} launched another "
+                                 f"algebra's kernels: {moved}")
     print(f"bench path via csmpn_torch.bench.main"
           f"{'' if dim == 3 else f' --dim {dim}'}: 3 EGCL layers"
           f"{'' if dim == 3 else f' at Cl({dim},0)'}, hidden {hidden}, "
           f"E=131072, N=8192, fast, 10 steps x 3 windows")
-    for c in counters.values():
+    for c in list(counters.values()) + list(idle.values()):
         c.reset()
     res = bench.main(["--device=cuda"]
                      + ([] if dim == 3 else ["--dim", str(dim)]))
     torch.cuda.synchronize()
     launches = {k: c.count for k, c in counters.items()}
+    check_idle("the bench run")
     st = [t * 1e3 for t in res["step_times_s"]]
     print(f"  step: best window {res['step_s'] * 1e3:.3f} ms/step, median "
           f"{statistics.median(st):.3f} ms over {len(st)} steps (all: "
@@ -1584,6 +1657,7 @@ def phase_bench(counters, dim=3, per_step_want=BENCH_PER_STEP):
     bench.train_step(model, opt, h, ei, src_sort)
     torch.cuda.synchronize()
     per_step = {k: c.count for k, c in counters.items()}
+    check_idle("a training step")
     print(f"  launches per training step: {per_step} (expected "
           f"{per_step_want})")
     if per_step != per_step_want:
@@ -1674,6 +1748,11 @@ def main() -> int:
                         k5_cl2=fe.CL2_BWD_LAUNCHES)
     cl5_counters = dict(hulls_counters, k4p=fe.PAIR_FWD_LAUNCHES,
                         k5p=fe.PAIR_BWD_LAUNCHES)
+    cl4_counters = {"k1": sk.LAUNCHES, "k2p_cl4": ck.PAIR_CL4_FWD_LAUNCHES,
+                    "k3p_cl4": ck.PAIR_CL4_BWD_LAUNCHES,
+                    "k4p_cl4": fe.PAIR_CL4_FWD_LAUNCHES,
+                    "k5p_cl4": fe.PAIR_CL4_BWD_LAUNCHES}
+    cl5_pair = {k: c for k, c in cl5_counters.items() if k != "k1"}
     runs = {"envelope": (phase_envelope(dev, results), None)}
     with tempfile.TemporaryDirectory() as dataroot:
         real = motion_ids(dataroot, dev)
@@ -1685,6 +1764,9 @@ def main() -> int:
         phase_fused_time(dev, results, 2, ("k4_cl2", "k5_cl2"))
         phase_fused_pair(dev, gen, results)
         phase_fused_time(dev, results, 5, ("k4p", "k5p"))
+        phase_fused_pair_cl4(dev, gen, results)
+        phase_fused_time(dev, results, 4, ("k4p_cl4", "k5p_cl4"))
+        phase_block_cl4(dev, gen, results)
         phase_model(dev, dataroot)
         runs["motion"] = phase_task(dataroot, motion_counters)[:2]
         runs["hulls"] = phase_hulls(dev, gen, results, dataroot,
@@ -1696,17 +1778,23 @@ def main() -> int:
     runs["bench"] = phase_bench(counters)[:2]
     runs["bench_cl2"] = phase_bench(cl2_counters, 2, BENCH_CL2_PER_STEP)[:2]
     runs["bench_cl5"] = phase_bench(cl5_counters, 5, BENCH_CL5_PER_STEP)[:2]
+    runs["bench_cl4"] = phase_bench(cl4_counters, 4, BENCH_CL4_PER_STEP,
+                                    idle=cl5_pair)[:2]
     # each kernel's launches on the path that runs it (the bench for
     # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2), the bench at
-    # Cl(2) and Cl(5) for K4/K5 at Cl(2) and K4p/K5p, the probe's own run
-    # for P1-P3, which has no training step), the other paths' beside them
+    # Cl(2), Cl(5) and Cl(4) for K4/K5 at Cl(2), K4p/K5p and the Cl(4)
+    # pair kernels, the probe's own run for P1-P3, which has no training
+    # step), the other paths' beside them
     home = {"k2p": "hulls", "k3p": "hulls", "k2_cl2": "nba",
             "k3_cl2": "nba", "k4_cl2": "bench_cl2", "k5_cl2": "bench_cl2",
-            "k4p": "bench_cl5", "k5p": "bench_cl5", "p1": "envelope",
-            "p2": "envelope", "p3": "envelope"}
+            "k4p": "bench_cl5", "k5p": "bench_cl5",
+            **{k: "bench_cl4" for k in ("k2p_cl4", "k3p_cl4", "k4p_cl4",
+                                        "k5p_cl4")},
+            "p1": "envelope", "p2": "envelope", "p3": "envelope"}
     kernels = []
     for k in ("k1", "k2", "k3", "k4", "k5", "k2p", "k3p", "k2_cl2",
-              "k3_cl2", "k4_cl2", "k5_cl2", "k4p", "k5p", "p1", "p2", "p3"):
+              "k3_cl2", "k4_cl2", "k5_cl2", "k4p", "k5p", "k2p_cl4",
+              "k3p_cl4", "k4p_cl4", "k5p_cl4", "p1", "p2", "p3"):
         entry = dict(results[k])
         own = home.get(k, "bench")
         entry["launches"] = runs[own][0][k]

@@ -9,15 +9,18 @@ On the card in fast mode each layer's edge side runs the fused kernels K4
 (forward) and K5 (backward); the node side runs K2/K3 and the source
 gather's backward K1.
 
-    python -m csmpn_torch.bench [--quick] [--device=cuda|cpu] [--dim 2|3|5]
+    python -m csmpn_torch.bench [--quick] [--device=cuda|cpu]
+        [--dim 2|3|4|5]
 
 ``--dim`` (the port's own option; the reference bench builds Cl(3) only)
 sets the stack's algebra Cl(dim, 0) and takes its width from the task
 config of that algebra (``WIDTHS``): Cl(2,0) at hidden 40 (the NBA task)
 runs K4/K5 at Cl(2) on the edge side and K2/K3 at Cl(2) on the node side;
 Cl(5,0) at hidden 28 (the hulls task) runs their pair form, K4p/K5p and
-K2p/K3p.  The graph, the seed and the random stream are the same; the
-features are (N, hidden, 2**dim).
+K2p/K3p; Cl(4,0), which no task runs, at hidden 28, the width of the pair
+form's other algebra, runs K4p/K5p and K2p/K3p at Cl(4).  The graph, the
+seed and the random stream are the same; the features are (N, hidden,
+2**dim).
 
 Times windows of 10 steps (3 with ``--quick``), each ending on a loss
 read-back, and reports the fastest of 3 windows as edges/s =
@@ -57,6 +60,9 @@ WIDTHS = {
     3: (HIDDEN, "bench.py"),
     2: (40, "configs/nba.yaml (model.num_hidden, NBA at Cl(2,0))"),
     5: (28, "HullsModel's default hidden_features (hulls at Cl(5,0))"),
+    4: (28, "no task runs Cl(4,0): the width of the pair form's other "
+            "algebra, HullsModel's default hidden_features (hulls at "
+            "Cl(5,0))"),
 }
 
 

@@ -1,12 +1,22 @@
-// The pair form of one CEMLP block of Cl(5,0), per row: the device code
-// shared by the pair-form block kernels (cemlp_pair.cu, K2p and K3p) and the
-// pair-form fused message-passing kernels (fused_egcl_pair.cu, K4p and K5p).
+// The pair form of one CEMLP block, per row, templated on the algebra: the
+// device code shared by the pair-form block kernels (cemlp_pair_kernels.cuh,
+// K2p and K3p) and the pair-form fused message-passing kernels
+// (fused_egcl_pair.cuh, K4p and K5p), each compiled for Cl(5,0) (32 blades)
+// and Cl(4,0) (16 blades) by its own thin source.
 //
-// A row's 32 blades are a warp's 32 lanes, a lane owning one blade of every
-// channel; a team of warps shares a row, each warp taking every nh-th group
-// of four channels (cemlp_pair.cu's header says why).  Here:
-//   * the host tables: the Cayley pairs of Cl(5) (left blade, sign and
-//     grade path of every (output j, right k)) and their packed form;
+// A row's NB blades are NB lanes, a lane owning one blade of every channel.
+// At Cl(5) a row member is a whole warp; at Cl(4) it is a half-warp, so a
+// warp holds two members of one row side by side (each taking its own
+// groups of four channels).  A team of members shares a row, each member
+// taking every nh-th group of four channels (cemlp_pair_kernels.cuh's
+// header says why).  Every collective of a member (the shuffles of the pair
+// product, the blade sums, the grade sums' scratch) names only its own
+// lanes: at Cl(4) the shuffles have width 16 and the half-warp's mask, so
+// the two halves may run different channel counts.  Here:
+//   * the traits `Cl5`/`Cl4`: blades, grades, grade paths, the short-lex
+//     bitmap and grade runs, and the sizes derived from them;
+//   * the host tables: the Cayley pairs (left blade, sign and grade path of
+//     every (output j, right k)) and their packed form;
 //   * the block's parameters staged in shared memory (`stage_params`);
 //   * `row_forward`: one block's forward for a row; `row_backward`: its
 //     backward, recomputing the forward, with the per-channel gradients of
@@ -26,34 +36,70 @@
 
 namespace {
 
-constexpr int NB = 32;         // blades of Cl(5)
-constexpr int NG = 6;          // grades
-constexpr int NP = 56;         // nonzero grade paths
-constexpr int XCH = 8;         // a row's exchange slots: 2 sums x 4 warps
-constexpr int RP = 33;         // shared-memory pitch of a channel's blades
-constexpr int NLOC = 21;       // per-channel gradient rows of a row slot
-constexpr int TAB_T = 3 * NB * NB;          // T1 | T2 | T3
-constexpr int TAB_LEN = TAB_T + NB * NB + NP + 1;   // + pair list, offsets
-constexpr int TAB_FLOATS = ((TAB_LEN + 1) / 2 + 3) / 4 * 4;
 constexpr float EPS = 1e-6f;
 constexpr float SQRT2_INV = 0.70710678118654752440f;
 constexpr size_t kMaxSmem = 232448;   // 227 KB opt-in per block
 
-// grade of short-lex blade i, and the first blade of grade g
-__host__ __device__ constexpr int grade5(int i) {
-  return i == 0 ? 0 : i < 6 ? 1 : i < 16 ? 2 : i < 26 ? 3 : i < 31 ? 4 : 5;
-}
-__host__ __device__ constexpr int gstart(int g) {
-  return g == 0 ? 0 : g == 1 ? 1 : g == 2 ? 6 : g == 3 ? 16 : g == 4 ? 26
-       : g == 5 ? 31 : 32;
-}
+// Sizes every pair-form algebra derives from its blades, grades and paths.
+template <int NB_, int NG_, int NP_>
+struct PairAlgebra {
+  static constexpr int NB = NB_;            // blades
+  static constexpr int NG = NG_;            // grades
+  static constexpr int NP = NP_;            // nonzero grade paths
+  static constexpr int MW = 32 / NB;        // row members a warp holds
+  static constexpr int RP = NB + 1;         // shared-memory pitch of a channel
+  static constexpr int NLOC = 3 + 3 * NG;   // per-channel gradient rows
+  // a row's exchange slots: 2 sums x at most 4 warps x MW members
+  static constexpr int XCH = 8 * MW;
+  static constexpr int TAB_T = 3 * NB * NB;                 // T1 | T2 | T3
+  static constexpr int TAB_LEN = TAB_T + NB * NB + NP + 1;  // + pairs, offsets
+  static constexpr int TAB_FLOATS = ((TAB_LEN + 1) / 2 + 3) / 4 * 4;
+  // rows of loc ([NLOC][C4]): 0 b1, 1 bL, 2 layer-norm a, then silu.a,
+  // silu.b and d sigmoid(normalization.a), NG rows each
+  static constexpr int L_B1 = 0, L_BL = 1, L_ALN = 2, L_SA = 3,
+                       L_SB = 3 + NG, L_NS = 3 + 2 * NG;
+};
+
+// Cl(5,0): 32 blades in short-lex order, grade runs 1, 5, 10, 10, 5, 1.
+struct Cl5 : PairAlgebra<32, 6, 56> {
+  __host__ __device__ static constexpr int grade(int i) {
+    return i == 0 ? 0 : i < 6 ? 1 : i < 16 ? 2 : i < 26 ? 3 : i < 31 ? 4 : 5;
+  }
+  // the first blade of grade g
+  __host__ __device__ static constexpr int gstart(int g) {
+    return g == 0 ? 0 : g == 1 ? 1 : g == 2 ? 6 : g == 3 ? 16 : g == 4 ? 26
+         : g == 5 ? 31 : 32;
+  }
+  // short-lex index -> bitmap
+  static int bitmap(int i) {
+    static const int t[32] = {0, 1, 2, 4, 8, 16, 3, 5, 9, 17, 6, 10, 18, 12,
+                              20, 24, 7, 11, 19, 13, 21, 25, 14, 22, 26, 28,
+                              15, 23, 27, 29, 30, 31};
+    return t[i];
+  }
+};
+
+// Cl(4,0): 16 blades in short-lex order, grade runs 1, 4, 6, 4, 1.
+struct Cl4 : PairAlgebra<16, 5, 35> {
+  __host__ __device__ static constexpr int grade(int i) {
+    return i == 0 ? 0 : i < 5 ? 1 : i < 11 ? 2 : i < 15 ? 3 : 4;
+  }
+  __host__ __device__ static constexpr int gstart(int g) {
+    return g == 0 ? 0 : g == 1 ? 1 : g == 2 ? 5 : g == 3 ? 11 : g == 4 ? 15
+         : 16;
+  }
+  static int bitmap(int i) {
+    static const int t[16] = {0, 1, 2, 4, 8, 3, 5, 9, 6, 10, 12, 7, 11, 13,
+                              14, 15};
+    return t[i];
+  }
+};
+
+// The packed tables keep one layout at every algebra: a blade or index
+// field is 5 bits (FIELD), a sign bit above it, the path above that.
+constexpr int FIELD = 31;
 
 // ------------------------------------------------------------ host tables
-
-// short-lex index -> bitmap of Cl(5)
-const int kBitmap[NB] = {0, 1, 2, 4, 8, 16, 3, 5, 9, 17, 6, 10, 18, 12, 20,
-                         24, 7, 11, 19, 13, 21, 25, 14, 22, 26, 28, 15, 23,
-                         27, 29, 30, 31};
 
 int popcount(int v) {
   int n = 0;
@@ -61,9 +107,10 @@ int popcount(int v) {
   return n;
 }
 
+template <class A>
 int index_of_bitmap(int bm) {
-  for (int i = 0; i < NB; ++i)
-    if (kBitmap[i] == bm) return i;
+  for (int i = 0; i < A::NB; ++i)
+    if (A::bitmap(i) == bm) return i;
   return -1;
 }
 
@@ -77,42 +124,48 @@ int reorder_sign(int a, int b) {
 // The pair structure: for output j and right k the left blade i, the sign
 // of e_i e_k = sign e_j, and the index of the grade path (g(i), g(j), g(k))
 // among the nonzero ones in lexicographic order.
+template <class A>
 struct Pairs {
-  int i_of[NB][NB], path[NB][NB], sign[NB][NB];
+  int i_of[A::NB][A::NB], path[A::NB][A::NB], sign[A::NB][A::NB];
 };
 
-void make_pairs(Pairs& t) {
+template <class A>
+void make_pairs(Pairs<A>& t) {
+  constexpr int NB = A::NB, NG = A::NG;
   int pid[NG][NG][NG];
   bool valid[NG][NG][NG] = {};
   for (int i = 0; i < NB; ++i)
     for (int k = 0; k < NB; ++k)
-      valid[grade5(i)][popcount(kBitmap[i] ^ kBitmap[k])][grade5(k)] = true;
+      valid[A::grade(i)][popcount(A::bitmap(i) ^ A::bitmap(k))]
+           [A::grade(k)] = true;
   int n = 0;
   for (int a = 0; a < NG; ++a)
     for (int b = 0; b < NG; ++b)
       for (int c = 0; c < NG; ++c) pid[a][b][c] = valid[a][b][c] ? n++ : -1;
   for (int j = 0; j < NB; ++j)
     for (int k = 0; k < NB; ++k) {
-      const int i = index_of_bitmap(kBitmap[j] ^ kBitmap[k]);
+      const int i = index_of_bitmap<A>(A::bitmap(j) ^ A::bitmap(k));
       t.i_of[j][k] = i;
-      t.sign[j][k] = reorder_sign(kBitmap[i], kBitmap[k]);
-      t.path[j][k] = pid[grade5(i)][grade5(j)][grade5(k)];
+      t.sign[j][k] = reorder_sign(A::bitmap(i), A::bitmap(k));
+      t.path[j][k] = pid[A::grade(i)][A::grade(j)][A::grade(k)];
     }
 }
 
 uint16_t pack(int blade, int sign, int path) {
-  return (uint16_t)(blade | (sign < 0 ? 32 : 0) | (path << 6));
+  return (uint16_t)(blade | (sign < 0 ? FIELD + 1 : 0) | (path << 6));
 }
 
 // Packed tables, uint16:
-//   T1[k*32 + j] = (i, sign, path) of pair (j, k)   lane j, loop k
-//   T2[k*32 + i] = (j, sign, path) of pair (j, k), j = i_of(i, k)
+//   T1[k*NB + j] = (i, sign, path) of pair (j, k)   lane j, loop k
+//   T2[k*NB + i] = (j, sign, path) of pair (j, k), j = i_of(i, k)
 //                                                   lane i, loop k
-//   T3[j*32 + k] = (i, sign, path) of pair (j, k)   lane k, loop j
+//   T3[j*NB + k] = (i, sign, path) of pair (j, k)   lane k, loop j
 //   LIST[q] = j | k << 5 | i << 10 | neg << 15, the pairs grouped by path
-//   OFF[p] = first LIST entry of path p, OFF[56] = 1024
+//   OFF[p] = first LIST entry of path p, OFF[NP] = NB * NB
+template <class A>
 int make_packed(uint16_t* out) {
-  Pairs t;
+  constexpr int NB = A::NB, NP = A::NP;
+  Pairs<A> t;
   make_pairs(t);
   for (int j = 0; j < NB; ++j)
     for (int k = 0; k < NB; ++k) {
@@ -122,10 +175,10 @@ int make_packed(uint16_t* out) {
     }
   for (int i = 0; i < NB; ++i)
     for (int k = 0; k < NB; ++k) {
-      const int j = index_of_bitmap(kBitmap[i] ^ kBitmap[k]);
+      const int j = index_of_bitmap<A>(A::bitmap(i) ^ A::bitmap(k));
       out[NB * NB + k * NB + i] = pack(j, t.sign[j][k], t.path[j][k]);
     }
-  uint16_t* list = out + TAB_T;
+  uint16_t* list = out + A::TAB_T;
   uint16_t* off = list + NB * NB;
   int q = 0;
   for (int p = 0; p < NP; ++p) {
@@ -137,7 +190,25 @@ int make_packed(uint16_t* out) {
                                  (t.sign[j][k] < 0 ? (1 << 15) : 0));
   }
   off[NP] = (uint16_t)q;
-  return q == NB * NB ? TAB_LEN : -1;
+  return q == NB * NB ? A::TAB_LEN : -1;
+}
+
+// The structure the kernels assume, for the host to check against the
+// algebra: i_of, path ids and signs of the pairs [j * NB + k], grades.
+template <class A>
+void structural_tables(int* i_of_out, int* path_out, int* grade_out,
+                       float* sign_out) {
+  constexpr int NB = A::NB;
+  Pairs<A> t;
+  make_pairs(t);
+  for (int j = 0; j < NB; ++j)
+    for (int k = 0; k < NB; ++k) {
+      i_of_out[j * NB + k] = t.i_of[j][k];
+      path_out[j * NB + k] = t.path[j][k];
+      sign_out[j * NB + k] = (float)t.sign[j][k];
+    }
+  for (int i = 0; i < NB; ++i)
+    grade_out[i] = A::grade(i) == popcount(A::bitmap(i)) ? A::grade(i) : -1;
 }
 
 // ---------------------------------------------------------- device helpers
@@ -146,8 +217,9 @@ struct Params {
   const float *w1, *b1, *sa, *sb, *gw, *wr, *na, *wl, *bl, *aln;
 };
 
+template <class A>
 struct Tabs {
-  float bc[NB];          // quadratic-form coefficient per blade
+  float bc[A::NB];       // quadratic-form coefficient per blade
 };
 
 template <bool FAST>
@@ -156,20 +228,44 @@ __device__ __forceinline__ float rnd(float x) {
   return x;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+// This thread's blade, its member of the warp (0 at Cl(5); the half-warp
+// at Cl(4)) and the mask of its member's lanes.
+template <class A>
+__device__ __forceinline__ int blade_lane() {
+  return A::MW == 1 ? (int)threadIdx.x : (int)threadIdx.x & (A::NB - 1);
+}
+template <class A>
+__device__ __forceinline__ int half_of_warp() {
+  return A::MW == 1 ? 0 : (int)threadIdx.x / A::NB;
+}
+template <class A>
+__device__ __forceinline__ unsigned member_mask() {
+  return A::MW == 1 ? 0xffffffffu : (0xffffu << (threadIdx.x & 16));
+}
+
+// Sum of v over the member's NB lanes, the same value on each of them.
+template <class A>
+__device__ __forceinline__ float blade_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+  for (int off = A::NB / 2; off > 0; off >>= 1)
+    v += __shfl_xor_sync(member_mask<A>(), v, off);
   return v;
 }
 
+// v at blade k of this member's row.
+template <class A>
+__device__ __forceinline__ float from_blade(float v, int k) {
+  return __shfl_sync(member_mask<A>(), v, k, A::NB);
+}
+
 // Sum of v over the lanes of this lane's grade [lo, hi), the same value
-// on every lane of the grade.  sc is the warp's 32-float scratch row.
+// on every lane of the grade.  sc is the member's NB-float scratch row.
+template <class A>
 __device__ __forceinline__ float grade_sum(float v, float* sc, int lane,
                                            int lo, int hi) {
-  __syncwarp();
+  __syncwarp(member_mask<A>());
   sc[lane] = v;
-  __syncwarp();
+  __syncwarp(member_mask<A>());
   float s = 0.f;
   for (int t = lo; t < hi; ++t) s += sc[t];
   return s;
@@ -191,30 +287,33 @@ struct Smem {
   int pm1, pm, c4;
 };
 
+template <class A>
 __host__ __device__ inline int params_floats(int cin, int c) {
-  const int c4 = pad4(c), pm = NG * c4 + 4;
-  return cin * pm + 2 * c * pm + c4 * (3 * NG + NP + 3);
+  const int c4 = pad4(c), pm = A::NG * c4 + 4;
+  return cin * pm + 2 * c * pm + c4 * (3 * A::NG + A::NP + 3);
 }
 
+template <class A>
 __device__ inline void carve_params(float* base, int cin, int c, Smem& s) {
   s.c4 = pad4(c);
-  s.pm1 = NG * s.c4 + 4;
+  s.pm1 = A::NG * s.c4 + 4;
   s.pm = s.pm1;
   s.w1 = base;
   s.wr = s.w1 + cin * s.pm1;
   s.wl = s.wr + c * s.pm;
   s.ra = s.wl + c * s.pm;
-  s.sb = s.ra + NG * s.c4;
-  s.nsig = s.sb + NG * s.c4;
-  s.gw = s.nsig + NG * s.c4;
-  s.b1 = s.gw + NP * s.c4;
+  s.sb = s.ra + A::NG * s.c4;
+  s.nsig = s.sb + A::NG * s.c4;
+  s.gw = s.nsig + A::NG * s.c4;
+  s.b1 = s.gw + A::NP * s.c4;
   s.bl = s.b1 + s.c4;
   s.aln = s.bl + s.c4;
 }
 
-template <bool FAST>
+template <class A, bool FAST>
 __device__ void stage_params(const Params& p, const Smem& s, int cin, int c,
                              int nthreads) {
+  constexpr int NG = A::NG, NP = A::NP;
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int c4 = s.c4;
   for (int e = tid; e < cin * NG * c4; e += nthreads) {   // [m][g][n]
@@ -258,52 +357,77 @@ struct Lane {
   float bc;
 };
 
-__device__ __forceinline__ Lane make_lane(const Tabs& tb) {
+template <class A>
+__device__ __forceinline__ Lane make_lane(const Tabs<A>& tb) {
   Lane l;
-  l.id = threadIdx.x;
-  l.g = grade5(l.id);
-  l.lo = gstart(l.g);
-  l.hi = gstart(l.g + 1);
+  l.id = blade_lane<A>();
+  l.g = A::grade(l.id);
+  l.lo = A::gstart(l.g);
+  l.hi = A::gstart(l.g + 1);
   l.bc = tb.bc[l.id];
   return l;
 }
 
-// The warps that share a row: warp h of nh (1, 2 or 4), their named
-// barrier (for nh > 1), and the row's XCH exchange slots in shared memory.
-// Each warp takes every nh-th group of four channels; sums over channels
-// meet in the exchange slots and are added in warp order, so every warp of
-// the row holds the same bits.
+// A kernel's row tile: ROWS_F row slots of TEAM_F warps in the forward,
+// ROWS_B of TEAM_B in the backward.
+template <int ROWS_F_, int TEAM_F_, int ROWS_B_, int TEAM_B_>
+struct RowTile {
+  static constexpr int ROWS_F = ROWS_F_, TEAM_F = TEAM_F_;
+  static constexpr int WARPS_F = ROWS_F * TEAM_F, THREADS_F = 32 * WARPS_F;
+  static constexpr int ROWS_B = ROWS_B_, TEAM_B = TEAM_B_;
+  static constexpr int WARPS_B = ROWS_B * TEAM_B, THREADS_B = 32 * WARPS_B;
+};
+
+// The members that share a row: member h of nh (nh / MW warps), their
+// named barrier (for more than one warp), and the row's XCH exchange slots
+// in shared memory.  Each member takes every nh-th group of four channels;
+// sums over channels meet in the exchange slots and are added in member
+// order, so every member of the row holds the same bits.
 struct Team {
   int h, nh, bar;
   float* xch;
 };
 
-__device__ __forceinline__ void team_sync(const Team& t) {
-  if (t.nh == 1)
-    __syncwarp();
-  else
-    asm volatile("bar.sync %0, %1;" ::"r"(t.bar), "r"(32 * t.nh) : "memory");
+// The team of warp w's members at row slot r, for teams of `warps` warps.
+template <class A>
+__device__ __forceinline__ Team make_team(int w, int warps, float* xch) {
+  const int r = w / warps;
+  return Team{(w % warps) * A::MW + half_of_warp<A>(), warps * A::MW, 1 + r,
+              xch + A::XCH * r};
 }
 
-// The team's sum of a warp-uniform partial; slot 0 or 1.
+template <class A>
+__device__ __forceinline__ void team_sync(const Team& t) {
+  if (t.nh == A::MW)
+    __syncwarp();
+  else if (A::MW == 1)
+    asm volatile("bar.sync %0, %1;" ::"r"(t.bar), "r"(32 * t.nh) : "memory");
+  else   // the halves of a warp may reach it apart
+    asm volatile("barrier.sync %0, %1;" ::"r"(t.bar),
+                 "r"(32 * t.nh / A::MW) : "memory");
+}
+
+// The team's sum of a member-uniform partial; slot 0 or 1.
+template <class A>
 __device__ __forceinline__ float team_sum(const Team& t, float v, int slot) {
-  if (t.nh == 1) return v;
-  if (threadIdx.x == 0) t.xch[4 * slot + t.h] = v;
-  team_sync(t);
+  if (A::MW == 1 && t.nh == 1) return v;
+  if (blade_lane<A>() == 0) t.xch[A::XCH / 2 * slot + t.h] = v;
+  team_sync<A>(t);
   float sum = 0.f;
-  for (int k = 0; k < t.nh; ++k) sum += t.xch[4 * slot + k];
+  for (int k = 0; k < t.nh; ++k) sum += t.xch[A::XCH / 2 * slot + k];
   return sum;
 }
 
 // The input linear for output channels n0..n0+3 at this lane's blade:
 // acc[u] = sum_m xs[m] * W1[n0+u, m, g].
+template <class A>
 __device__ __forceinline__ void linear4(const float* rows, const float* w,
                                         int pitch, int nin, int g, int c4,
                                         int n0, int lane, float (&acc)[4]) {
 #pragma unroll
   for (int u = 0; u < 4; ++u) acc[u] = 0.f;
   for (int m = 0; m < nin; ++m) {
-    const float v = rows[m * RP + lane];
+    const float v = rows[m * A::RP + lane];
     const float4 ww = ld4(w + m * pitch + g * c4 + n0);
     acc[0] += v * ww.x;
     acc[1] += v * ww.y;
@@ -314,13 +438,13 @@ __device__ __forceinline__ void linear4(const float* rows, const float* w,
 
 // Input linear and MVSiLU of channel n from its linear output y (without
 // bias): returns y with bias; sets inv (grade invariant) and sg (gate).
-template <bool FAST>
+template <class A, bool FAST>
 __device__ __forceinline__ float silu_in(const Smem& s, const Lane& l,
                                          float* sc, int n, float acc,
                                          float& inv, float& sg) {
   const float y = acc + (l.id == 0 ? s.b1[n] : 0.f);
   const float v = l.id == 0 ? rnd<FAST>(y) : rnd<FAST>(y * y * l.bc);
-  inv = grade_sum(v, sc, l.id, l.lo, l.hi);
+  inv = grade_sum<A>(v, sc, l.id, l.lo, l.hi);
   sg = sigmoid_f(s.ra[l.g * s.c4 + n] * inv + s.sb[l.g * s.c4 + n]);
   return y;
 }
@@ -330,11 +454,11 @@ struct Norm {
   float qg, s1g, nr, den, yn;
 };
 
-template <bool FAST>
+template <class A, bool FAST>
 __device__ __forceinline__ Norm normalise(const Smem& s, const Lane& l,
                                           float* sc, int n, float yr) {
   Norm q;
-  q.qg = grade_sum(rnd<FAST>(yr * yr * l.bc), sc, l.id, l.lo, l.hi);
+  q.qg = grade_sum<A>(rnd<FAST>(yr * yr * l.bc), sc, l.id, l.lo, l.hi);
   q.s1g = sqrtf(q.qg * q.qg + 1e-16f);
   q.nr = sqrtf(q.s1g);
   q.den = s.nsig[l.g * s.c4 + n] * (q.nr - 1.f) + 1.f + EPS;
@@ -345,42 +469,43 @@ __device__ __forceinline__ Norm normalise(const Smem& s, const Lane& l,
 // Forward of one block for the row of this team.  xs: the row's [m][RP]
 // input (rounded in fast mode); writes the rounded z to zs, the rounded
 // normalised right operand to ys (if not null) and the pre-norm output o
-// to os, all [n][RP], each warp its own channels.  Returns the layer
+// to os, all [n][RP], each member its own channels.  Returns the layer
 // norm's divisor m.  Every lane of the team must call it.
-template <bool FAST>
+template <class A, bool FAST>
 __device__ float row_forward(const Smem& s, const Lane& l, const Team& tm,
                              const uint16_t* t1, const float* xs, float* zs,
                              float* ys, float* os, float* sc, int cin,
                              int c) {
+  constexpr int NB = A::NB, RP = A::RP;
   const int lane = l.id, step = 4 * tm.nh;
   // ---- MVLinear + MVSiLU
   for (int n0 = 4 * tm.h; n0 < c; n0 += step) {
     float acc[4];
-    linear4(xs, s.w1, s.pm1, cin, l.g, s.c4, n0, lane, acc);
+    linear4<A>(xs, s.w1, s.pm1, cin, l.g, s.c4, n0, lane, acc);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int n = n0 + u;
       if (n < c) {
         float inv, sg;
-        const float y = silu_in<FAST>(s, l, sc, n, acc[u], inv, sg);
+        const float y = silu_in<A, FAST>(s, l, sc, n, acc[u], inv, sg);
         zs[n * RP + lane] = rnd<FAST>(sg * y);
       }
     }
   }
-  team_sync(tm);
+  team_sync<A>(tm);
   // ---- SGP: right and left linears, normalisation, pair product; four
   // channels at a time, so the product loop runs four independent chains
   float msum = 0.f;
   for (int n0 = 4 * tm.h; n0 < c; n0 += step) {
     float ar[4], al[4], ynr[4], gp[4];
-    linear4(zs, s.wr, s.pm, c, l.g, s.c4, n0, lane, ar);
-    linear4(zs, s.wl, s.pm, c, l.g, s.c4, n0, lane, al);
+    linear4<A>(zs, s.wr, s.pm, c, l.g, s.c4, n0, lane, ar);
+    linear4<A>(zs, s.wl, s.pm, c, l.g, s.c4, n0, lane, al);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       ynr[u] = 0.f;
       gp[u] = 0.f;
       if (n0 + u < c) {
-        ynr[u] = rnd<FAST>(normalise<FAST>(s, l, sc, n0 + u, ar[u]).yn);
+        ynr[u] = rnd<FAST>(normalise<A, FAST>(s, l, sc, n0 + u, ar[u]).yn);
         if (ys) ys[(n0 + u) * RP + lane] = ynr[u];
       }
     }
@@ -391,12 +516,12 @@ __device__ float row_forward(const Smem& s, const Lane& l, const Team& tm,
 #pragma unroll 4
     for (int k = 0; k < NB; ++k) {
       const int t = t1[k * NB + lane];
-      const int i = t & 31, q = (t >> 6) * s.c4;
+      const int i = t & FIELD, q = (t >> 6) * s.c4;
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float yk = __shfl_sync(0xffffffffu, ynr[u], k);
+        const float yk = from_blade<A>(ynr[u], k);
         const float pr = rnd<FAST>((zrow[u * RP + i] * yk) * gwn[q + u]);
-        gp[u] += (t & 32) ? -pr : pr;
+        gp[u] += (t & (FIELD + 1)) ? -pr : pr;
       }
     }
 #pragma unroll
@@ -406,17 +531,13 @@ __device__ float row_forward(const Smem& s, const Lane& l, const Team& tm,
       const float first = al[u] + (lane == 0 ? s.bl[n] : 0.f);
       const float o = (first + gp[u]) * SQRT2_INV;
       os[n * RP + lane] = o;
-      const float qc = warp_sum(rnd<FAST>(o * o * l.bc));
+      const float qc = blade_sum<A>(rnd<FAST>(o * o * l.bc));
       msum += sqrtf(sqrtf(qc * qc + 1e-16f));
     }
   }
-  return team_sum(tm, msum, 0) / (float)c + EPS;
+  return team_sum<A>(tm, msum, 0) / (float)c + EPS;
 }
 
-
-// Per-warp gradient rows of loc ([NLOC][C4]): 0 b1, 1 bL, 2 layer-norm a,
-// 3-8 silu.a, 9-14 silu.b, 15-20 d sigmoid(normalization.a), per grade.
-constexpr int L_B1 = 0, L_BL = 1, L_ALN = 2, L_SA = 3, L_SB = 9, L_NS = 15;
 
 // Row buffers of the backward, each [n][RP], in this order after xs; the
 // channel buffers have C4 = pad4(C) rows, so the four-channel loops stay
@@ -425,70 +546,73 @@ struct Rows {
   float *xs, *zs, *ys, *fs, *dz, *dr;   // x, z, yn (rounded), d(first)
 };                                       // (was o), d(z) then d(y), d(yr)
 
+template <class A>
 __host__ __device__ inline int row_floats(int cin, int c) {
-  return (cin + 5 * pad4(c)) * RP;
+  return (cin + 5 * pad4(c)) * A::RP;
 }
 
+template <class A>
 __device__ __forceinline__ Rows carve_rows(float* base, int cin, int c) {
   const int c4 = pad4(c);
   Rows b;
   b.xs = base;
-  b.zs = b.xs + cin * RP;
-  b.ys = b.zs + c4 * RP;
-  b.fs = b.ys + c4 * RP;
-  b.dz = b.fs + c4 * RP;
-  b.dr = b.dz + c4 * RP;
+  b.zs = b.xs + cin * A::RP;
+  b.ys = b.zs + c4 * A::RP;
+  b.fs = b.ys + c4 * A::RP;
+  b.dz = b.fs + c4 * A::RP;
+  b.dr = b.dz + c4 * A::RP;
   return b;
 }
 
-// Backward of one block for the row of this warp, from the row's input
-// (b.xs, loaded) and output cotangent go ((C, 32) in global memory).
+// Backward of one block for the row of this team, from the row's input
+// (b.xs, loaded) and output cotangent go ((C, NB) in global memory).
 // Writes dx for the row, leaves the rounded z, yn, d(first), d(y), d(yr)
 // of the row in b for the CTA's weight-gradient passes, and adds the
-// per-channel gradients of its warp's channels into loc.  Every lane of
+// per-channel gradients of its member's channels into loc.  Every lane of
 // the team must call it.
-template <bool FAST>
+template <class A, bool FAST>
 __device__ void row_backward(const Smem& s, const Lane& l, const Team& tm,
                              const uint16_t* t1, const uint16_t* t2,
                              const uint16_t* t3, const Rows& b, float* sc,
                              float* loc, const float* __restrict__ go,
                              float* __restrict__ dxr, int cin, int c) {
+  constexpr int NB = A::NB, RP = A::RP;
   const int lane = l.id, c4 = s.c4, step = 4 * tm.nh;
-  const float mden = row_forward<FAST>(s, l, tm, t1, b.xs, b.zs, b.ys, b.fs,
-                                       sc, cin, c);
-  // ---- MVLayerNorm backward: out = aln * o / m (this warp's channels)
+  const float mden = row_forward<A, FAST>(s, l, tm, t1, b.xs, b.zs, b.ys,
+                                          b.fs, sc, cin, c);
+  // ---- MVLayerNorm backward: out = aln * o / m (this member's channels)
   float t = 0.f;
   for (int n0 = 4 * tm.h; n0 < c; n0 += step)
     for (int n = n0; n < n0 + 4 && n < c; ++n) {
       const float g = go[n * NB + lane], o = b.fs[n * RP + lane];
       t += g * s.aln[n] * o;
-      const float ta = warp_sum(g * o);
-      if (lane == 0) loc[L_ALN * c4 + n] += ta / mden;
+      const float ta = blade_sum<A>(g * o);
+      if (lane == 0) loc[A::L_ALN * c4 + n] += ta / mden;
     }
-  const float dm = -team_sum(tm, warp_sum(t), 1) / (mden * mden);
+  const float dm = -team_sum<A>(tm, blade_sum<A>(t), 1) / (mden * mden);
   for (int n0 = 4 * tm.h; n0 < c; n0 += step)
     for (int n = n0; n < n0 + 4 && n < c; ++n) {
       const float g = go[n * NB + lane], o = b.fs[n * RP + lane];
-      const float qc = warp_sum(rnd<FAST>(o * o * l.bc));
+      const float qc = blade_sum<A>(rnd<FAST>(o * o * l.bc));
       const float s1c = sqrtf(qc * qc + 1e-16f);
       const float nc = sqrtf(s1c);
       const float dqc = rnd<FAST>(dm / (float)c * 0.5f * qc / (s1c * nc));
       const float dfg =
           (s.aln[n] * g / mden + dqc * 2.f * l.bc * o) * SQRT2_INV;
       b.fs[n * RP + lane] = rnd<FAST>(dfg);
-      if (lane == 0) loc[L_BL * c4 + n] += dfg;
+      if (lane == 0) loc[A::L_BL * c4 + n] += dfg;
     }
-  __syncwarp();
+  __syncwarp(member_mask<A>());
   // ---- pair-product and normalisation backward, four channels at a time
   // (four independent chains per loop; channels past c read padded rows
   // and zero weights, and their results are dropped)
   for (int n0 = 4 * tm.h; n0 < c; n0 += step) {
     float yr[4], ynr[4], dfr[4], dzg[4], dyn[4];
     Norm q[4];
-    linear4(b.zs, s.wr, s.pm, c, l.g, c4, n0, lane, yr);
+    linear4<A>(b.zs, s.wr, s.pm, c, l.g, c4, n0, lane, yr);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      if (n0 + u < c) q[u] = normalise<FAST>(s, l, sc, n0 + u, yr[u]);
+      if (n0 + u < c) q[u] = normalise<A, FAST>(s, l, sc, n0 + u, yr[u]);
       ynr[u] = n0 + u < c ? b.ys[(n0 + u) * RP + lane] : 0.f;
       dfr[u] = n0 + u < c ? b.fs[(n0 + u) * RP + lane] : 0.f;
       dzg[u] = 0.f;
@@ -500,22 +624,23 @@ __device__ void row_backward(const Smem& s, const Lane& l, const Team& tm,
 #pragma unroll 4
     for (int k = 0; k < NB; ++k) {       // lane = left blade i
       const int e = t2[k * NB + lane];
-      const int j = e & 31, p = (e >> 6) * c4;
+      const int j = e & FIELD, p = (e >> 6) * c4;
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float yk = __shfl_sync(0xffffffffu, ynr[u], k);
-        const float d = (e & 32) ? -drow[u * RP + j] : drow[u * RP + j];
+        const float yk = from_blade<A>(ynr[u], k);
+        const float d = (e & (FIELD + 1)) ? -drow[u * RP + j]
+                                          : drow[u * RP + j];
         dzg[u] += rnd<FAST>((d * yk) * gwn[p + u]);
       }
     }
 #pragma unroll 4
     for (int j = 0; j < NB; ++j) {       // lane = right blade k
       const int e = t3[j * NB + lane];
-      const int i = e & 31, p = (e >> 6) * c4;
+      const int i = e & FIELD, p = (e >> 6) * c4;
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float dj = __shfl_sync(0xffffffffu, dfr[u], j);
-        const float d = (e & 32) ? -dj : dj;
+        const float dj = from_blade<A>(dfr[u], j);
+        const float d = (e & (FIELD + 1)) ? -dj : dj;
         dyn[u] += rnd<FAST>((d * zrow[u * RP + i]) * gwn[p + u]);
       }
     }
@@ -524,9 +649,10 @@ __device__ void row_backward(const Smem& s, const Lane& l, const Team& tm,
       const int n = n0 + u;
       if (n >= c) continue;
       // yn = yr / den
-      const float dden = grade_sum(-dyn[u] * q[u].yn / q[u].den, sc, lane,
-                                   l.lo, l.hi);
-      if (lane == l.lo) loc[(L_NS + l.g) * c4 + n] += dden * (q[u].nr - 1.f);
+      const float dden = grade_sum<A>(-dyn[u] * q[u].yn / q[u].den, sc,
+                                      lane, l.lo, l.hi);
+      if (lane == l.lo)
+        loc[(A::L_NS + l.g) * c4 + n] += dden * (q[u].nr - 1.f);
       const float dnr = dden * s.nsig[l.g * c4 + n];
       const float dqg = rnd<FAST>(dnr * 0.5f * q[u].qg / (q[u].s1g * q[u].nr));
       const float dyr = dyn[u] / q[u].den + dqg * 2.f * l.bc * yr[u];
@@ -534,12 +660,12 @@ __device__ void row_backward(const Smem& s, const Lane& l, const Team& tm,
       b.dz[n * RP + lane] = dzg[u];
     }
   }
-  team_sync(tm);   // every channel's d(first) and d(yr) are in place
+  team_sync<A>(tm);   // every channel's d(first) and d(yr) are in place
   // ---- transposed right/left linears, then MVSiLU backward, four
   // channels m at a time (their input linear recomputed as in the forward)
   for (int m0 = 4 * tm.h; m0 < c; m0 += step) {
     float ylin[4];
-    linear4(b.xs, s.w1, s.pm1, cin, l.g, c4, m0, lane, ylin);
+    linear4<A>(b.xs, s.w1, s.pm1, cin, l.g, c4, m0, lane, ylin);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int m = m0 + u;
@@ -558,21 +684,21 @@ __device__ void row_backward(const Smem& s, const Lane& l, const Team& tm,
                   b.dr[(n1 + v) * RP + lane] * wrv[v];
       }
       float inv, sg;
-      const float y = silu_in<FAST>(s, l, sc, m, ylin[u], inv, sg);
+      const float y = silu_in<A, FAST>(s, l, sc, m, ylin[u], inv, sg);
       const float dgate = dz * y * sg * (1.f - sg);
-      const float dgs = grade_sum(dgate, sc, lane, l.lo, l.hi);
-      const float dgr = grade_sum(rnd<FAST>(dgate), sc, lane, l.lo, l.hi);
+      const float dgs = grade_sum<A>(dgate, sc, lane, l.lo, l.hi);
+      const float dgr = grade_sum<A>(rnd<FAST>(dgate), sc, lane, l.lo, l.hi);
       if (lane == l.lo) {
-        loc[(L_SB + l.g) * c4 + m] += dgs;
-        loc[(L_SA + l.g) * c4 + m] += inv * dgr;
+        loc[(A::L_SB + l.g) * c4 + m] += dgs;
+        loc[(A::L_SA + l.g) * c4 + m] += inv * dgr;
       }
       const float dv = s.ra[l.g * c4 + m] * dgr;
       const float dy = dz * sg + (lane == 0 ? dv : 2.f * l.bc * y * dv);
-      if (lane == 0) loc[L_B1 * c4 + m] += dy;
+      if (lane == 0) loc[A::L_B1 * c4 + m] += dy;
       b.dz[m * RP + lane] = rnd<FAST>(dy);
     }
   }
-  team_sync(tm);   // every channel's d(y) is in place
+  team_sync<A>(tm);   // every channel's d(y) is in place
   // ---- dx: transposed input linear, input channels split over the team
   for (int mi = tm.h; mi < cin; mi += tm.nh) {
     const float* w = s.w1 + mi * s.pm1 + l.g * c4;
@@ -589,22 +715,23 @@ __device__ void row_backward(const Smem& s, const Lane& l, const Team& tm,
 }
 
 // One channel-mixing weight gradient over a tile's first nrow rows, added
-// into aw ([(m * 6 + g) * C4 + n], the CTA's slice of global scratch):
+// into aw ([(m * NG + g) * C4 + n], the CTA's slice of global scratch):
 // which = 0 for W1 (x with d(y)), 1 for Wr (z with d(yr)), 2 for WL (z with
 // d(first)).  A thread owns one input channel m and four output channels,
-// all six grades; the same thread owns the same entries on every call.
+// all grades; the same thread owns the same entries on every call.
 // NTHREADS is the CTA's thread count.
-template <int NTHREADS>
+template <class A, int NTHREADS>
 __device__ void mix_grads(const float* rowbuf, int rstride, int nrow, int cin,
                           int c, int c4, int which, float* aw) {
+  constexpr int NB = A::NB, NG = A::NG, RP = A::RP;
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int nq = c4 / 4, nin = which == 0 ? cin : c;
   for (int p = tid; p < nin * nq; p += NTHREADS) {
     const int m = p / nq, n0 = (p % nq) * 4;
     float acc[4][NG] = {};
     for (int r = 0; r < nrow; ++r) {
-      const Rows b = carve_rows(const_cast<float*>(rowbuf) + r * rstride,
-                                cin, c);
+      const Rows b = carve_rows<A>(const_cast<float*>(rowbuf) + r * rstride,
+                                   cin, c);
       const float* in = (which == 0 ? b.xs : b.zs) + m * RP;
       const float* d = (which == 0 ? b.dz : which == 1 ? b.dr : b.fs) + n0 * RP;
 #pragma unroll
@@ -612,7 +739,7 @@ __device__ void mix_grads(const float* rowbuf, int rstride, int nrow, int cin,
         const float v = in[i];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          if (n0 + u < c) acc[u][grade5(i)] += v * d[u * RP + i];
+          if (n0 + u < c) acc[u][A::grade(i)] += v * d[u * RP + i];
       }
     }
     // all old values are loaded before any store, so their loads overlap
@@ -634,24 +761,25 @@ __device__ void mix_grads(const float* rowbuf, int rstride, int nrow, int cin,
 // Path-weight gradients of a tile's first nrow rows, added into gacc
 // ([p * C4 + n], shared): a thread owns (path p, channel n) and walks the
 // path's pairs (j, k): sum of (z_i * yn_k) * (sign * d(first)_j).
-template <int NTHREADS>
+template <class A, int NTHREADS>
 __device__ void path_grads(const float* rowbuf, int rstride, int nrow,
                            int cin, int c, int c4, const uint16_t* list,
                            const uint16_t* off, float* gacc) {
+  constexpr int RP = A::RP;
   const int tid = threadIdx.x + 32 * threadIdx.y;
-  for (int e = tid; e < NP * c; e += NTHREADS) {
+  for (int e = tid; e < A::NP * c; e += NTHREADS) {
     const int q = e / c, n = e % c;
     float acc = 0.f;
     for (int r = 0; r < nrow; ++r) {
-      const Rows b = carve_rows(const_cast<float*>(rowbuf) + r * rstride,
-                                cin, c);
+      const Rows b = carve_rows<A>(const_cast<float*>(rowbuf) + r * rstride,
+                                   cin, c);
       const float* zr = b.zs + n * RP;
       const float* yr = b.ys + n * RP;
       const float* df = b.fs + n * RP;
       for (int t = off[q]; t < off[q + 1]; ++t) {
         const int L = list[t];
-        const float d = (L >> 15) ? -df[L & 31] : df[L & 31];
-        acc += (zr[(L >> 10) & 31] * yr[(L >> 5) & 31]) * d;
+        const float d = (L >> 15) ? -df[L & FIELD] : df[L & FIELD];
+        acc += (zr[(L >> 10) & FIELD] * yr[(L >> 5) & FIELD]) * d;
       }
     }
     gacc[q * c4 + n] += acc;
@@ -669,9 +797,10 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials,
   out[q] = acc;
 }
 
-Tabs make_tabs(const float* bc) {
-  Tabs tb;
-  for (int i = 0; i < NB; ++i) tb.bc[i] = bc[i];
+template <class A>
+Tabs<A> make_tabs(const float* bc) {
+  Tabs<A> tb;
+  for (int i = 0; i < A::NB; ++i) tb.bc[i] = bc[i];
   return tb;
 }
 

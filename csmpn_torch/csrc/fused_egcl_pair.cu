@@ -1,14 +1,7 @@
-// K4p and K5p — the EGCL edge side in one pass, forward and backward, in
-// the pair form, Cl(5,0) (32 blades), on Hopper (sm_90a):
-//     agg[v] = sum over unmasked edges e with dst[e] == v of
-//              CEMLP_2(CEMLP_1([h[dst[e]] - hj[e], attr[e]]))
-// with dst sorted ascending and hj the pre-gathered source rows.
-//
-// Replaces: csmpn_tpu/ops/fused_egcl.py, `_make_fwd_kernel` (K4, launched
-// by `_mp_forward`) and `_make_bwd_kernel` (K5, launched by `_mp_backward`)
-// in their pair form (nb 32: the blocks' `_post_linear_math` and
-// `_post_linear_bwd` through `_gp_pair_fwd`).  The block math is
-// cemlp_pair.cuh, the same device code as K2p/K3p (cemlp_pair.cu).
+// K4p and K5p at Cl(5,0) (32 blades): the edge side of the bench at
+// --dim 5.  The kernels are fused_egcl_pair.cuh (design and precision are
+// stated there); this source compiles them for Cl(5) as the entry points
+// csmpn_fused_mp_pair_*.
 //
 // Bound on this card: at the bench shape at Cl(5) (E = 131,072 edges,
 // N = 8,192 nodes, 28 -> 28 channels, bf16 streams) K4p reads ~250 MB (hj,
@@ -18,547 +11,19 @@
 // bytes bound it, as for K4.  K5p moves about twice the bytes and does
 // three times the operations, so operations bound it.
 //
-// Design.  The ownership of K4/K5 (fused_egcl.cu): the wrapper cuts the
-// target nodes into windows of wn nodes, a CTA walks over whole windows,
-// so every edge row and every node row has one owner: no atomics, results
-// bitwise equal from run to run.  The row layout of K2p/K3p: a row's 32
-// blades are a warp's lanes and a team of 4 warps shares a row.  Both
-// blocks' fp32 parameters (~130 KB at 28 channels) are staged once per
-// CTA, which leaves room for few rows in flight and a small window:
-//   * K4p: 4 row slots of 4 warps (16 warps); each team builds its row
-//     x = [h[dst] - hj, attr] in shared memory, runs block 1, writes block
-//     2's input rounded over x, runs block 2, and leaves the rounded message
-//     in its slot; the CTA then adds the tile's messages into the window's
-//     fp32 sum in row order (masked rows are skipped), and writes the
-//     window once (an empty window writes 0);
-//   * K5p: 2 row slots of 4 warps (8 warps; the backward's row buffers are
-//     2.5x the forward's).  Holding both blocks' cotangent rows at once
-//     does not fit, so a CTA sweeps its windows twice in one launch, as K5
-//     does: both forwards and the block-2 backward from d(agg) at the row's
-//     target, block 2's dx rows to the scratch dx2; then block 1's forward
-//     (recomputed) and backward from them, the message cotangent summed
-//     into the window's d(h) in shared memory in row order, and dhj = -dmsg
-//     and dattr written for every row (masked rows compute with a zero
-//     cotangent and write exact zeros).  Per-channel and path-weight
-//     gradients are per-slot / per-CTA slices in shared memory, the
-//     channel-mixing ones the CTA's slice of global scratch, each entry
-//     owned by one thread; after each sweep the CTA writes its block's
-//     partial vector in K5's layout, and a second kernel sums the CTAs'
-//     vectors in a fixed order.
-//
-// Precision: FAST = false is fp32 throughout.  FAST = true streams h, hj
-// and attr as bf16, rounds block 1's input, block 2's input, each message
-// row and d(agg) as K4/K5 do, rounds each pair product z_i * yn_k * w as
-// K2p does (the path weight stays fp32), writes dhj and dattr as bf16, and
-// accumulates in fp32.
+// Row tile and window.  A row's 32 blades are a warp.  Both blocks' fp32
+// parameters take ~130 KB at 28 channels, which leaves:
+//   * K4p: 4 row slots of 4 warps (16 warps), windows of wn = 4 targets
+//     (3.5 KB each): 195,760 B at 28 -> 28;
+//   * K5p: 2 row slots of 4 warps (8 warps): 219,080 B.
+// 28 channels is the widest that fits; K5p takes Cm + Ca up to 39.
 
-#include "cemlp_pair.cuh"
-#include "fused_mp.cuh"
+#include "fused_egcl_pair.cuh"
 
 namespace {
-
-constexpr int ROWS_F = 4;      // row slots per CTA, forward
-constexpr int TEAM_F = 4;      // warps per row, forward
-constexpr int WARPS_F = ROWS_F * TEAM_F;
-constexpr int THREADS_F = 32 * WARPS_F;
-constexpr int ROWS_B = 2;      // row slots per CTA, backward
-constexpr int TEAM_B = 4;      // warps per row, backward
-constexpr int WARPS_B = ROWS_B * TEAM_B;
-constexpr int THREADS_B = 32 * WARPS_B;
-// rows of the per-channel gradient block of K5's partial layout: b1,
-// silu.a (6), silu.b (6), gp.weight (56), d sigmoid(normalization.a) (6),
-// bL, ln.a
-constexpr int LOC_OUT = 1 + 3 * NG + NP + 2;
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
-// The row's block-1 input x = [h[dst] - hj, attr] at this lane's blade
-// into xs ([m][RP]), rounded in fast mode; the team splits the channels.
-template <typename T, bool FAST>
-__device__ __forceinline__ void load_msg_row(
-    const T* __restrict__ h, const T* __restrict__ hj,
-    const T* __restrict__ attr, int64_t t, int64_t row, int cm, int ca,
-    const Team& tm, int lane, float* xs) {
-  for (int m = tm.h; m < cm + ca; m += tm.nh) {
-    const float v =
-        m < cm ? ldf(h + (t * cm + m) * NB + lane) -
-                     ldf(hj + (row * cm + m) * NB + lane)
-               : ldf(attr + (row * ca + (m - cm)) * NB + lane);
-    xs[m * RP + lane] = rnd<FAST>(v);
-  }
-}
-
-// A block's output for the team warp's own channel groups (those it wrote
-// in row_forward), out[n * RP + lane] = rnd(aln[n] / m * os[n * RP + lane]);
-// out may be os itself.
-template <bool FAST>
-__device__ __forceinline__ void scale_row(const Smem& s, const Team& tm,
-                                          int lane, float mden,
-                                          const float* os, float* out,
-                                          int c) {
-  for (int n0 = 4 * tm.h; n0 < c; n0 += 4 * tm.nh)
-    for (int n = n0; n < n0 + 4 && n < c; ++n)
-      out[n * RP + lane] = rnd<FAST>(s.aln[n] / mden * os[n * RP + lane]);
-}
-
-template <bool FAST>
-__global__ void __launch_bounds__(THREADS_F, 1)
-fused_mp_pair_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
-                         const typename Stream<FAST>::T* __restrict__ hj,
-                         const typename Stream<FAST>::T* __restrict__ attr,
-                         const int* __restrict__ dst,
-                         const uint8_t* __restrict__ mask,
-                         const int64_t* __restrict__ bounds, Params p1,
-                         Params p2, Tabs tb,
-                         const uint16_t* __restrict__ tabs,
-                         float* __restrict__ out, Geom gm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int cm = gm.cm, ca = gm.ca, cin1 = cm + ca, c = gm.c;
-  const int c4 = pad4(c), mx = imax(cin1, c), per_node = c * NB;
-  const int slot = (mx + 2 * c4) * RP;   // floats of a row slot
-  Smem s1, s2;
-  carve_params(smem, cin1, c, s1);
-  float* p2base = smem + params_floats(cin1, c);
-  carve_params(p2base, c, c, s2);
-  float* tail = p2base + params_floats(c, c);
-  uint16_t* t1 = reinterpret_cast<uint16_t*>(tail);    // T1 only
-  float* sc = tail + NB * NB / 2;                      // [WARPS_F][32]
-  float* xch = sc + WARPS_F * NB;                      // [ROWS_F][XCH]
-  int* dloc = reinterpret_cast<int*>(xch + ROWS_F * XCH);   // [ROWS_F]
-  float* acc = xch + ROWS_F * XCH + ROWS_F;            // [wn][c][32]
-  float* rowbuf = acc + gm.wn * per_node;              // [ROWS_F][slot]
-  stage_params<FAST>(p1, s1, cin1, c, THREADS_F);
-  stage_params<FAST>(p2, s2, c, c, THREADS_F);
-  const int tid = threadIdx.x + 32 * threadIdx.y;
-  for (int e = tid; e < NB * NB; e += THREADS_F) t1[e] = tabs[e];
-
-  const Lane l = make_lane(tb);
-  const int lane = l.id;
-  // warps TEAM_F * r ... share row slot r (named barrier 1 + r)
-  const int w = threadIdx.y, r = w / TEAM_F;
-  const Team tm{w % TEAM_F, TEAM_F, 1 + r, xch + XCH * r};
-  float* xs = rowbuf + r * slot;     // block 1's input, then block 2's
-  float* zs = xs + mx * RP;
-  float* os = zs + c4 * RP;          // pre-norm output, then the message
-  float* scw = sc + w * NB;
-  for (int win = blockIdx.x; win < gm.n_win; win += gridDim.x) {
-    const int base = win * gm.wn;
-    const int64_t e0 = bounds[win], e1 = bounds[win + 1];
-    for (int e = tid; e < gm.wn * per_node; e += THREADS_F) acc[e] = 0.f;
-    for (int64_t row0 = e0; row0 < e1; row0 += ROWS_F) {
-      __syncthreads();   // staging done / previous tile summed
-      const int64_t row = row0 + r;
-      const bool keep = row < e1 && (mask == nullptr || mask[row]);
-      if (tm.h == 0 && lane == 0) dloc[r] = keep ? dst[row] - base : -1;
-      if (keep) {        // the whole team
-        load_msg_row<typename Stream<FAST>::T, FAST>(
-            h, hj, attr, dst[row], row, cm, ca, tm, lane, xs);
-        team_sync(tm);
-        const float m1 = row_forward<FAST>(s1, l, tm, t1, xs, zs, nullptr,
-                                           os, scw, cin1, c);
-        // block 2 reads its input rounded, as K2p does; the team is past
-        // every read of block 1's input
-        scale_row<FAST>(s1, tm, lane, m1, os, xs, c);
-        team_sync(tm);
-        const float m2 = row_forward<FAST>(s2, l, tm, t1, xs, zs, nullptr,
-                                           os, scw, c, c);
-        scale_row<FAST>(s2, tm, lane, m2, os, os, c);
-      }
-      __syncthreads();
-      const int nrow = (int)(e1 - row0 < ROWS_F ? e1 - row0 : ROWS_F);
-      for (int e = tid; e < per_node; e += THREADS_F) {   // e = n * 32 + i
-        const int at = (mx + c4 + e / NB) * RP + e % NB;
-        for (int rr = 0; rr < nrow; ++rr) {
-          const int d = dloc[rr];
-          if (d >= 0) acc[d * per_node + e] += rowbuf[rr * slot + at];
-        }
-      }
-    }
-    __syncthreads();
-    const int nn = gm.n_nodes - base < gm.wn ? gm.n_nodes - base : gm.wn;
-    for (int e = tid; e < nn * per_node; e += THREADS_F)
-      out[(int64_t)base * per_node + e] = acc[e];
-    __syncthreads();   // window written before the next one zeroes acc
-  }
-}
-
-// One block's part of a CTA's partial gradient vector, K5's layout:
-//   aw1 [(m*6+g)*C + n] (Cin) | awr (C) | awl (C) | loc [LOC_OUT][C]
-// with loc rows b1, silu.a, silu.b, gp.weight, d sigmoid(norm.a), bL,
-// ln.a.  The host maps the summed vector onto the flax shapes.
-__host__ __device__ inline int64_t block_part_floats(int cin, int c) {
-  return (int64_t)(cin + 2 * c) * NG * c + (int64_t)LOC_OUT * c;
-}
-
-// One CTA's slice of the backward's scratch: block 1's part, block 2's,
-// then the channel-mixing accumulators of the sweep's block, padded to C4.
-__host__ __device__ inline int64_t slice_floats(int cin1, int c) {
-  return block_part_floats(cin1, c) + block_part_floats(c, c) +
-         (int64_t)(imax(cin1, c) + 2 * c) * NG * pad4(c);
-}
-
-// Writes one block's part from the sweep's accumulators: mix (the padded
-// [(m*6+g)*C4 + n] channel-mixing sums, global), locs (per-slot [NLOC][C4]
-// rows, added in slot order) and gacc ([56][C4] path weights).  All
-// threads of the CTA call it.
-__device__ void write_block_part(float* part, const float* mix,
-                                 const float* locs, const float* gacc,
-                                 int cin, int c) {
-  const int tid = threadIdx.x + 32 * threadIdx.y, c4 = pad4(c);
-  const int64_t n_mix = (int64_t)(cin + 2 * c) * NG * c;
-  for (int64_t e = tid; e < n_mix; e += THREADS_B)
-    part[e] = mix[(e / c) * c4 + e % c];
-  float* loc = part + n_mix;
-  for (int e = tid; e < LOC_OUT * c; e += THREADS_B) {
-    const int k = e / c, n = e % c;
-    int row;   // the pair kernels' loc row of K5's row k (-1: a path weight)
-    if (k == 0) row = L_B1;
-    else if (k <= NG) row = L_SA + (k - 1);
-    else if (k <= 2 * NG) row = L_SB + (k - 1 - NG);
-    else if (k <= 2 * NG + NP) row = -1;
-    else if (k <= 3 * NG + NP) row = L_NS + (k - 1 - 2 * NG - NP);
-    else if (k == 3 * NG + NP + 1) row = L_BL;
-    else row = L_ALN;
-    float v = 0.f;
-    if (row < 0) {
-      v = gacc[(k - 1 - 2 * NG) * c4 + n];
-    } else {
-      for (int r = 0; r < ROWS_B; ++r) v += locs[(r * NLOC + row) * c4 + n];
-    }
-    loc[e] = v;
-  }
-}
-
-template <bool FAST>
-__global__ void __launch_bounds__(THREADS_B, 1)
-fused_mp_pair_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
-                         const typename Stream<FAST>::T* __restrict__ hj,
-                         const typename Stream<FAST>::T* __restrict__ attr,
-                         const int* __restrict__ dst,
-                         const uint8_t* __restrict__ mask,
-                         const int64_t* __restrict__ bounds,
-                         const float* __restrict__ dagg, Params p1,
-                         Params p2, Tabs tb,
-                         const uint16_t* __restrict__ tabs,
-                         float* __restrict__ dh,
-                         typename Stream<FAST>::T* __restrict__ dhj,
-                         typename Stream<FAST>::T* __restrict__ dattr,
-                         float* __restrict__ dx2,
-                         float* __restrict__ partials, Geom gm) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int cm = gm.cm, ca = gm.ca, cin1 = cm + ca, c = gm.c;
-  const int c4 = pad4(c), mx = imax(cin1, c), msg_w = cm * NB;
-  const int rstride = (mx + 5 * c4) * RP;   // floats of a row slot
-  const int gstride = mx * NB;              // floats of a slot's go/dx row
-  Smem s1, s2;
-  carve_params(smem, cin1, c, s1);
-  float* p2base = smem + params_floats(cin1, c);
-  carve_params(p2base, c, c, s2);
-  float* tail = p2base + params_floats(c, c);
-  uint16_t* tab = reinterpret_cast<uint16_t*>(tail);
-  const uint16_t *t1 = tab, *t2 = tab + NB * NB, *t3 = tab + 2 * NB * NB;
-  const uint16_t *list = tab + TAB_T, *off = list + NB * NB;
-  float* sc = tail + TAB_FLOATS;                  // [WARPS_B][32]
-  float* xch = sc + WARPS_B * NB;                 // [ROWS_B][XCH]
-  int* dloc = reinterpret_cast<int*>(xch + ROWS_B * XCH);   // [ROWS_B]
-  float* locs = xch + ROWS_B * XCH + ROWS_B;      // [ROWS_B][NLOC][C4]
-  float* gacc = locs + ROWS_B * NLOC * c4;        // [NP][C4]
-  float* dhw = gacc + NP * c4;                    // [wn][cm][32] window d(h)
-  float* gbuf = dhw + gm.wn * msg_w;              // [ROWS_B][mx][32]
-  float* rowbuf = gbuf + ROWS_B * gstride;        // [ROWS_B][rstride]
-
-  float* part1 = partials + (int64_t)blockIdx.x * slice_floats(cin1, c);
-  float* part2 = part1 + block_part_floats(cin1, c);
-  float* mix = part2 + block_part_floats(c, c);
-  const int64_t n_mix = (int64_t)(mx + 2 * c) * NG * c4;
-
-  const int tid = threadIdx.x + 32 * threadIdx.y;
-  stage_params<FAST>(p1, s1, cin1, c, THREADS_B);
-  stage_params<FAST>(p2, s2, c, c, THREADS_B);
-  for (int e = tid; e < TAB_LEN; e += THREADS_B) tab[e] = tabs[e];
-  for (int e = tid; e < ROWS_B * NLOC * c4; e += THREADS_B) locs[e] = 0.f;
-  for (int e = tid; e < NP * c4; e += THREADS_B) gacc[e] = 0.f;
-  for (int64_t e = tid; e < n_mix; e += THREADS_B) mix[e] = 0.f;
-
-  const Lane l = make_lane(tb);
-  const int lane = l.id;
-  // warps TEAM_B * r ... share row slot r (named barrier 1 + r) and its
-  // per-channel gradient slice (each warp adds only its own channels)
-  const int w = threadIdx.y, r = w / TEAM_B;
-  const Team tm{w % TEAM_B, TEAM_B, 1 + r, xch + XCH * r};
-  float* slot = rowbuf + r * rstride;
-  float* gb = gbuf + r * gstride;
-  float* loc = locs + r * NLOC * c4;
-  float* scw = sc + w * NB;
-  // ---- sweep 1 over the CTA's windows: both forwards and the block-2
-  // backward from d(agg) at the row's target; block 2's dx rows go to the
-  // scratch dx2, read back by the same team in sweep 2
-  {
-    const Rows b2 = carve_rows(slot, c, c);
-    float* x1 = b2.dz;   // block 1's input, over block 2's cotangent rows
-    for (int win = blockIdx.x; win < gm.n_win; win += gridDim.x) {
-      const int64_t e0 = bounds[win], e1 = bounds[win + 1];
-      for (int64_t row0 = e0; row0 < e1; row0 += ROWS_B) {
-        __syncthreads();   // staging and zeroing done / previous tile used
-        const int64_t row = row0 + r;
-        if (row < e1) {    // the whole team
-          const int64_t t = dst[row];
-          const bool keep = mask == nullptr || mask[row];
-          load_msg_row<typename Stream<FAST>::T, FAST>(h, hj, attr, t, row,
-                                                       cm, ca, tm, lane, x1);
-          for (int n = tm.h; n < c; n += tm.nh)
-            gb[n * NB + lane] =
-                keep ? rnd<FAST>(dagg[(t * c + n) * NB + lane]) : 0.f;
-          team_sync(tm);
-          const float m1 = row_forward<FAST>(s1, l, tm, t1, x1, b2.zs,
-                                             nullptr, b2.fs, scw, cin1, c);
-          scale_row<FAST>(s1, tm, lane, m1, b2.fs, b2.xs, c);
-          team_sync(tm);
-          row_backward<FAST>(s2, l, tm, t1, t2, t3, b2, scw, loc, gb,
-                             dx2 + row * c * NB, c, c);
-        }
-        __syncthreads();
-        const int nrow = (int)(e1 - row0 < ROWS_B ? e1 - row0 : ROWS_B);
-        float* aw = mix;
-        mix_grads<THREADS_B>(rowbuf, rstride, nrow, c, c, c4, 0, aw);
-        mix_grads<THREADS_B>(rowbuf, rstride, nrow, c, c, c4, 1,
-                             aw + c * NG * c4);
-        mix_grads<THREADS_B>(rowbuf, rstride, nrow, c, c, c4, 2,
-                             aw + 2 * c * NG * c4);
-        path_grads<THREADS_B>(rowbuf, rstride, nrow, c, c, c4, list, off,
-                              gacc);
-      }
-    }
-    __syncthreads();
-    write_block_part(part2, mix, locs, gacc, c, c);
-    __syncthreads();
-    for (int e = tid; e < ROWS_B * NLOC * c4; e += THREADS_B) locs[e] = 0.f;
-    for (int e = tid; e < NP * c4; e += THREADS_B) gacc[e] = 0.f;
-    for (int64_t e = tid; e < n_mix; e += THREADS_B) mix[e] = 0.f;
-  }
-  // ---- sweep 2: block 1's forward and backward from block 2's dx; the
-  // message cotangent summed into the window's d(h), rows in order, and
-  // written out as dhj = -dmsg with dattr (masked rows zero)
-  {
-    const Rows b1 = carve_rows(slot, cin1, c);
-    for (int win = blockIdx.x; win < gm.n_win; win += gridDim.x) {
-      const int base = win * gm.wn;
-      const int64_t e0 = bounds[win], e1 = bounds[win + 1];
-      for (int e = tid; e < gm.wn * msg_w; e += THREADS_B) dhw[e] = 0.f;
-      for (int64_t row0 = e0; row0 < e1; row0 += ROWS_B) {
-        __syncthreads();
-        const int64_t row = row0 + r;
-        if (row < e1) {
-          const int64_t t = dst[row];
-          if (tm.h == 0 && lane == 0)
-            dloc[r] = (mask == nullptr || mask[row]) ? (int)(t - base) : -1;
-          load_msg_row<typename Stream<FAST>::T, FAST>(h, hj, attr, t, row,
-                                                       cm, ca, tm, lane,
-                                                       b1.xs);
-          team_sync(tm);
-          row_backward<FAST>(s1, l, tm, t1, t2, t3, b1, scw, loc,
-                             dx2 + row * c * NB, gb, cin1, c);
-        }
-        __syncthreads();
-        const int nrow = (int)(e1 - row0 < ROWS_B ? e1 - row0 : ROWS_B);
-        float* aw = mix;
-        mix_grads<THREADS_B>(rowbuf, rstride, nrow, cin1, c, c4, 0, aw);
-        mix_grads<THREADS_B>(rowbuf, rstride, nrow, cin1, c, c4, 1,
-                             aw + cin1 * NG * c4);
-        mix_grads<THREADS_B>(rowbuf, rstride, nrow, cin1, c, c4, 2,
-                             aw + (cin1 + c) * NG * c4);
-        path_grads<THREADS_B>(rowbuf, rstride, nrow, cin1, c, c4, list, off,
-                              gacc);
-        for (int e = tid; e < msg_w; e += THREADS_B)
-          for (int rr = 0; rr < nrow; ++rr) {
-            const int d = dloc[rr];
-            if (d >= 0) dhw[d * msg_w + e] += gbuf[rr * gstride + e];
-          }
-        for (int e = tid; e < nrow * msg_w; e += THREADS_B) {
-          const int rr = e / msg_w, k = e % msg_w;
-          const float v = dloc[rr] >= 0 ? -gbuf[rr * gstride + k] : 0.f;
-          stf(dhj + (row0 + rr) * msg_w + k, v);
-        }
-        if (ca > 0) {
-          const int aw_w = ca * NB;
-          for (int e = tid; e < nrow * aw_w; e += THREADS_B) {
-            const int rr = e / aw_w, k = e % aw_w;
-            const float v =
-                dloc[rr] >= 0 ? gbuf[rr * gstride + msg_w + k] : 0.f;
-            stf(dattr + (row0 + rr) * aw_w + k, v);
-          }
-        }
-      }
-      __syncthreads();
-      const int nn = gm.n_nodes - base < gm.wn ? gm.n_nodes - base : gm.wn;
-      for (int e = tid; e < nn * msg_w; e += THREADS_B)
-        dh[(int64_t)base * msg_w + e] = dhw[e];
-      __syncthreads();   // window written before the next one zeroes dhw
-    }
-    write_block_part(part1, mix, locs, gacc, cin1, c);
-  }
-}
-
-size_t fwd_smem_bytes(int cm, int ca, int c, int wn) {
-  const int cin1 = cm + ca, c4 = pad4(c), mx = imax(cin1, c);
-  return sizeof(float) *
-         ((size_t)params_floats(cin1, c) + params_floats(c, c) +
-          NB * NB / 2 + WARPS_F * NB + ROWS_F * XCH + ROWS_F +
-          (size_t)wn * c * NB + (size_t)ROWS_F * (mx + 2 * c4) * RP);
-}
-
-size_t bwd_smem_bytes(int cm, int ca, int c, int wn) {
-  const int cin1 = cm + ca, c4 = pad4(c), mx = imax(cin1, c);
-  return sizeof(float) *
-         ((size_t)params_floats(cin1, c) + params_floats(c, c) + TAB_FLOATS +
-          WARPS_B * NB + ROWS_B * XCH + ROWS_B +
-          (size_t)(ROWS_B * NLOC + NP) * c4 + (size_t)wn * cm * NB +
-          (size_t)ROWS_B * mx * NB + (size_t)ROWS_B * (mx + 5 * c4) * RP);
-}
-
-bool widths_ok(int cm, int ca, int c, int wn) {
-  return cm >= 1 && ca >= 0 && c >= 1 && wn >= 1;
-}
-
-Params params_at(const float* const* pp) {
-  return Params{pp[0], pp[1], pp[2], pp[3], pp[4],
-                pp[5], pp[6], pp[7], pp[8], pp[9]};
-}
-
-template <bool FAST>
-int launch_fwd(const void* h, const void* hj, const void* attr,
-               const int* dst, const uint8_t* mask, const int64_t* bounds,
-               const float* const* params, Tabs tb, const uint16_t* tabs,
-               float* out, Geom gm, int grid, cudaStream_t st) {
-  using T = typename Stream<FAST>::T;
-  const size_t bytes = fwd_smem_bytes(gm.cm, gm.ca, gm.c, gm.wn);
-  cudaFuncSetAttribute(fused_mp_pair_fwd_kernel<FAST>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  fused_mp_pair_fwd_kernel<FAST><<<grid, dim3(32, WARPS_F), bytes, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(hj),
-      static_cast<const T*>(attr), dst, mask, bounds, params_at(params),
-      params_at(params + 10), tb, tabs, out, gm);
-  return (int)cudaGetLastError();
-}
-
-template <bool FAST>
-int launch_bwd(const void* h, const void* hj, const void* attr,
-               const int* dst, const uint8_t* mask, const int64_t* bounds,
-               const float* dagg, const float* const* params, Tabs tb,
-               const uint16_t* tabs, float* dh, void* dhj, void* dattr,
-               float* dx2, float* partials, Geom gm, int grid,
-               cudaStream_t st) {
-  using T = typename Stream<FAST>::T;
-  const size_t bytes = bwd_smem_bytes(gm.cm, gm.ca, gm.c, gm.wn);
-  cudaFuncSetAttribute(fused_mp_pair_bwd_kernel<FAST>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  fused_mp_pair_bwd_kernel<FAST><<<grid, dim3(32, WARPS_B), bytes, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(hj),
-      static_cast<const T*>(attr), dst, mask, bounds, dagg,
-      params_at(params), params_at(params + 10), tb, tabs, dh,
-      static_cast<T*>(dhj), static_cast<T*>(dattr), dx2, partials, gm);
-  return (int)cudaGetLastError();
-}
-
+using TileCl5 = RowTile<4, 4, 2, 4>;
 }  // namespace
 
 extern "C" {
-
-// Shared-memory bytes a launch needs (0 if the widths are not supported).
-size_t csmpn_fused_mp_pair_smem_bytes(int cm, int ca, int c, int wn,
-                                      int backward) {
-  if (!widths_ok(cm, ca, c, wn)) return 0;
-  return backward ? bwd_smem_bytes(cm, ca, c, wn)
-                  : fwd_smem_bytes(cm, ca, c, wn);
-}
-
-// Floats of one CTA's slice of the backward's scratch (the summed
-// gradient vector is its first block_part_floats(cm + ca, c) +
-// block_part_floats(c, c) floats).
-int64_t csmpn_fused_mp_pair_partial_floats(int cm, int ca, int c) {
-  return slice_floats(cm + ca, c);
-}
-
-// The structure the kernels assume, for the host to check against the
-// algebra (as csmpn_cemlp_pair_tables), and the packed tables they read.
-void csmpn_fused_mp_pair_tables(int* i_of_out, int* path_out, int* grade_out,
-                                float* sign_out) {
-  Pairs t;
-  make_pairs(t);
-  for (int j = 0; j < NB; ++j)
-    for (int k = 0; k < NB; ++k) {
-      i_of_out[j * NB + k] = t.i_of[j][k];
-      path_out[j * NB + k] = t.path[j][k];
-      sign_out[j * NB + k] = (float)t.sign[j][k];
-    }
-  for (int i = 0; i < NB; ++i)
-    grade_out[i] = grade5(i) == popcount(kBitmap[i]) ? grade5(i) : -1;
-}
-
-int csmpn_fused_mp_pair_packed(uint16_t* out, int cap) {
-  if (cap < TAB_LEN) return -1;
-  return make_packed(out);
-}
-
-// h (N, cm, 32), hj (E, cm, 32), attr (E, ca, 32) or null: bf16 if fast,
-// else fp32.  dst (E,) int32 ascending; mask (E,) bytes or null; bounds
-// (n_win + 1,) int64 window edge offsets; params: host array of the 20
-// device pointers of the two blocks (flax order, 10 each); bc: host
-// quadratic-form coefficients; tabs: the packed tables on the device.  out
-// (N, C, 32) fp32: the sum over unmasked edges.
-int csmpn_fused_mp_pair_fwd(const void* h, const void* hj, const void* attr,
-                            const int* dst, const uint8_t* mask,
-                            const int64_t* bounds,
-                            const float* const* params, const float* bc,
-                            const uint16_t* tabs, float* out, int n_nodes,
-                            int cm, int ca, int c, int wn, int n_win,
-                            int fast, int grid, void* stream) {
-  if (!widths_ok(cm, ca, c, wn) ||
-      fwd_smem_bytes(cm, ca, c, wn) > kMaxSmem || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  Geom gm{n_nodes, cm, ca, c, wn, n_win};
-  Tabs tb = make_tabs(bc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fast ? launch_fwd<true>(h, hj, attr, dst, mask, bounds, params, tb,
-                                 tabs, out, gm, grid, st)
-              : launch_fwd<false>(h, hj, attr, dst, mask, bounds, params, tb,
-                                  tabs, out, gm, grid, st);
-}
-
-// dagg (N, C, 32) fp32, the cotangent of the sum.  Outputs: dh (N, cm, 32)
-// fp32; dhj (E, cm, 32) and dattr (E, ca, 32) in the stream type; grads
-// (block_part_floats(cm + ca, c) + block_part_floats(c, c),) the summed
-// vector.  Scratch: dx2 (E, C, 32) fp32, block 2's dx rows; partials
-// (grid, partial_floats).
-int csmpn_fused_mp_pair_bwd(const void* h, const void* hj, const void* attr,
-                            const int* dst, const uint8_t* mask,
-                            const int64_t* bounds, const float* dagg,
-                            const float* const* params, const float* bc,
-                            const uint16_t* tabs, float* dh, void* dhj,
-                            void* dattr, float* dx2, float* partials,
-                            float* grads, int n_nodes, int cm, int ca, int c,
-                            int wn, int n_win, int fast, int grid,
-                            void* stream) {
-  if (!widths_ok(cm, ca, c, wn) ||
-      bwd_smem_bytes(cm, ca, c, wn) > kMaxSmem || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  Geom gm{n_nodes, cm, ca, c, wn, n_win};
-  Tabs tb = make_tabs(bc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err =
-      fast ? launch_bwd<true>(h, hj, attr, dst, mask, bounds, dagg, params,
-                              tb, tabs, dh, dhj, dattr, dx2, partials, gm,
-                              grid, st)
-           : launch_bwd<false>(h, hj, attr, dst, mask, bounds, dagg, params,
-                               tb, tabs, dh, dhj, dattr, dx2, partials, gm,
-                               grid, st);
-  if (err != (int)cudaSuccess) return err;
-  const int64_t n = block_part_floats(cm + ca, c) + block_part_floats(c, c);
-  reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      partials, grads, n, slice_floats(cm + ca, c), grid);
-  return (int)cudaGetLastError();
-}
-
+CSMPN_FUSED_PAIR_ENTRIES(csmpn_fused_mp_pair, Cl5, TileCl5)
 }  // extern "C"

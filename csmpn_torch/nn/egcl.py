@@ -16,9 +16,10 @@ layer; on the CPU everything stays fp32, as in the reference off the TPU.
 The flat big-graph path (``batch_shape is None``, edges sorted by target)
 runs the edge side as one fused pass (``ops/fused_egcl.py``) on the card
 in fast mode: K4 forward and K5 backward at Cl(2) and Cl(3), their pair
-form K4p/K5p at Cl(5); at Cl(4) it raises (no kernel yet).  In exact mode
-and on the CPU it composes the target gather, the edge CEMLP and the
-aggregation, as the reference keeps the composed path in exact mode.
+form K4p/K5p at Cl(4) and Cl(5); at Cl(1) it raises (no kernel yet).  In
+exact mode and on the CPU it composes the target gather, the edge CEMLP
+and the aggregation, as the reference keeps the composed path in exact
+mode.
 """
 from __future__ import annotations
 

@@ -22,8 +22,9 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("segment_sum", "cemlp", "cemlp_pair", "fused_egcl",
-           "fused_egcl_pair", "envelope")
+SOURCES = ("segment_sum", "cemlp", "cemlp_pair", "cemlp_pair_cl4",
+           "fused_egcl", "fused_egcl_pair", "fused_egcl_pair_cl4",
+           "envelope")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

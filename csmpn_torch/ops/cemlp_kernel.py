@@ -8,11 +8,13 @@ two forms:
     Cl(3,0) (the motion and MD17 tasks, output width <= 32 channels) and
     for Cl(2,0) (the NBA task, output width <= 64 channels: a lane holds
     two 4-blade channels);
-  * pair, nb = 32: K2p/K3p in ``csrc/cemlp_pair.cu`` (Cl(5,0), the hulls
-    task), where the weighted geometric product runs over the Cayley
-    pairs (one left blade and one sign per (output j, right k)).
+  * pair, nb = 32 and nb = 16: K2p/K3p, ``csrc/cemlp_pair_kernels.cuh``
+    compiled for Cl(5,0) (``csrc/cemlp_pair.cu``, the hulls task) and for
+    Cl(4,0) (``csrc/cemlp_pair_cl4.cu``, the bench at ``--dim 4``), where
+    the weighted geometric product runs over the Cayley pairs (one left
+    blade and one sign per (output j, right k)).
 
-Cl(4) (nb = 16), which the reference's pair form also serves, has no
+Cl(1) (nb = 2), which the reference's dense form also serves, has no
 kernel yet and raises.  Widths whose block does not fit in one CTA's
 shared memory raise too.  On a CUDA tensor the wrappers launch the kernels
 (or raise); on a CPU tensor they compute the plain versions:
@@ -27,7 +29,8 @@ The block's parameters are taken in their flax shapes, in this order:
 silu.b (C, G), gp.weight (C, P), gp.linear_right.weight (C, C, G),
 gp.normalization.a (C, G), gp.linear_left.weight (C, C, G),
 gp.linear_left.bias (C, 1), norm.a (C,)`` with G grades and P nonzero
-grade paths (3 and 10 at Cl(2), 4 and 20 at Cl(3), 6 and 56 at Cl(5)).
+grade paths (3 and 10 at Cl(2), 4 and 20 at Cl(3), 5 and 35 at Cl(4), 6
+and 56 at Cl(5)).
 
 ``exact=False`` (fast mode) rounds to bf16 the operands of every product
 the TPU kernel feeds its matrix unit and accumulates in fp32.  The two
@@ -57,6 +60,8 @@ CL2_FWD_LAUNCHES = _build.LaunchCounter("cemlp_cl2_fwd")
 CL2_BWD_LAUNCHES = _build.LaunchCounter("cemlp_cl2_bwd")
 PAIR_FWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_fwd")
 PAIR_BWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_bwd")
+PAIR_CL4_FWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_cl4_fwd")
+PAIR_CL4_BWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_cl4_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -77,6 +82,9 @@ class BlockKernel:
     rows_bwd: int
     fwd: _build.LaunchCounter
     bwd: _build.LaunchCounter
+    # "dense": Cayley signs passed from the host; "pair": the packed pair
+    # tables on the card, and the backward's channel-mixing scratch
+    form: str = "dense"
 
 
 DENSE = BlockKernel("K2/K3", "cemlp", "csmpn_cemlp", "Cl(3) (8 blades)", 8,
@@ -86,18 +94,23 @@ DENSE_CL2 = BlockKernel("K2/K3 at Cl(2)", "cemlp", "csmpn_cemlp_cl2",
                         CL2_FWD_LAUNCHES, CL2_BWD_LAUNCHES)
 PAIR = BlockKernel("K2p/K3p", "cemlp_pair", "csmpn_cemlp_pair",
                    "Cl(5,0) (32 blades)", 32, 6, 56, 0, 8, 4,
-                   PAIR_FWD_LAUNCHES, PAIR_BWD_LAUNCHES)
+                   PAIR_FWD_LAUNCHES, PAIR_BWD_LAUNCHES, form="pair")
+PAIR_CL4 = BlockKernel("K2p/K3p at Cl(4)", "cemlp_pair_cl4",
+                       "csmpn_cemlp_pair_cl4", "Cl(4,0) (16 blades)", 16, 5,
+                       35, 0, 16, 8, PAIR_CL4_FWD_LAUNCHES,
+                       PAIR_CL4_BWD_LAUNCHES, form="pair")
 
 
 def block_kernel(nb: int) -> BlockKernel:
     """The block kernels for nb blades, or NotImplementedError."""
-    for k in (DENSE_CL2, DENSE, PAIR):
+    for k in (DENSE_CL2, DENSE, PAIR_CL4, PAIR):
         if k.n_blades == nb:
             return k
     raise NotImplementedError(
         f"no CEMLP block kernel for {nb} blades: K2/K3 take 2- and 3-dim "
-        f"algebras (4 and 8 blades), K2p/K3p Cl(5,0) (32 blades); Cl(4) "
-        f"(16 blades) is still to port (ROADMAP Queue 2)")
+        f"algebras (4 and 8 blades), K2p/K3p Cl(4,0) and Cl(5,0) (16 and 32 "
+        f"blades); Cl(1) (2 blades, the dense form) is still to port "
+        f"(ROADMAP Queue 2)")
 
 
 def _rounder(exact: bool):
@@ -218,7 +231,7 @@ def _alg_tables(metric: tuple, source: str = "", symbol: str = ""):
     checks = [("i_of", i_of, alg.gp_pair_tables[0]),
               ("path", path, alg.gp_pair_paths),
               ("grade", grade, alg.blade_to_grade)]
-    if kern is PAIR:
+    if kern.form == "pair":
         fn.argtypes = [_P, _P, _P, _P]
         fn.restype = None
         fn(i_of.ctypes.data, path.ctypes.data, grade.ctypes.data,
@@ -240,12 +253,12 @@ def _alg_tables(metric: tuple, source: str = "", symbol: str = ""):
 
 
 @functools.lru_cache(maxsize=None)
-def _pair_tabs(metric: tuple, device: torch.device,
-               source: str = "cemlp_pair",
-               symbol: str = "csmpn_cemlp_pair") -> torch.Tensor:
-    """The pair kernels' packed Cayley-pair tables (built by the host code
-    of cemlp_pair.cuh in csrc/{source}.cu, after `_alg_tables` checked its
-    structure) on ``device``; each CTA copies them to shared memory."""
+def _pair_tabs(metric: tuple, device: torch.device, source: str,
+               symbol: str) -> torch.Tensor:
+    """The packed Cayley-pair tables of the pair kernels in
+    csrc/{source}.cu (entry points prefixed ``symbol``, built by the host
+    code of cemlp_pair.cuh after `_alg_tables` checked their structure) on
+    ``device``; each CTA copies them to shared memory."""
     _alg_tables(metric, source, symbol)
     fn = getattr(_build.load(source), f"{symbol}_packed")
     fn.argtypes = [_P, _I]
@@ -318,15 +331,16 @@ def _tables(kern: BlockKernel, alg, device) -> Tuple[np.ndarray, int]:
     K2p/K3p."""
     metric = tuple(alg.metric.tolist())
     bc, sign = _alg_tables(metric)
-    if kern is PAIR:
-        return bc, _pair_tabs(metric, device).data_ptr()
+    if kern.form == "pair":
+        return bc, _pair_tabs(metric, device, kern.source,
+                              kern.symbol).data_ptr()
     return bc, sign.ctypes.data
 
 
 def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
                   exact: bool = True) -> torch.Tensor:
-    """K2 (nb = 4 or 8) or K2p (nb = 32): one CEMLP block, (rows, Cin, nb)
-    float32 -> (rows, C, nb)."""
+    """K2 (nb = 4 or 8) or K2p (nb = 16 or 32): one CEMLP block, (rows,
+    Cin, nb) float32 -> (rows, C, nb)."""
     if not x.is_cuda:
         return block_forward_plain(x, params, alg, exact)
     x = x.contiguous()
@@ -360,9 +374,9 @@ def _split_grads(flat: torch.Tensor, params) -> List[torch.Tensor]:
 def _partial_floats(kern: BlockKernel, cin: int, c: int, n_grad: int) -> int:
     """Floats of one CTA's slice of the backward's scratch: its partial
     gradient vector, and for K3p also its channel-mixing accumulators."""
-    if kern is not PAIR:
+    if kern.form != "pair":
         return n_grad
-    fn = _build.load(kern.source).csmpn_cemlp_pair_partial_floats
+    fn = getattr(_build.load(kern.source), f"{kern.symbol}_partial_floats")
     fn.argtypes = [_I, _I]
     fn.restype = ctypes.c_longlong
     return int(fn(cin, c))
@@ -371,8 +385,8 @@ def _partial_floats(kern: BlockKernel, cin: int, c: int, n_grad: int) -> int:
 def block_backward(x: torch.Tensor, dout: torch.Tensor,
                    params: Sequence[torch.Tensor], alg, exact: bool = True
                    ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """K3 (nb = 4 or 8) or K3p (nb = 32): dx and the 10 parameter gradients
-    of one CEMLP block."""
+    """K3 (nb = 4 or 8) or K3p (nb = 16 or 32): dx and the 10 parameter
+    gradients of one CEMLP block."""
     if not x.is_cuda:
         return block_backward_plain(x, dout, params, alg, exact)
     x = x.contiguous()
@@ -421,8 +435,9 @@ class _Block(torch.autograd.Function):
 
 
 def apply_fused_cemlp(cemlp, x: torch.Tensor) -> torch.Tensor:
-    """A whole CEMLP, one K2 (K2p at Cl(5)) launch per block forward and one
-    K3 (K3p) launch per block backward, at Cl(2), Cl(3) or Cl(5).  x: (..., C_in, nb) -> (..., C_out, nb), in x's dtype
+    """A whole CEMLP, one K2 (K2p at Cl(4) and Cl(5)) launch per block
+    forward and one K3 (K3p) launch per block backward, at Cl(2), Cl(3),
+    Cl(4) or Cl(5).  x: (..., C_in, nb) -> (..., C_out, nb), in x's dtype
     (the blocks compute in float32)."""
     from .segment import aggregation_exact
 

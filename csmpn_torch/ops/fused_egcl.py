@@ -20,11 +20,14 @@ kernels per algebra (``FusedKernel``, ``fused_kernel``):
 
   * K4/K5, ``csrc/fused_egcl.cu``, dense form: Cl(3,0) (8 blades, up to 32
     channels) and Cl(2,0) (4 blades; a lane holds channels n and n + 32);
-  * K4p/K5p, ``csrc/fused_egcl_pair.cu``, pair form: Cl(5,0) (32 blades,
-    up to 28 channels, which both blocks' fp32 parameters and the row
-    buffers leave in one CTA's shared memory).
+  * K4p/K5p, pair form, ``csrc/fused_egcl_pair.cuh`` compiled for Cl(5,0)
+    (``csrc/fused_egcl_pair.cu``, 32 blades) and Cl(4,0)
+    (``csrc/fused_egcl_pair_cl4.cu``, 16 blades), each up to 28 channels,
+    which both blocks' fp32 parameters and the row buffers leave in one
+    CTA's shared memory (attribute widths: Cm + Ca up to 39 at Cl(5), 51
+    at Cl(4)).
 
-Cl(4) (16 blades), which the reference's pair form also serves, has no
+Cl(1) (2 blades), which the reference's dense form also serves, has no
 kernel yet and raises, as do widths whose kernels do not fit.
 
 On a CUDA tensor the wrappers launch the kernels (or raise); on a CPU
@@ -44,8 +47,10 @@ The TPU kernel's one-hot window matrix products and their band switch
 ``CSMPN_ONEHOT_BANDS`` are a device of the TPU's matrix unit: on the card
 the target gather is an indexed load and the reduce a sum in shared
 memory, so the switch has no counterpart.  Its window of 128 targets is
-``wn`` here, per kernel: 32 for K4/K5, 4 for K4p/K5p (a Cl(5) window sum
-takes 3.5 KB a target at 28 channels).
+``wn`` here, per kernel: 32 for K4/K5, 4 for K4p/K5p at Cl(5) (a window
+sum takes 3.5 KB a target at 28 channels) and 16 at Cl(4) (1.75 KB a
+target; 512 windows at the bench's 8,192 targets keep the last round of
+windows short on 132 SMs).
 """
 from __future__ import annotations
 
@@ -73,6 +78,8 @@ CL2_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_cl2_fwd")
 CL2_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_cl2_bwd")
 PAIR_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_fwd")
 PAIR_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_bwd")
+PAIR_CL4_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_cl4_fwd")
+PAIR_CL4_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_cl4_bwd")
 
 MAX_SMEM = 232448       # 227 KB opt-in per block (kMaxSmem there)
 
@@ -94,6 +101,9 @@ class FusedKernel:
     wn: int               # target nodes per CTA window
     fwd: _build.LaunchCounter
     bwd: _build.LaunchCounter
+    # "dense": Cayley signs passed from the host; "pair": the packed pair
+    # tables on the card
+    form: str = "dense"
 
     @property
     def nloc(self) -> int:
@@ -108,20 +118,25 @@ DENSE = FusedKernel("K4/K5", "fused_egcl", "csmpn_fused_mp", 8, 4, 20, 32, 32,
 DENSE_CL2 = FusedKernel("K4/K5 at Cl(2)", "fused_egcl", "csmpn_fused_mp_cl2",
                         4, 3, 10, 64, 32, CL2_FWD_LAUNCHES, CL2_BWD_LAUNCHES)
 PAIR = FusedKernel("K4p/K5p", "fused_egcl_pair", "csmpn_fused_mp_pair", 32,
-                   6, 56, 28, 4, PAIR_FWD_LAUNCHES, PAIR_BWD_LAUNCHES)
+                   6, 56, 28, 4, PAIR_FWD_LAUNCHES, PAIR_BWD_LAUNCHES,
+                   form="pair")
+PAIR_CL4 = FusedKernel("K4p/K5p at Cl(4)", "fused_egcl_pair_cl4",
+                       "csmpn_fused_mp_pair_cl4", 16, 5, 35, 28, 16,
+                       PAIR_CL4_FWD_LAUNCHES, PAIR_CL4_BWD_LAUNCHES,
+                       form="pair")
 
 
 def fused_kernel(nb: int) -> FusedKernel:
     """The fused message-passing kernels for nb blades, or
     NotImplementedError."""
-    for k in (DENSE_CL2, DENSE, PAIR):
+    for k in (DENSE_CL2, DENSE, PAIR_CL4, PAIR):
         if k.n_blades == nb:
             return k
     raise NotImplementedError(
         f"no fused message-passing kernel for {nb} blades: K4/K5 take 2- "
-        f"and 3-dim algebras (4 and 8 blades), K4p/K5p Cl(5,0) (32 blades); "
-        f"Cl(4) (16 blades) is still to port (ROADMAP Queue 2, K2p/K3p and "
-        f"K4p/K5p at nb 16)")
+        f"and 3-dim algebras (4 and 8 blades), K4p/K5p Cl(4,0) and Cl(5,0) "
+        f"(16 and 32 blades); Cl(1) (2 blades, the dense form) is still to "
+        f"port (ROADMAP Queue 2, K2/K3 and K4/K5 at nb 2)")
 
 
 # ------------------------------------------------------------ plain version
@@ -268,7 +283,7 @@ def _tables(kern: FusedKernel, alg, device):
     K4p/K5p, after checking the algebra against the compiled structure."""
     metric = tuple(alg.metric.tolist())
     bc, sign = _alg_tables(metric, kern.source, kern.symbol)
-    if kern is PAIR:
+    if kern.form == "pair":
         return bc, _pair_tabs(metric, device, kern.source,
                               kern.symbol).data_ptr()
     return bc, sign.ctypes.data
@@ -277,8 +292,8 @@ def _tables(kern: FusedKernel, alg, device):
 def mp_forward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst,
                mask=None, exact: bool = True,
                plan: Optional[_Plan] = None) -> torch.Tensor:
-    """K4 (K4p at Cl(5)): the sum over unmasked edges, (N, C, nb)
-    float32."""
+    """K4 (K4p at Cl(4) and Cl(5)): the sum over unmasked edges, (N, C,
+    nb) float32."""
     if not h.is_cuda:
         return message_aggregate_plain(params, alg, h, hj, attr, dst, mask,
                                        False, exact)
@@ -339,9 +354,9 @@ def _block_grads(v: torch.Tensor, cin: int, c: int, na: torch.Tensor,
 def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
                 dagg: torch.Tensor, exact: bool = True,
                 plan: Optional[_Plan] = None):
-    """K5 (K5p at Cl(5)): (dh, dhj, dattr or None, the 20 parameter
-    gradients) of the sum, given its cotangent ``dagg`` (N, C, nb).  dh,
-    dhj and dattr come back in the dtypes of h, hj and attr."""
+    """K5 (K5p at Cl(4) and Cl(5)): (dh, dhj, dattr or None, the 20
+    parameter gradients) of the sum, given its cotangent ``dagg`` (N, C,
+    nb).  dh, dhj and dattr come back in the dtypes of h, hj and attr."""
     if not h.is_cuda:
         return message_aggregate_grad_plain(params, alg, h, hj, attr, dst,
                                             mask, dagg, exact)
@@ -411,9 +426,10 @@ class _FusedMP(torch.autograd.Function):
 def fused_mp_supported(algebra, edge_model, x: torch.Tensor) -> bool:
     """The fused kernels serve the flat EGCL path on the card in fast mode,
     for the 2-block edge CEMLP with hidden == out width: K4/K5 at Cl(2) and
-    Cl(3), K4p/K5p at Cl(5).  Exact mode and the CPU keep the composed
-    path.  On the card in fast mode an algebra or a width the kernels are
-    not compiled for raises, as K2/K3 do; it never falls back."""
+    Cl(3), K4p/K5p at Cl(4) and Cl(5).  Exact mode and the CPU keep the
+    composed path.  On the card in fast mode an algebra or a width the
+    kernels are not compiled for raises, as K2/K3 do; it never falls
+    back."""
     from .segment import aggregation_exact
 
     if not x.is_cuda or aggregation_exact():

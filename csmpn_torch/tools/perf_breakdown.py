@@ -2,9 +2,9 @@
 accounting against the H100's data sheet.
 
 The port of ``tools/perf_breakdown.py``.  Times each stage of the edge
-pipeline at the bench shape (E = 131,072 edges, N = 8,192 nodes, hidden
-32, Cl(3,0), so 256 values per row) with CUDA events around a run of
-launches, after a warm-up:
+pipeline at the bench shape (E = 131,072 edges, N = 8,192 nodes; by
+default hidden 32 at Cl(3,0), so 256 values per row) with CUDA events
+around a run of launches, after a warm-up:
 
   * the target gather (``take_rows``) and K1 (sorted segment sum);
   * MVLinear, MVSiLU and the SGP layer over E rows (plain layers);
@@ -12,8 +12,15 @@ launches, after a warm-up:
   * the EGCL layer forward (K4 on the edge side in fast mode) and forward
     + backward (K4 + K5).
 
-    python -m csmpn_torch.tools.perf_breakdown [--hidden 32]
-        [--edges 131072] [--nodes 8192] [--iters 20] [--exact]
+``--dim`` (the port's own option, as the bench's) sets the algebra
+Cl(dim, 0) and, unless ``--hidden`` is given, the bench's width for it
+(``bench.WIDTHS``): at Cl(4) and Cl(5) the edge CEMLP runs K2p and the
+EGCL layer K4p/K5p, and the geometric product counts nb^2 pair products
+a channel where the dense form counts nb^3.
+
+    python -m csmpn_torch.tools.perf_breakdown [--dim 2|3|4|5]
+        [--hidden C] [--edges 131072] [--nodes 8192] [--iters 20]
+        [--exact]
 
 Fast mode (bf16 streams, the bench's mode) is the default; ``--exact``
 runs fp32 and the composed edge side.  Each stage's least time is
@@ -63,7 +70,8 @@ def card() -> str:
 
 def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--hidden", type=int, default=32)
+    ap.add_argument("--dim", type=int, default=3)
+    ap.add_argument("--hidden", type=int, default=None)
     ap.add_argument("--edges", type=int, default=131072)
     ap.add_argument("--nodes", type=int, default=8192)
     ap.add_argument("--iters", type=int, default=20)
@@ -76,6 +84,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from ..algebra import get_algebra
+    from ..bench import WIDTHS
     from ..nn.egcl import EGCL
     from ..nn.modules import (CEMLP, MVLinear, MVSiLU,
                               SteerableGeometricProductLayer,
@@ -88,9 +97,15 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
     dev = torch.device("cuda", 0)
     env = envelope_probe.measure(dev, library=False)["envelope"]
     env_rate = {BF16_FLOPS: env["bf16"], FP32_FLOPS: env["fma"]}
-    alg = get_algebra((1.0, 1.0, 1.0))
-    C, nb = args.hidden, 8
+    if args.dim not in WIDTHS:
+        raise ValueError(f"--dim takes {sorted(WIDTHS)}, got {args.dim}")
+    alg = get_algebra((1.0,) * args.dim)
+    nb = alg.n_blades
+    C = args.hidden or WIDTHS[args.dim][0]
     D = C * nb
+    pair = nb > 8                  # K2p and K4p/K5p, the pair form
+    gp = nb ** 2 if pair else nb ** 3   # product terms a channel
+    k2, k4, k5 = ("K2p", "K4p", "K5p") if pair else ("K2", "K4", "K5")
     E, N = args.edges, args.nodes
     rng = np.random.RandomState(0)
     src = rng.randint(0, N, size=E)
@@ -151,8 +166,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
         report("SGP (E rows, plain)", t, 2 * E * D * 4,
                2 * E * C * (2 * C * nb + nb ** 3), FP32_FLOPS)
         t = timed_ms(lambda: mlp(msg), args.iters)
-        report("edge CEMLP fwd (2 blocks, K2)", t, 2 * E * D * fG,
-               2 * 2 * E * C * (3 * C * nb + nb ** 3), peak)
+        report(f"edge CEMLP fwd (2 blocks, {k2})", t, 2 * E * D * fG,
+               2 * 2 * E * C * (3 * C * nb + gp), peak)
 
     egcl = EGCL(alg, C, C, C, aggr="mean")
     init_parameters(egcl, gen)
@@ -161,11 +176,11 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
     order = np.argsort(src, kind="stable")
     src_sort = (torch.from_numpy(order).to(dev),
                 torch.from_numpy(src[order].astype(np.int64)).to(dev))
-    egcl_flops = 2 * 2 * E * C * (3 * C * nb + nb ** 3) * 1.25
+    egcl_flops = 2 * 2 * E * C * (3 * C * nb + gp) * 1.25
     egcl_bytes = (5 * E + 4 * N) * D * fG
     with torch.no_grad():
         t = timed_ms(lambda: egcl(h, ei, src_sort=src_sort), args.iters)
-    report("EGCL fwd" + ("" if args.exact else " (K4)"), t, egcl_bytes,
+    report("EGCL fwd" + ("" if args.exact else f" ({k4})"), t, egcl_bytes,
            egcl_flops, peak)
     params = list(egcl.parameters())
 
@@ -174,7 +189,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
         return torch.autograd.grad(torch.mean(out.float() ** 2), params)
 
     t = timed_ms(step, args.iters)
-    report("EGCL fwd+bwd" + ("" if args.exact else " (K4 + K5)"), t,
+    report("EGCL fwd+bwd" + ("" if args.exact else f" ({k4} + {k5})"), t,
            3 * egcl_bytes, 3 * egcl_flops, peak)
     print("# columns: achieved bandwidth and its share of 3.35 TB/s, "
           "achieved TFLOP/s, the least time by the data sheet's rates "

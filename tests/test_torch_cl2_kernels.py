@@ -193,15 +193,17 @@ def test_cl2_wrappers_on_cpu_take_plain_versions_and_count_nothing():
 
 def test_block_kernel_cl2():
     """nb = 4 takes the Cl(2) build of K2/K3 (its own counters, up to 64
-    channels); Cl(3) keeps 32; nb = 16 still raises."""
+    channels); Cl(3) keeps 32; nb = 16 takes the Cl(4) build of K2p/K3p;
+    nb = 2 (Cl(1)) still raises."""
     k = ck.block_kernel(4)
     assert k is ck.DENSE_CL2 and k.source == "cemlp"
     assert (k.n_grades, k.n_paths) == (get_algebra(CL2).n_subspaces,
                                        get_algebra(CL2).n_product_paths)
     assert k.fwd is ck.CL2_FWD_LAUNCHES and k.bwd is ck.CL2_BWD_LAUNCHES
     assert (k.max_channels, ck.DENSE.max_channels) == (64, 32)
-    with pytest.raises(NotImplementedError, match="16 blades"):
-        ck.block_kernel(16)
+    assert ck.block_kernel(16) is ck.PAIR_CL4
+    with pytest.raises(NotImplementedError, match=r"Cl\(1\) \(2 blades"):
+        ck.block_kernel(2)
 
 
 def test_cl2_block_params_checked_in_cl2_shapes():

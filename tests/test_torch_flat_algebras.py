@@ -12,7 +12,7 @@ reference package, on the CPU.
   * ``bench.workload``: unchanged at Cl(3), (N, hidden, 2**dim) from the
     same stream elsewhere; the width table;
   * the gate on a stand-in card tensor: the kernels' algebras and widths
-    are taken, Cl(4) and wider layers raise.
+    are taken, Cl(1) and wider layers raise.
 
 Tolerances: rtol 2e-4 / atol 1e-5 in exact fp32 (the reference's parity
 tolerance and tests/test_fused_egcl.py's gradient tolerance); fast-mode
@@ -254,7 +254,7 @@ def test_bench_stack_matches_reference_stack(dim):
         close(p.grad, j_flat[name].numpy(), msg=name)
 
 
-@pytest.mark.parametrize("dim", [2, 3, 5])
+@pytest.mark.parametrize("dim", [2, 3, 4, 5])
 def test_bench_workload_by_algebra(dim):
     """At Cl(3) the workload is byte for byte the default one; elsewhere
     the features are (N, hidden, 2**dim) from the same stream, after the
@@ -274,48 +274,54 @@ def test_bench_workload_by_algebra(dim):
 
 
 def test_bench_width_table_and_line():
-    """--dim takes the widths of the tasks at each algebra; the CPU run's
-    JSON line names the algebra and the width away from Cl(3)."""
+    """--dim takes the widths of the tasks at each algebra (at Cl(4),
+    which no task runs, the other pair-form algebra's); the CPU run's JSON
+    line names the algebra and the width away from Cl(3)."""
     assert {d: w for d, (w, _) in bench.WIDTHS.items()} == {3: 32, 2: 40,
-                                                            5: 28}
+                                                            5: 28, 4: 28}
     seg.set_aggregation_mode("fast")
     res = bench.run("cpu", steps=1, windows=1, n_nodes=12, n_edges=30,
                     batch=1, hidden=4, dim=5)
     assert res["inputs"][0].shape == (12, 4, 32)
     assert all(np.isfinite(v) for v in res["losses"])
     with pytest.raises(ValueError, match="--dim"):
-        bench.main(["--device=cpu", "--dim", "4"])
+        bench.main(["--device=cpu", "--dim", "1"])
 
 
 # --------------------------------------------------------------- the gate
 
 def test_fused_gate_takes_the_kernels_algebras_and_widths():
     """On a stand-in card tensor in fast mode: True for K4/K5 at Cl(2)
-    (C = 40, the NBA width) and Cl(3), and for K4p/K5p at Cl(5) (C = 28,
-    the hulls width); Cl(4) raises, naming the ROADMAP item, as does a
-    width above each kernel's limit; the kernel table holds each algebra's
-    own launch counters."""
+    (C = 40, the NBA width) and Cl(3), and for K4p/K5p at Cl(5) and Cl(4)
+    (C = 28, the hulls width); Cl(1) raises, naming the ROADMAP item, as
+    does a width above each kernel's limit; the kernel table holds each
+    algebra's own launch counters."""
     on_card = types.SimpleNamespace(is_cuda=True)
     seg.set_aggregation_mode("fast")
     algs = {d: get_algebra(m) for d, m in CL.items()}
     algs[3] = get_algebra((1.0, 1.0, 1.0))
-    for dim, c in ((2, 40), (3, 32), (5, 28)):
+    algs[1] = get_algebra((1.0,))
+    for dim, c in ((2, 40), (3, 32), (4, 28), (5, 28)):
         assert fe.fused_mp_supported(algs[dim], CEMLP(algs[dim], c, c, c),
                                      on_card)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fe.fused_mp_supported(algs[4], CEMLP(algs[4], 4, 4, 4), on_card)
-    for dim, c in ((2, 65), (3, 33), (5, 29)):
+        fe.fused_mp_supported(algs[1], CEMLP(algs[1], 4, 4, 4), on_card)
+    for dim, c in ((2, 65), (3, 33), (4, 29), (5, 29)):
         with pytest.raises(NotImplementedError, match="at most"):
             fe.fused_mp_supported(algs[dim], CEMLP(algs[dim], 4, c, c),
                                   on_card)
     assert fe.fused_kernel(4) is fe.DENSE_CL2
     assert fe.fused_kernel(8) is fe.DENSE
     assert fe.fused_kernel(32) is fe.PAIR
+    assert fe.fused_kernel(16) is fe.PAIR_CL4
     assert (fe.DENSE_CL2.fwd, fe.DENSE_CL2.bwd) == (fe.CL2_FWD_LAUNCHES,
                                                     fe.CL2_BWD_LAUNCHES)
     assert (fe.PAIR.fwd, fe.PAIR.bwd) == (fe.PAIR_FWD_LAUNCHES,
                                           fe.PAIR_BWD_LAUNCHES)
-    assert [k.nloc for k in (fe.DENSE_CL2, fe.DENSE, fe.PAIR)] == [22, 35, 77]
+    assert (fe.PAIR_CL4.fwd, fe.PAIR_CL4.bwd) == (fe.PAIR_CL4_FWD_LAUNCHES,
+                                                  fe.PAIR_CL4_BWD_LAUNCHES)
+    assert [k.nloc for k in (fe.DENSE_CL2, fe.DENSE, fe.PAIR_CL4,
+                             fe.PAIR)] == [22, 35, 53, 77]
     seg.set_aggregation_mode("exact")
     assert not fe.fused_mp_supported(algs[5], CEMLP(algs[5], 4, 4, 4),
                                      on_card)

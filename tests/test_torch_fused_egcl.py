@@ -342,12 +342,14 @@ def test_cpu_dispatch_takes_plain_versions_and_counts_nothing():
     """On CPU tensors fused_mp_supported is false in both modes, the
     wrappers compute the plain versions, and no counter moves through a
     fused call, a forced fused EGCL layer or the bench stack at Cl(2),
-    Cl(3) and Cl(5)."""
+    Cl(3), Cl(4) and Cl(5)."""
     counters = (fe.FWD_LAUNCHES, fe.BWD_LAUNCHES, fe.CL2_FWD_LAUNCHES,
                 fe.CL2_BWD_LAUNCHES, fe.PAIR_FWD_LAUNCHES,
-                fe.PAIR_BWD_LAUNCHES, sk.LAUNCHES, ck.FWD_LAUNCHES,
+                fe.PAIR_BWD_LAUNCHES, fe.PAIR_CL4_FWD_LAUNCHES,
+                fe.PAIR_CL4_BWD_LAUNCHES, sk.LAUNCHES, ck.FWD_LAUNCHES,
                 ck.BWD_LAUNCHES, ck.CL2_FWD_LAUNCHES, ck.CL2_BWD_LAUNCHES,
-                ck.PAIR_FWD_LAUNCHES, ck.PAIR_BWD_LAUNCHES)
+                ck.PAIR_FWD_LAUNCHES, ck.PAIR_BWD_LAUNCHES,
+                ck.PAIR_CL4_FWD_LAUNCHES, ck.PAIR_CL4_BWD_LAUNCHES)
     for cnt in counters:
         cnt.reset()
     alg = get_algebra(CL3)
@@ -369,7 +371,7 @@ def test_cpu_dispatch_takes_plain_versions_and_counts_nothing():
     for a, b in zip(got[:2] + tuple(got[3]), want[:2] + tuple(want[3])):
         torch.testing.assert_close(a, b)
     seg.set_aggregation_mode("fast")
-    for dim in (2, 3, 5):
+    for dim in (2, 3, 4, 5):
         bench.run("cpu", steps=1, windows=1, n_nodes=12, n_edges=30,
                   batch=1, hidden=4, dim=dim)
     assert [cnt.count for cnt in counters] == [0] * len(counters)
@@ -378,16 +380,19 @@ def test_cpu_dispatch_takes_plain_versions_and_counts_nothing():
 def test_fused_mp_supported_raises_on_the_card_for_other_algebras():
     """The gate gives way to the composed path only for an edge model the
     fused pass does not compute; an algebra or a width the kernels are not
-    compiled for raises on the card (a stand-in tensor says it is on it)."""
+    compiled for raises on the card (a stand-in tensor says it is on it):
+    Cl(4) takes K4p/K5p at Cl(4), Cl(1) raises."""
     on_card = types.SimpleNamespace(is_cuda=True)
     seg.set_aggregation_mode("fast")
     alg3, alg4 = get_algebra(CL3), get_algebra((1.0,) * 4)
+    alg1 = get_algebra((1.0,))
     assert fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 4, 4), on_card)
     assert not fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 6, 4), on_card)
     assert not fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 4, 4, n_layers=3),
                                      on_card)
+    assert fe.fused_mp_supported(alg4, CEMLP(alg4, 4, 4, 4), on_card)
     with pytest.raises(NotImplementedError):
-        fe.fused_mp_supported(alg4, CEMLP(alg4, 4, 4, 4), on_card)
+        fe.fused_mp_supported(alg1, CEMLP(alg1, 4, 4, 4), on_card)
     with pytest.raises(NotImplementedError):
         fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 40, 40), on_card)
     seg.set_aggregation_mode("exact")

@@ -156,15 +156,21 @@ def test_pair_wrappers_on_cpu_take_plain_versions_and_count_nothing():
 
 
 def test_block_kernel_forms():
-    """nb = 8 takes K2/K3, nb = 4 their Cl(2) build, nb = 32 K2p/K3p;
-    every other blade count raises and names what each kernel takes."""
+    """nb = 8 takes K2/K3, nb = 4 their Cl(2) build, nb = 32 K2p/K3p and
+    nb = 16 their Cl(4) build, both in the pair form; nb = 2 (Cl(1), the
+    next form to port) raises, names what each kernel takes and the
+    ROADMAP item."""
     assert ck.block_kernel(8) is ck.DENSE
     assert ck.block_kernel(4) is ck.DENSE_CL2
     assert ck.block_kernel(32) is ck.PAIR
+    assert ck.block_kernel(16) is ck.PAIR_CL4
     assert (ck.PAIR.n_grades, ck.PAIR.n_paths) == (
         get_algebra(CL5).n_subspaces, get_algebra(CL5).n_product_paths)
-    for nb in (2, 16):
-        with pytest.raises(NotImplementedError, match="32 blades"):
+    assert [k.form for k in (ck.DENSE_CL2, ck.DENSE, ck.PAIR_CL4,
+                             ck.PAIR)] == ["dense", "dense", "pair", "pair"]
+    for nb in (2, 64):
+        with pytest.raises(NotImplementedError,
+                           match=r"32 blades.*ROADMAP Queue 2"):
             ck.block_kernel(nb)
 
 
