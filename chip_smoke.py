@@ -4,7 +4,9 @@
 
 1. prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels from csmpn_torch/csrc, all sources in parallel, with each
-   kernel's registers and spills;
+   kernel's registers and spills; shows that the fast-mode backwards of
+   the dense form (K3 and K5, the row tiles) take at every C at least
+   the inputs their exact-mode row kernels take;
 2. the envelope probe (P1 copy, P2 resident matrix product in bf16 and
    tf32 on the tensor cores and fp32 FFMA, P3 FMA chain): each kernel
    against its plain version at tools/mxu_probe.py's sizes (P1 bitwise at
@@ -58,7 +60,11 @@
    lift's backend and time, K1 at D = 256, K2 and K3 at every MD17 block
    shape (the 90 -> 32 backward, the widest, included) with the checks of
    8, the full-width model card vs CPU, the task for 8 fast steps with
-   24 + 24 launches per step;
+   24 + 24 launches per step; then K3 and K5 at Cl(3) and Cl(2) against
+   their plain versions at one shape of each instance of their fast-mode
+   tile kernels (weight-gradient tiles a warp; K3's x tile whole and in
+   chunks) and at K3's widest C, with the checks of 3 and 8, in both
+   modes where the exact mode takes the shape;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -222,6 +228,221 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+# (Cin, C) of every dense block shape the tasks and the bench run, and the
+# fused forms' (Cm, Ca, C), for the shared-memory lines of the dense
+# backwards (exact: the row kernels; fast: the row tiles)
+SMEM_K3 = {3: [(34, 28), (59, 28), (4, 28), (6, 28), (28, 28), (38, 32),
+               (67, 32), (60, 32), (90, 32), (32, 32), (64, 32)],
+           2: [(46, 40), (83, 40), (40, 40), (40, 20), (60, 40)]}
+CL2_MAX_C = 45    # the widest K5 at Cl(2) (shared memory, PR 6)
+SMEM_K5 = {3: [(32, 0, 32), (28, 3, 28)],
+           2: [(40, 0, 40), (28, 3, 28), (CL2_MAX_C, 0, CL2_MAX_C)]}
+
+
+def print_dense_smem():
+    """Shared-memory bytes of K3 and K5 in both modes at every shape they
+    run on the main path (0 would raise), and where the two modes' widest
+    inputs differ; raises where the fast mode's is the narrower."""
+    import ctypes
+    from csmpn_torch.ops import _build
+    from csmpn_torch.ops import cemlp_kernel as ck
+    from csmpn_torch.ops import fused_egcl as fe
+
+    ck_max = fe.MAX_SMEM
+
+    for dim, kb, kf in ((3, ck.DENSE, fe.DENSE), (2, ck.DENSE_CL2,
+                                                  fe.DENSE_CL2)):
+        k3 = [f"{cin}->{c} {ck._smem(kb, cin, c, True, True)}/"
+              f"{ck._smem(kb, cin, c, True, False)}"
+              for cin, c in SMEM_K3[dim]]
+        print(f"  K3 at Cl({dim}) smem bytes exact/fast: {', '.join(k3)}")
+        row = fe._lib_fn(kf, "smem_bytes", [ctypes.c_int] * 5,
+                         ctypes.c_size_t)
+        tile = fe._lib_fn(kf, "tile_smem_bytes", [ctypes.c_int] * 4,
+                          ctypes.c_size_t)
+        k5 = [f"{cm}+{ca}->{c} {row(cm, ca, c, kf.wn, 1)}/"
+              f"{tile(cm, ca, c, kf.wn)}" for cm, ca, c in SMEM_K5[dim]]
+        print(f"  K5 at Cl({dim}) smem bytes exact/fast: {', '.join(k5)}")
+        # the widest input each backward takes at each C, from the same
+        # entry points (0: none): the row kernels' (exact) and the row
+        # tiles' (fast); listed where they differ
+        k3row = getattr(_build.load(kb.source), f"{kb.symbol}_smem_bytes")
+        k3tile = getattr(_build.load(kb.source),
+                         f"{kb.symbol}_tile_smem_bytes")
+        k3row.argtypes, k3row.restype = [ctypes.c_int] * 3, ctypes.c_size_t
+        k3tile.argtypes, k3tile.restype = [ctypes.c_int] * 2, ctypes.c_size_t
+
+        def cap(fits, hi=4096):   # fits holds up to the cap, then fails
+            lo = 0
+            while lo < hi:
+                mid = (lo + hi + 1) // 2
+                lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+            return lo
+
+        diff3, diff5, narrower = [], [], []
+        for c in range(1, kb.max_channels + 1):
+            caps = (cap(lambda w: 0 < k3row(w, c, 1) <= ck_max),
+                    cap(lambda w: 0 < k3tile(w, c) <= ck_max))
+            if caps[0] != caps[1]:
+                diff3.append(f"C={c} {caps[0]}/{caps[1]}")
+            if caps[1] < caps[0]:
+                narrower.append(f"K3 C={c}")
+            caps = (cap(lambda w: 0 < row(w, 0, c, kf.wn, 1) <= ck_max),
+                    cap(lambda w: 0 < tile(w, 0, c, kf.wn) <= ck_max))
+            if caps[0] != caps[1]:
+                diff5.append(f"C={c} {caps[0]}/{caps[1]}")
+            if caps[1] < caps[0]:
+                narrower.append(f"K5 C={c}")
+        print(f"  K3 at Cl({dim}) widest Cin exact/fast where they differ: "
+              f"{', '.join(diff3) or 'none'}")
+        print(f"  K5 at Cl({dim}) widest Cm (Ca 0) exact/fast where they "
+              f"differ: {', '.join(diff5) or 'none'}")
+        if narrower:
+            raise AssertionError(f"Cl({dim}): the fast-mode backward takes "
+                                 f"narrower inputs than the exact one at "
+                                 f"{', '.join(narrower)}")
+        print(f"  Cl({dim}): at every C the fast-mode K3 and K5 take every "
+              f"input width their exact modes take")
+
+
+def tile_plan(kb, cin, c):
+    """(bytes, weight-gradient tiles a warp, chunks of the x tile, input
+    channels a chunk) of the fast-mode K3 at cin -> c; bytes 0 where it
+    does not take the widths."""
+    import ctypes
+    from csmpn_torch.ops import _build
+
+    fn = getattr(_build.load(kb.source), f"{kb.symbol}_tile_plan")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_size_t
+    info = (ctypes.c_int * 3)()
+    return (int(fn(cin, c, info)),) + tuple(info)
+
+
+# the narrowest output width the instance checks take where a wider one
+# reaches the instance: at C = 1-3 the layer norm spans so few channels
+# that its backward cancels, and the fast-mode kernel and plain version,
+# which round its cotangents at different points, part by more than the
+# fast limits for reasons of the function, not of a kernel (PERF.md, PR 9)
+C_MIN = 4
+
+
+def tile_instance_shapes(kb, kf):
+    """One shape for each instance of the fast-mode tile kernels of K3
+    (weight-gradient tiles a warp, 16 to 40) and of K5's sweeps 1 and 2
+    (16, 24, 32) that some width reaches, at the narrowest C >= C_MIN
+    that reaches it (or below, where only that does) and its widest input
+    there, one that the exact mode also takes where there is one: K3's as (Cin, C, exact takes it, tiles, chunks,
+    chunk width), then K3 at its widest C at the widest input the fast
+    mode takes; K5's as (Cm, C, sweep 1's tiles, sweep 2's), each once."""
+    import ctypes
+    from csmpn_torch.ops import _build
+    from csmpn_torch.ops import fused_egcl as fe
+
+    lib = _build.load(kb.source)
+    k3row = getattr(lib, f"{kb.symbol}_smem_bytes")
+    k3row.argtypes, k3row.restype = [ctypes.c_int] * 3, ctypes.c_size_t
+    row5 = fe._lib_fn(kf, "smem_bytes", [ctypes.c_int] * 5, ctypes.c_size_t)
+    maxt5 = fe._lib_fn(kf, "tile_maxt", [ctypes.c_int] * 5, ctypes.c_int)
+    k3, k5 = {}, {}
+    for c in range(1, kb.max_channels + 1):
+        for cin in range(1, 1800):
+            b, m, nch, kch = tile_plan(kb, cin, c)
+            if b == 0:
+                break
+            ex = 0 < k3row(cin, c, 1) <= fe.MAX_SMEM
+            k3.setdefault((m, ex), {})[c] = (cin, c, ex, m, nch, kch)
+        for cm in range(1, 600):
+            m1 = maxt5(cm, 0, c, kf.wn, 1)
+            if m1 == 0:
+                break
+            if not 0 < row5(cm, 0, c, kf.wn, 1) <= fe.MAX_SMEM:
+                continue
+            m2 = maxt5(cm, 0, c, kf.wn, 2)
+            for sweep, m in ((1, m1), (2, m2)):
+                k5.setdefault((sweep, m), {})[c] = (cm, c, m1, m2)
+    def narrowest(by_c):
+        return by_c[min(c for c in by_c if c >= C_MIN)
+                    if max(by_c) >= C_MIN else min(by_c)]
+
+    out3 = []
+    for m in sorted({m for m, _ in k3}):
+        out3.append(narrowest(k3.get((m, True)) or k3[(m, False)]))
+    widest = max(c for by_c in k3.values() for c in by_c)
+    out3.append(max((v[widest] for v in k3.values() if widest in v),
+                    key=lambda s: s[0]))
+    out5 = []
+    for _, by_c in sorted(k5.items()):
+        if narrowest(by_c) not in out5:
+            out5.append(narrowest(by_c))
+    return out3, out5
+
+
+def phase_tile_instances(dev, gen, results):
+    """K3 and K5 (dense form, Cl(3) and Cl(2)) against their plain
+    versions at the shapes of tile_instance_shapes: K3's dx and 10
+    gradients, K5's output, dh, dhj and 20 gradients (over a ragged
+    masked layout), two launches bitwise equal, in both modes where the
+    exact mode takes the shape, in fast mode where only it does."""
+    import numpy as np
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.ops import cemlp_kernel as ck
+    from csmpn_torch.ops import fused_egcl as fe
+
+    print("K3 and K5 vs plain at one shape of each tile kernel instance")
+    rng = np.random.RandomState(5)
+    dst = np.sort(rng.randint(0, 1001, size=5003))
+    chunked = False
+    for dim, kb, kf, keys in ((3, ck.DENSE, fe.DENSE, ("k4", "k5")),
+                              (2, ck.DENSE_CL2, fe.DENSE_CL2,
+                               ("k4_cl2", "k5_cl2"))):
+        alg = get_algebra((1.0,) * dim)
+        k3key = "k3" if dim == 3 else "k3_cl2"
+        shapes3, shapes5 = tile_instance_shapes(kb, kf)
+        for cin, c, ex, m, nch, kch in shapes3:
+            chunked |= nch > 1
+            rows = 3000
+            x, params, dout = block_inputs(rows, cin, c, gen, dev,
+                                           nb=alg.n_blades)
+            modes = (True, False) if ex else (False,)
+            for exact in modes:
+                mode = "exact" if exact else "fast"
+                tag = (f"K3 at Cl({dim}) {cin}->{c} (rows {rows}; fast: "
+                       f"{m} tiles a warp, x in {nch} chunk(s) of {kch}) "
+                       f"{mode}")
+                dx, grads = ck.block_backward(x, dout, params, alg, exact)
+                dx2, grads2 = ck.block_backward(x, dout, params, alg, exact)
+                rdx, rgrads = ck.block_backward_plain(x, dout, params, alg,
+                                                      exact)
+                for pn, g, g2, rg in zip(
+                        ["dx"] + [f"d{b}" for b in BLOCK_NAMES],
+                        [dx] + grads, [dx2] + grads2, [rdx] + rgrads):
+                    err = check(f"{tag} {pn}", g, rg, TOL[f"{k3key}_{mode}"])
+                    results[k3key]["max_abs_err" if exact else
+                                   "max_abs_err_fast"] = max(
+                        results[k3key]["max_abs_err" if exact else
+                                       "max_abs_err_fast"], err)
+                    if not torch.equal(g, g2):
+                        raise AssertionError(f"{tag} {pn}: two launches "
+                                             f"differ")
+                del dx, grads, dx2, grads2, rdx, rgrads
+            print(f"  K3 at Cl({dim}) {cin}->{c}: {m} tiles a warp, x in "
+                  f"{nch} chunk(s) of {kch}; two launches bitwise equal "
+                  f"({'exact and fast' if ex else 'fast; exact does not take it'})")
+            torch.cuda.empty_cache()
+        layouts = [(f"K5 at sweeps' tiles a warp {m1}/{m2}, ragged E=5003 "
+                    f"N=1001", dst, 1001, cm, 0, c, True)
+                   for cm, c, m1, m2 in shapes5]
+        errs = check_fused_form(dev, gen, alg, layouts, keys)
+        for k in keys:
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
+                                            errs[k]["exact"])
+            results[k]["max_abs_err_fast"] = max(
+                results[k]["max_abs_err_fast"], errs[k]["fast"])
+    if not chunked:
+        raise AssertionError("no K3 shape took the chunked x tile")
 
 
 def kernel_name(ptxas_line: str) -> str:
@@ -777,9 +998,13 @@ def phase_fused(dev, gen, results):
 
 def cl2_layouts():
     """fused_layouts() at the NBA width: C = 40 (Cm 40), and Cm 28 + Ca 3
-    -> C 28 where a layout has attributes."""
-    return [(name, dst, n, cm if ca else N_HID, ca, c if ca else N_HID,
-             masked) for name, dst, n, cm, ca, c, masked in fused_layouts()]
+    -> C 28 where a layout has attributes; then the ragged layout at the
+    widest C the kernels take at Cl(2), 45."""
+    out = [(name, dst, n, cm if ca else N_HID, ca, c if ca else N_HID,
+            masked) for name, dst, n, cm, ca, c, masked in fused_layouts()]
+    name, dst, n, _, _, _, masked = out[4]
+    return out + [(f"{name}, the widest C", dst, n, CL2_MAX_C, 0, CL2_MAX_C,
+                   masked)]
 
 
 def pair_layouts(max_edges=PAIR_MAX_EDGES):
@@ -1734,6 +1959,7 @@ def main() -> int:
                 fn = kernel_name(line)
             elif "registers" in line or "spill" in line:
                 print(f"  {name}.cu {fn}: {line.split(':', 1)[-1].strip()}")
+    print_dense_smem()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     results = {}
@@ -1775,6 +2001,7 @@ def main() -> int:
                                 nba_counters)[:2]
         runs["md17"] = phase_md17(dev, gen, results, dataroot,
                                   motion_counters)[:2]
+        phase_tile_instances(dev, gen, results)
     runs["bench"] = phase_bench(counters)[:2]
     runs["bench_cl2"] = phase_bench(cl2_counters, 2, BENCH_CL2_PER_STEP)[:2]
     runs["bench_cl5"] = phase_bench(cl5_counters, 5, BENCH_CL5_PER_STEP)[:2]

@@ -24,14 +24,20 @@
 //
 // Design: the TPU kernel turns the grade sums and the geometric product into
 // MXU matrix products over lane tables (Bcat, Kcat, G, H), inflating the
-// work nb-fold.  Here a warp owns one row and a lane owns one output
-// channel at Cl(3), two (n and n + 32) at Cl(2), so that a lane holds the
-// same number of floats in both (cemlp_block.cuh).  The block's parameters
-// are staged once per CTA in shared memory, and a CTA walks over row tiles
-// so the staging is amortised.  The backward recomputes the forward in the
+// work nb-fold.  Here the forward (K2, both modes) and the exact-mode
+// backward (K3) give a warp one row and a lane one output channel at
+// Cl(3), two (n and n + 32) at Cl(2), so that a lane holds the same number
+// of floats in both (cemlp_block.cuh).  The block's parameters are staged
+// once per CTA in shared memory, and a CTA walks over row tiles so the
+// staging is amortised.  The exact backward recomputes the forward in the
 // tile (as the TPU kernel does), writes dx per row, and accumulates the
 // parameter gradients: per-channel ones in registers, channel-mixing ones
-// in shared memory, each entry owned by one thread.  CUDA blocks run
+// in shared memory, each entry owned by one thread.  The fast-mode
+// backward (`cemlp_bwd_tile_kernel`) takes steps of 16 rows and runs the
+// three channel-mixing linears, their transposes and their weight
+// gradients as bf16 mma.sync products, the weight gradients held in
+// registers over all of the CTA's steps (cemlp_tile.cuh); where a step's
+// x tile does not fit whole, it holds the input channels in chunks.  CUDA blocks run
 // concurrently, so each CTA writes its partial sums to a scratch buffer
 // and a second kernel reduces them in a fixed order: no atomics,
 // deterministic results.
@@ -40,7 +46,7 @@
 // the operands of each product that the TPU kernel feeds its matrix unit
 // (`_cast_pair`/`_dot*`), and accumulates in fp32.
 
-#include "cemlp_block.cuh"
+#include "cemlp_tile.cuh"
 
 namespace {
 
@@ -90,7 +96,7 @@ __host__ __device__ inline int64_t grad_floats(int cin, int c) {
          c * c * A::NG + A::NG * c + c * c * A::NG + 2 * c;
 }
 
-template <class A, bool FAST>
+template <class A>
 __global__ void __launch_bounds__(THREADS)
 cemlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
                  Params p, Tabs<A> tb, float* __restrict__ dx,
@@ -109,7 +115,7 @@ cemlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
   float* awr = aw1 + cin * NG * c;
   float* awl = awr + c * NG * c;
   float* loc = awl + c * NG * c;                 // [L::N][C]
-  stage_params<A, FAST>(p, s, cin, c);
+  stage_params<A, false>(p, s, cin, c);
   const int tid = threadIdx.x + 32 * threadIdx.y;
   for (int e = tid; e < cin * NG * c; e += THREADS) aw1[e] = 0.f;
   for (int e = tid; e < c * NG * c; e += THREADS) { awr[e] = 0.f; awl[e] = 0.f; }
@@ -123,12 +129,12 @@ cemlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int64_t row0 = (int64_t)tile * ROWS;
     __syncthreads();
-    load_x_tile<A, FAST>(x, xs, row0, rows, cin);
+    load_x_tile<A, false>(x, xs, row0, rows, cin);
     __syncthreads();
     const int64_t row = row0 + r;
     if (row < rows) {
       Fwd<A> f[S];
-      block_forward<A, FAST>(f, s, tb, xs + r * NB * cin, zs + r * NB * c,
+      block_forward<A, false>(f, s, tb, xs + r * NB * cin, zs + r * NB * c,
                              cin, c, lane);
       float go[S][NB];
 #pragma unroll
@@ -138,7 +144,7 @@ cemlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
         for (int i = 0; i < NB; ++i)
           go[u][i] = n < c ? dout[(row * c + n) * NB + i] : 0.f;
       }
-      block_backward_row<A, FAST>(f, s, tb, go, a, dfs + r * NB * c,
+      block_backward_row<A>(f, s, tb, go, a, dfs + r * NB * c,
                                   drs + r * NB * c, dys + r * NB * c,
                                   dx + row * cin * NB, cin, c, lane);
     }
@@ -185,6 +191,175 @@ cemlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
   for (int e = tid; e < c; e += THREADS) part[o + e] = loc[L::ALN * c + e];
 }
 
+// K3 in fast mode: the row tiles of cemlp_tile.cuh.  A CTA walks over
+// steps of TROWS rows; its weight gradients stay in registers (MAXT tiles
+// a warp) until the end, where the CTA writes its partial vector in the
+// layout of grad_floats.
+template <class A>
+size_t tile_bwd_bytes(const TileGeom& t) {
+  return tparams_bytes<A>(t) + al16(2 * (size_t)A::NB * TROWS * t.ldb) +
+         tilebufs_bytes<A>(t, wgrad_tiles<A>(t));
+}
+
+// The launch's geometry: the x tile whole where it fits, else cut into the
+// fewest even chunks of input channels that fit.  Returns its shared-
+// memory bytes, 0 where it does not take the widths: more than 64 output
+// channels (8 warps of 8 channels), more weight-gradient tiles than 40 a
+// warp, or more than one CTA's shared memory even at chunks of 16.
+template <class A>
+size_t tile_plan(int cin, int c, TileGeom* out) {
+  if (cin < 1 || c < 1 || c > 32 * A::SLOTS || c > 64) return 0;
+  TileGeom t = tile_geom(cin, c);
+  if (tile_maxt<A>(t) == 0) return 0;
+  for (int nch = 1; nch <= t.kin / 16; ++nch) {
+    t = tile_geom(cin, c, up16((t.kin + nch - 1) / nch));
+    const size_t bytes = tile_bwd_bytes<A>(t);
+    if (bytes <= kMaxSmem) {
+      if (out != nullptr) *out = t;
+      return bytes;
+    }
+  }
+  return 0;
+}
+
+// Chunk ch of a step's x rows (fp32 [rows][cin][NB] from row0; nrow of
+// them) into the x tile as bf16 [NB][TROWS][ldb]: rows past nrow zero, and
+// in the last of several chunks the padded columns zero.  Where !CHUNKED
+// the tile is whole and the step's rows one contiguous run.
+template <class A, bool CHUNKED>
+__device__ __forceinline__ void load_x_chunk(const float* __restrict__ x,
+                                             int64_t row0, int nrow,
+                                             const TileGeom& t, int ch,
+                                             bf16* xb) {
+  constexpr int NB = A::NB;
+  const int k0 = CHUNKED ? ch * t.kch : 0;
+  const int kw = CHUNKED && t.cin - k0 > t.kch ? t.kch : t.cin - k0;
+  const int per_row = t.cin * NB, run = kw * NB;
+  // a row's chunk is a contiguous run of whole float4s (NB % 4 == 0)
+  copy_in4(
+      TROWS * run / 4,
+      [&](int e) {
+        if (!CHUNKED)
+          return e < nrow * (run / 4)
+                     ? reinterpret_cast<const float4*>(x + row0 * per_row)[e]
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+        const int r = 4 * e / run, rem = 4 * e % run;
+        return r < nrow ? *reinterpret_cast<const float4*>(
+                              x + (row0 + r) * per_row + k0 * NB + rem)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      },
+      [&](int e, float4 v) {
+        const int r = 4 * e / run, rem = 4 * e % run;
+        const int m = rem / NB, i0 = rem % NB;
+        bf16* d = xb + (size_t)(i0 * TROWS + r) * t.ldb + m;
+        const size_t step = (size_t)TROWS * t.ldb;
+        d[0] = __float2bfloat16_rn(v.x);
+        d[step] = __float2bfloat16_rn(v.y);
+        d[2 * step] = __float2bfloat16_rn(v.z);
+        d[3 * step] = __float2bfloat16_rn(v.w);
+      });
+  const int kp = t.kin - k0 < t.kch ? t.kin - k0 : t.kch;   // padded
+  if (CHUNKED && t.nch > 1 && kw < kp) {
+    const int tid = threadIdx.x + 32 * threadIdx.y, w = kp - kw;
+    for (int e = tid; e < NB * TROWS * w; e += THREADS)
+      xb[(size_t)(e / w) * t.ldb + kw + e % w] = __float2bfloat16_rn(0.f);
+  }
+}
+
+// Writes the per-channel block loc ([Loc::N][C]) into a partial vector
+// in flax layout.
+template <class A>
+__device__ inline void loc_to_flax(const float* loc, float* part, int cin,
+                                   int c) {
+  constexpr int NG = A::NG, NP = A::NP;
+  using L = Loc<A>;
+  const int tid = threadIdx.x + 32 * threadIdx.y;
+  int64_t o = (int64_t)c * cin * NG;
+  for (int e = tid; e < c; e += THREADS) part[o + e] = loc[L::B1 * c + e];
+  o += c;
+  for (int e = tid; e < c * NG; e += THREADS)
+    part[o + e] = loc[(L::SA + e % NG) * c + e / NG];
+  o += NG * c;
+  for (int e = tid; e < c * NG; e += THREADS)
+    part[o + e] = loc[(L::SB + e % NG) * c + e / NG];
+  o += NG * c;
+  for (int e = tid; e < c * NP; e += THREADS)
+    part[o + e] = loc[(L::GW + e % NP) * c + e / NP];
+  o += NP * c + (int64_t)c * c * NG;
+  for (int e = tid; e < c * NG; e += THREADS)
+    part[o + e] = loc[(L::NS + e % NG) * c + e / NG];
+  o += NG * c + (int64_t)c * c * NG;
+  for (int e = tid; e < c; e += THREADS) part[o + e] = loc[L::BL * c + e];
+  o += c;
+  for (int e = tid; e < c; e += THREADS) part[o + e] = loc[L::ALN * c + e];
+}
+
+template <class A, int MAXT, bool CHUNKED>
+__global__ void __launch_bounds__(THREADS, 1)
+cemlp_bwd_tile_kernel(const float* __restrict__ x,
+                      const float* __restrict__ dout, Params p, Tabs<A> tb,
+                      float* __restrict__ dx, float* __restrict__ partials,
+                      int rows, TileGeom t) {
+  constexpr int NB = A::NB, NG = A::NG, NP = A::NP;
+  extern __shared__ float smem[];
+  const int cin = t.cin, c = t.c;
+  TParams s;
+  char* q = carve_tparams<A>(reinterpret_cast<char*>(smem), t, s);
+  bf16* xb = reinterpret_cast<bf16*>(q);   // [NB][TROWS][ldb]
+  q += al16(2 * (size_t)NB * TROWS * t.ldb);
+  TileBufs b;
+  carve_tilebufs<A>(q, t, wgrad_tiles<A>(t), b);
+  stage_tparams<A>(p, s, t);
+  zero_bf16(xb, NB * TROWS * t.ldb);
+  zero_tilebufs<A>(b, t);
+  build_wdesc<A>(b, t, xb);
+
+  const int warp = threadIdx.y, lane = threadIdx.x;
+  const int tid = lane + 32 * warp;
+  FragAcc<A> fa;
+  zero_accs<A>(fa, b, t);
+  float wacc[MAXT][4];
+#pragma unroll
+  for (int j = 0; j < MAXT; ++j)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wacc[j][k] = 0.f;
+
+  const int n_tiles = (rows + TROWS - 1) / TROWS;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t row0 = (int64_t)tile * TROWS;
+    const int nrow = rows - row0 < TROWS ? (int)(rows - row0) : TROWS;
+    __syncthreads();   // the previous step's tiles consumed
+    load_x_chunk<A, CHUNKED>(x, row0, nrow, t, 0, xb);
+    if (tid < TROWS)
+      b.gor[tid] = tid < nrow ? dout + (row0 + tid) * c * NB : nullptr;
+    __syncthreads();
+    auto sink = [&](int r, int m, const float (&v)[NB]) {
+      float4* d = reinterpret_cast<float4*>(dx + ((row0 + r) * cin + m) * NB);
+#pragma unroll
+      for (int k = 0; k < NB / 4; ++k)
+        d[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    };
+    auto load = [&](int ch) {
+      load_x_chunk<A, CHUNKED>(x, row0, nrow, t, ch, xb);
+    };
+    tile_block_backward<A, MAXT, false, CHUNKED>(s, tb, xb, b, t, nrow, sink,
+                                                 load, fa, wacc, warp, lane);
+  }
+  accs_to_loc<A>(fa, b, t, warp, lane);
+  // ---- this CTA's partial gradient vector, in flax layout
+  float* part = partials + (int64_t)blockIdx.x * grad_floats<A>(cin, c);
+  const int64_t o_r = (int64_t)c * cin * NG + c + 2 * NG * c + NP * c;
+  const int64_t o_l = o_r + (int64_t)c * c * NG + NG * c;
+  write_wgrads<A, MAXT>(wacc, t, warp, lane,
+                        [&](int which, int m, int n, int g, float v) {
+    if (which == 0)
+      part[((int64_t)n * cin + m) * NG + g] = v;
+    else
+      part[(which == 1 ? o_r : o_l) + ((int64_t)n * c + m) * NG + g] = v;
+  });
+  loc_to_flax<A>(b.loc, part, cin, c);
+}
+
 template <class A>
 bool widths_ok(int cin, int c) {
   return cin >= 1 && c >= 1 && c <= 32 * A::SLOTS;
@@ -208,6 +383,27 @@ template <class A>
 size_t smem_bytes(int cin, int c, int backward) {
   if (!widths_ok<A>(cin, c)) return 0;
   return backward ? bwd_smem_bytes<A>(cin, c) : fwd_smem_bytes<A>(cin, c);
+}
+
+// The kernel instance of a launch: whole x tiles at the weight-gradient
+// tiles a warp that the widths need (16 to 32), chunked x tiles (or 40
+// tiles a warp) at 40.
+template <class A>
+int tile_instance(const TileGeom& t) {
+  const int m = tile_maxt<A>(t);
+  return t.nch > 1 ? 40 : m;
+}
+
+template <class A, int MAXT, bool CHUNKED = false>
+void launch_bwd_tile(const float* x, const float* dout, const Params& p,
+                     const Tabs<A>& tb, float* dx, float* partials, int rows,
+                     const TileGeom& t, int grid, size_t bytes,
+                     cudaStream_t st) {
+  cudaFuncSetAttribute(cemlp_bwd_tile_kernel<A, MAXT, CHUNKED>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cemlp_bwd_tile_kernel<A, MAXT, CHUNKED>
+      <<<grid, dim3(32, TWARPS), bytes, st>>>(x, dout, p, tb, dx, partials,
+                                              rows, t);
 }
 
 template <class A>
@@ -241,22 +437,40 @@ int launch_bwd(const float* x, const float* dout, const Params& p,
                const float* bc, const float* sign, float* dx, float* partials,
                float* grads, int rows, int cin, int c, int fast, int grid,
                void* stream) {
-  const size_t bytes = bwd_smem_bytes<A>(cin, c);
-  if (!widths_ok<A>(cin, c) || bytes > kMaxSmem)
+  TileGeom t;
+  const size_t bytes =
+      fast ? tile_plan<A>(cin, c, &t) : bwd_smem_bytes<A>(cin, c);
+  if (!widths_ok<A>(cin, c) || bytes == 0 || bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   Tabs<A> tb = make_tabs<A>(bc, sign);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 block(32, ROWS);
   if (fast) {
-    cudaFuncSetAttribute(cemlp_bwd_kernel<A, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    cemlp_bwd_kernel<A, true><<<grid, block, bytes, st>>>(x, dout, p, tb, dx,
-                                                          partials, rows, cin, c);
+    switch (tile_instance<A>(t)) {
+      case 16:
+        launch_bwd_tile<A, 16>(x, dout, p, tb, dx, partials, rows, t, grid,
+                               bytes, st);
+        break;
+      case 20:
+        launch_bwd_tile<A, 20>(x, dout, p, tb, dx, partials, rows, t, grid,
+                               bytes, st);
+        break;
+      case 24:
+        launch_bwd_tile<A, 24>(x, dout, p, tb, dx, partials, rows, t, grid,
+                               bytes, st);
+        break;
+      case 32:
+        launch_bwd_tile<A, 32>(x, dout, p, tb, dx, partials, rows, t, grid,
+                               bytes, st);
+        break;
+      default:   // chunked, or 40 tiles a warp
+        launch_bwd_tile<A, 40, true>(x, dout, p, tb, dx, partials, rows, t,
+                                     grid, bytes, st);
+    }
   } else {
-    cudaFuncSetAttribute(cemlp_bwd_kernel<A, false>,
+    cudaFuncSetAttribute(cemlp_bwd_kernel<A>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    cemlp_bwd_kernel<A, false><<<grid, block, bytes, st>>>(x, dout, p, tb, dx,
-                                                           partials, rows, cin, c);
+    cemlp_bwd_kernel<A><<<grid, dim3(32, ROWS), bytes, st>>>(
+        x, dout, p, tb, dx, partials, rows, cin, c);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -274,7 +488,11 @@ int launch_bwd(const float* x, const float* dout, const Params& p,
 // NB) fp32, out (rows, c, NB).  The backward writes dx (rows, cin, NB) and
 // grads (grad_floats,), with partials (grid, grad_floats) as scratch.  The
 // smem entry gives a launch's shared-memory bytes (0 if the widths are not
-// supported); the tables entry the structural tables the kernels assume,
+// supported); tile_plan the fast-mode backward's bytes (0 where it does
+// not take the widths) and, into info, its kernel instance (the
+// weight-gradient tiles a warp it holds: 16 to 32 with the x tile whole,
+// 40 with it in chunks), its x tile's chunks and their input channels;
+// the tables entry the structural tables the kernels assume,
 // for the host to check against the algebra: i_of (NB^2 ints), path ids
 // (NB^2 ints), grades (NB ints).
 #define CSMPN_PARAMS_DECL                                                     \
@@ -285,6 +503,17 @@ int launch_bwd(const float* x, const float* dout, const Params& p,
 #define CSMPN_CEMLP_ENTRIES(PREFIX, ALG)                                      \
   size_t PREFIX##_smem_bytes(int cin, int c, int backward) {                  \
     return smem_bytes<ALG>(cin, c, backward);                                 \
+  }                                                                           \
+  size_t PREFIX##_tile_smem_bytes(int cin, int c) {                           \
+    return tile_plan<ALG>(cin, c, nullptr);                                   \
+  }                                                                           \
+  size_t PREFIX##_tile_plan(int cin, int c, int* info) {                      \
+    TileGeom t;                                                               \
+    const size_t bytes = tile_plan<ALG>(cin, c, &t);                          \
+    info[0] = bytes ? tile_instance<ALG>(t) : 0;                              \
+    info[1] = bytes ? t.nch : 0;                                              \
+    info[2] = bytes ? t.kch : 0;                                              \
+    return bytes;                                                             \
   }                                                                           \
   int PREFIX##_fwd(const float* x, CSMPN_PARAMS_DECL, const float* bc,        \
                    const float* sign, float* out, int rows, int cin, int c,   \

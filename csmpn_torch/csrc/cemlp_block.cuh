@@ -1,6 +1,8 @@
 // One CEMLP block for one row per warp: the device code shared by the
 // block kernels (cemlp.cu, K2 and K3 at Cl(3,0) and Cl(2,0)) and the fused
-// message-passing kernels (fused_egcl.cu, K4 and K5 at Cl(3,0) and Cl(2,0)).
+// message-passing kernels (fused_egcl.cu, K4 and K5 at Cl(3,0) and Cl(2,0))
+// for their forwards and their exact-mode backwards; the fast-mode
+// backwards are the row tiles of cemlp_tile.cuh.
 //
 // A block is
 //     MVLinear -> MVSiLU -> SGP (right linear, grade-norm normalisation,
@@ -24,16 +26,16 @@
 //   * the layer norm's channel mean sums a lane's slots, then reduces over
 //     the warp with shuffles.
 //
-// The backward of a row (`block_backward_row`) recomputes nothing itself:
+// The exact backward of a row (`block_backward_row`) recomputes nothing:
 // it takes the row's forward state and its output cotangent, writes dx for
 // the row and the row's cotangents into shared-memory tiles, and adds the
 // per-channel parameter gradients into registers (`Acc`).  The
 // channel-mixing weight gradients are summed over a tile of rows by
 // `weight_grads`, each entry owned by one thread.
 //
-// Precision: FAST = false is fp32 throughout.  FAST = true rounds to bf16
-// the operands of each product that the TPU kernel feeds its matrix unit
-// (`_cast_pair`/`_dot*`), and accumulates in fp32.  In the dense form that
+// Precision: FAST = false is fp32 throughout.  FAST = true (the forward)
+// rounds to bf16 the operands of each product that the TPU kernel feeds its
+// matrix unit (`_cast_pair`/`_dot*`), and accumulates in fp32.  In the dense form that
 // includes the path weight (an operand of the Kcat product); the pair
 // product z_i * yn_k is not rounded.
 #pragma once
@@ -410,11 +412,11 @@ __device__ __forceinline__ void acc_zero(Acc<A> (&a)[A::SLOTS]) {
 
 // Backward of one block for (row of this warp, this lane's channel slots),
 // from the row's forward state f and its output cotangent go (zero for a
-// slot past the last channel).  Writes the row's rounded cotangents
+// slot past the last channel), in fp32.  Writes the row's cotangents
 // d(first) = d(gp), d(yr) and d(y) into its [i][n] tiles dft, drt, dyt
 // (read by `weight_grads`), and dx into dxr, laid out [m][i] over the cin
 // input channels.  Every lane of the warp must call it.
-template <class A, bool FAST>
+template <class A>
 __device__ __forceinline__ void block_backward_row(
     const Fwd<A> (&f)[A::SLOTS], const Smem& s, const Tabs<A>& tb,
     const float (&go)[A::SLOTS][A::NB], Acc<A> (&a)[A::SLOTS], float* dft,
@@ -448,14 +450,13 @@ __device__ __forceinline__ void block_backward_row(
     const Fwd<A>& fu = f[u];
     const int n = nn[u];
     const float aln = s.aln[n];
-    const float dqc =
-        rnd<FAST>(dm / (float)c * 0.5f * fu.qc / (fu.s1c * fu.nc));
+    const float dqc = dm / (float)c * 0.5f * fu.qc / (fu.s1c * fu.nc);
     float dfg[NB];
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       const float d_o = aln * go[u][i] / mean + dqc * 2.f * tb.bc[i] * fu.o[i];
       dfg[i] = d_o * SQRT2_INV;
-      dfr[u][i] = rnd<FAST>(dfg[i]);
+      dfr[u][i] = dfg[i];
       if (act[u]) dft[i * c + n] = dfr[u][i];
     }
     a[u].bl += dfg[0];
@@ -490,12 +491,12 @@ __device__ __forceinline__ void block_backward_row(
     for (int g = 0; g < NG; ++g) {
       a[u].ns[g] += dden[g] * (fu.nr[g] - 1.f);
       const float dnr = dden[g] * s.nsig[g * c + n];
-      dqg[g] = rnd<FAST>(dnr * 0.5f * fu.qg[g] / (fu.s1g[g] * fu.nr[g]));
+      dqg[g] = dnr * 0.5f * fu.qg[g] / (fu.s1g[g] * fu.nr[g]);
     }
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       dyr[i] += dqg[grade<A>(i)] * 2.f * tb.bc[i] * fu.yr[i];
-      if (act[u]) drt[i * c + n] = rnd<FAST>(dyr[i]);
+      if (act[u]) drt[i * c + n] = dyr[i];
     }
   }
   __syncwarp();
@@ -529,28 +530,27 @@ __device__ __forceinline__ void block_backward_row(
       dy[i] = dz[u][i] * sg;
       dgate[i] = dz[u][i] * fu.y[i] * sg * (1.f - sg);
     }
-    float dgs[NG], dgr[NG];
+    float dgs[NG];
 #pragma unroll
-    for (int g = 0; g < NG; ++g) { dgs[g] = 0.f; dgr[g] = 0.f; }
+    for (int g = 0; g < NG; ++g) dgs[g] = 0.f;
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       dgs[grade<A>(i)] += dgate[i];
-      dgr[grade<A>(i)] += rnd<FAST>(dgate[i]);
     }
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       a[u].sb[g] += dgs[g];
-      a[u].sa[g] += fu.inv[g] * dgr[g];
+      a[u].sa[g] += fu.inv[g] * dgs[g];
     }
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
-      const float dv = s.ra[grade<A>(i) * c + n] * dgr[grade<A>(i)];
+      const float dv = s.ra[grade<A>(i) * c + n] * dgs[grade<A>(i)];
       dy[i] += (i == 0) ? dv : 2.f * tb.bc[i] * fu.y[i] * dv;
     }
     a[u].b1 += dy[0];
 #pragma unroll
     for (int i = 0; i < NB; ++i)
-      if (act[u]) dyt[i * c + n] = rnd<FAST>(dy[i]);
+      if (act[u]) dyt[i * c + n] = dy[i];
   }
   __syncwarp();
   // ---- dx: transposed input linear, lanes over input channels
@@ -693,6 +693,7 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partials,
   const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n) return;
   float acc = 0.f;
+#pragma unroll 8   // loads issued ahead, added in CTA order
   for (int t = 0; t < parts; ++t) acc += partials[(int64_t)t * n + q];
   out[q] = acc;
 }

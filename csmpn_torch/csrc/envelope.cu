@@ -52,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 // ------------------------------------------------------------------ P1
@@ -96,25 +98,6 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
-}
-
-// Four 8 x 8 matrices of 16-bit elements (or 8 x 4 of 32-bit) from shared
-// memory, lanes 8j..8j+7 giving the row addresses of matrix j: register j
-// then holds, at lane 4g + t, row g and elements 2t, 2t + 1 of matrix j.
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -170,15 +153,8 @@ template <> struct Operand<true> {
 };
 
 // One warp's operand fragments for one mma depth step: one m16 tile of A
-// and four n8 tiles of B.  Fragment layouts of mma.sync (PTX ISA, "Matrix
-// fragments for mma.m16n8k16 / m16n8k8"), g = lane / 4, t = lane % 4:
-//   A m16 x k16 bf16: {(g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)}
-//   B k16 x n8 bf16:  {(2t..2t+1, g), (2t+8.., g)}
-//   A m16 x k8 tf32:  {(g, t), (g+8, t), (g, t+4), (g+8, t+4)}
-//   B k8 x n8 tf32:   {(t, g), (t+4, g)}
-//   C m16 x n8 f32:   {(g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)}
-// Each is four (A) or two (B) 8 x 8 matrices of 16-bit elements: ldmatrix
-// loads A's four in one instruction (rows 0-7 / 8-15 at depth 0 / 8 halves,
+// and four n8 tiles of B (layouts in mma.cuh).  ldmatrix loads A's four
+// 8 x 8 matrices in one instruction (rows 0-7 / 8-15 at depth 0 / 8 halves,
 // 16 bytes) and two n8 tiles of B in another, B being stored transposed.
 // In tf32 the same 16 bytes hold 4 floats, which is the tf32 layout.
 struct Frags {

@@ -52,6 +52,13 @@
 //     the one launch: both forwards and the block-2 backward, which writes
 //     block 2's dx rows to scratch; then block 1's forward (recomputed) and
 //     backward from them.
+//   * that is the exact-mode K5.  In fast mode K5 is the row tiles of
+//     cemlp_tile.cuh (`fused_mp_bwd_tile_kernel`): 16 edge rows of a window
+//     a step, the channel-mixing linears and their weight gradients as
+//     bf16 mma.sync products, the weight gradients in registers for a whole
+//     sweep, so nothing is read back and written per tile in device memory.
+//     It sweeps the windows three times, as three launches, each CTA
+//     taking the same windows (see `fused_mp_bwd_tile_kernel`).
 //
 // Precision: FAST = false is fp32 throughout.  FAST = true streams h, hj
 // and attr as bf16, rounds the message before the first linear and block 1's
@@ -60,7 +67,7 @@
 // bf16, and accumulates d(h) and the parameter gradients in fp32 — the TPU
 // kernel's rounding points.
 
-#include "cemlp_block.cuh"
+#include "cemlp_tile.cuh"
 #include "fused_mp.cuh"
 
 namespace {
@@ -195,18 +202,18 @@ __host__ __device__ inline int64_t part_floats(int cin1, int c) {
   return block_part_floats<A>(cin1, c) + block_part_floats<A>(c, c);
 }
 
-template <class A, bool FAST>
+template <class A>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
-                    const typename Stream<FAST>::T* __restrict__ hj,
-                    const typename Stream<FAST>::T* __restrict__ attr,
+fused_mp_bwd_kernel(const float* __restrict__ h,
+                    const float* __restrict__ hj,
+                    const float* __restrict__ attr,
                     const int* __restrict__ dst,
                     const uint8_t* __restrict__ mask,
                     const int64_t* __restrict__ bounds,
                     const float* __restrict__ dagg, Params p1, Params p2,
                     Tabs<A> tb, float* __restrict__ dh,
-                    typename Stream<FAST>::T* __restrict__ dhj,
-                    typename Stream<FAST>::T* __restrict__ dattr,
+                    float* __restrict__ dhj,
+                    float* __restrict__ dattr,
                     float* __restrict__ dx2, float* __restrict__ partials,
                     Geom gm) {
   constexpr int NB = A::NB, NG = A::NG, NLOC = Loc<A>::N, S = A::SLOTS;
@@ -239,8 +246,8 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   float* awl_2 = awr_2 + c * NG * c;
   float* loc_2 = awl_2 + c * NG * c;
 
-  stage_params<A, FAST>(p1, s1, cin1, c);
-  stage_params<A, FAST>(p2, s2, c, c);
+  stage_params<A, false>(p1, s1, cin1, c);
+  stage_params<A, false>(p2, s2, c, c);
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int64_t n_part = part_floats<A>(cin1, c);
   for (int64_t e = tid; e < n_part; e += THREADS) part[e] = 0.f;
@@ -264,17 +271,17 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
       const int64_t e0 = bounds[w], e1 = bounds[w + 1];
       for (int64_t row0 = e0; row0 < e1; row0 += ROWS) {
         __syncthreads();   // staging and zeroing done / previous tile used
-        load_msg_tile<A, typename Stream<FAST>::T, FAST>(
+        load_msg_tile<A, float, false>(
             h, hj, attr, dst, mask, row0, e1, base, cm, ca, xs1, dloc);
         __syncthreads();
         const int64_t row = row0 + r;
         if (row < e1) {   // whole warp
           const int d = dloc[r];
           Fwd<A> f[S];
-          block_forward<A, FAST>(f, s1, tb, xr1, zt1, cin1, c, lane);
-          write_scaled<A, FAST>(f, s1, xr2, c, 1, c, lane);
+          block_forward<A, false>(f, s1, tb, xr1, zt1, cin1, c, lane);
+          write_scaled<A, false>(f, s1, xr2, c, 1, c, lane);
           __syncwarp();
-          block_forward<A, FAST>(f, s2, tb, xr2, zs2 + r * NB * c, c, c,
+          block_forward<A, false>(f, s2, tb, xr2, zs2 + r * NB * c, c, c,
                                  lane);
           float go[S][NB];
 #pragma unroll
@@ -283,10 +290,10 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
 #pragma unroll
             for (int i = 0; i < NB; ++i)
               go[u][i] = (n < c && d >= 0)
-                  ? rnd<FAST>(dagg[((int64_t)(base + d) * c + n) * NB + i])
+                  ? dagg[((int64_t)(base + d) * c + n) * NB + i]
                   : 0.f;
           }
-          block_backward_row<A, FAST>(f, s2, tb, go, a2, dft, drt, dyt,
+          block_backward_row<A>(f, s2, tb, go, a2, dft, drt, dyt,
                                       dx2 + row * c * NB, c, c, lane);
         }
         __syncthreads();
@@ -313,13 +320,13 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
       for (int e = tid; e < gm.wn * msg_w; e += THREADS) dhw[e] = 0.f;
       for (int64_t row0 = e0; row0 < e1; row0 += ROWS) {
         __syncthreads();
-        load_msg_tile<A, typename Stream<FAST>::T, FAST>(
+        load_msg_tile<A, float, false>(
             h, hj, attr, dst, mask, row0, e1, base, cm, ca, xs1, dloc);
         __syncthreads();
         const int64_t row = row0 + r;
         if (row < e1) {
           Fwd<A> f[S];
-          block_forward<A, FAST>(f, s1, tb, xr1, zt1, cin1, c, lane);
+          block_forward<A, false>(f, s1, tb, xr1, zt1, cin1, c, lane);
           float go[S][NB];
 #pragma unroll
           for (int u = 0; u < S; ++u) {
@@ -328,7 +335,7 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
             for (int i = 0; i < NB; ++i)
               go[u][i] = n < c ? dx2[(row * c + n) * NB + i] : 0.f;
           }
-          block_backward_row<A, FAST>(f, s1, tb, go, a1, dft, drt, dyt,
+          block_backward_row<A>(f, s1, tb, go, a1, dft, drt, dyt,
                                       dxs + r * cin1 * NB, cin1, c, lane);
         }
         __syncthreads();
@@ -366,6 +373,327 @@ fused_mp_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   }
 }
 
+// K5 in fast mode: the row tiles of cemlp_tile.cuh, TROWS edge rows of a
+// window a step.  Both blocks' parameters (bf16 weights) are staged once;
+// the tiles are shared by the two blocks.  A CTA holds one block's
+// weight-gradient tiles in registers at a time, and a kernel that ran a
+// block's forward and another's backward in one step was twice the code
+// and spilled, so the windows are swept three times, as three launches of
+// one template (SWEEP, each CTA taking the same windows in each): block
+// 1's forward, whose output rows go to the scratch x2s; block 2's backward
+// from them, whose dx rows go to the scratch dx2; then block 1's backward
+// from those, whose dx rows (the message cotangent) go straight from the
+// fragments to dhj and dattr and into the sub-window's d(h) rows, each
+// target's rows in order.  A window is taken in sub-windows of WSUB
+// targets (each edge range found by a search in dst), which halves the
+// d(h) sum's shared memory.  Each sweep writes its block's slice of the
+// CTA's partial vector once, at its end.  A sweep stages one block's
+// parameters and the tiles it uses, and no more.
+constexpr int WSUB = 16;
+
+// Weight-gradient tiles of sweep `sweep`'s block (none in sweep 0).
+template <class A>
+__host__ __device__ inline int sweep_tiles(int sweep, const TileGeom& t1,
+                                           const TileGeom& t2) {
+  return sweep == 0 ? 0 : wgrad_tiles<A>(sweep == 1 ? t2 : t1);
+}
+
+// Shared-memory bytes of sweep `sweep` (0, 1, 2), in the order the kernel
+// carves them: the block's parameters, x1 (sweeps 0, 2), x2 (0, 1), the
+// c-wide tiles, the sub-window's d(h) (2), the rows' targets (0, 2).
+template <class A>
+__host__ __device__ inline size_t tile_sweep_bytes(int sweep, int cm, int ca,
+                                                   int c) {
+  const int cin1 = cm + ca;
+  const TileGeom t1 = tile_geom(cin1, c), t2 = tile_geom(c, c);
+  size_t b = tparams_bytes<A>(sweep == 1 ? t2 : t1);
+  if (sweep != 1) b += al16(2 * (size_t)A::NB * TROWS * t1.ldb);
+  if (sweep != 2) b += al16(2 * (size_t)A::NB * TROWS * t2.ldb);
+  b += tilebufs_bytes<A>(t2, sweep_tiles<A>(sweep, t1, t2));
+  if (sweep == 2) b += al16(4 * (size_t)WSUB * cm * A::NB);
+  if (sweep != 1) b += al16(4 * TROWS);
+  return b;
+}
+
+// First edge in [lo, hi) whose target is >= v (dst ascending).
+__device__ __forceinline__ int64_t lower_edge(const int* __restrict__ dst,
+                                              int64_t lo, int64_t hi, int v) {
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) / 2;
+    if (dst[mid] < v) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ float4 ld_bf16x4(const bf16* p) {   // 8-byte aligned
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
+                     __high2float(hi));
+}
+
+// A step's block-1 input rows, x = [h[dst] - hj, attr] rounded to bf16, as
+// [NB][R][ldx]; each row's target offset in the sub-window (-1 for a
+// masked edge or a row past nrow).
+template <class A>
+__device__ __forceinline__ void load_msg_tile_bf16(
+    const bf16* __restrict__ h, const bf16* __restrict__ hj,
+    const bf16* __restrict__ attr, const int* __restrict__ dst,
+    const uint8_t* __restrict__ mask, int64_t row0, int nrow, int base,
+    int cm, int ca, bf16* xb, int ldx, int* dloc) {
+  constexpr int NB = A::NB;
+  const int tid = threadIdx.x + 32 * threadIdx.y;
+  const int per_row = (cm + ca) * NB;
+  if (tid < TROWS) {
+    const int64_t row = row0 + tid;
+    dloc[tid] = (tid < nrow && (mask == nullptr || mask[row]))
+                    ? dst[row] - base : -1;
+  }
+  // rows of h, hj and attr in runs of 4 bf16 (NB % 4 == 0)
+  const int per4 = per_row / 4;
+  copy_in4(
+      TROWS * per4,
+      [&](int e) {
+        const int r = e / per4, rem = 4 * (e % per4);
+        if (r >= nrow) return make_float4(0.f, 0.f, 0.f, 0.f);
+        const int64_t row = row0 + r;
+        float4 v;
+        if (rem < cm * NB) {
+          const float4 a = ld_bf16x4(h + (int64_t)dst[row] * cm * NB + rem);
+          const float4 b = ld_bf16x4(hj + row * cm * NB + rem);
+          v = make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+        } else {
+          v = ld_bf16x4(attr + row * ca * NB + (rem - cm * NB));
+        }
+        return v;
+      },
+      [&](int e, float4 v) {
+        const int r = e / per4, rem = 4 * (e % per4);
+        bf16* d = xb + (size_t)((rem % NB) * TROWS + r) * ldx + rem / NB;
+        const size_t step = (size_t)TROWS * ldx;
+        d[0] = __float2bfloat16_rn(v.x);
+        d[step] = __float2bfloat16_rn(v.y);
+        d[2 * step] = __float2bfloat16_rn(v.z);
+        d[3 * step] = __float2bfloat16_rn(v.w);
+      });
+}
+
+// One block's slice of the CTA's partial vector, aw1 [(m*NG+g)*C + n]
+// (Cin) | awr | awl | loc, from this sweep's accumulators.
+template <class A, int MAXT>
+__device__ __forceinline__ void write_slice(float* sl, int cin, int c,
+                                            const float (&wacc)[MAXT][4],
+                                            const TileGeom& t,
+                                            const FragAcc<A>& fa,
+                                            const TileBufs& b, int warp,
+                                            int lane) {
+  constexpr int NG = A::NG;
+  const int tid = lane + 32 * warp;
+  const int64_t o1 = (int64_t)cin * NG * c, o2 = o1 + (int64_t)c * NG * c;
+  write_wgrads<A, MAXT>(wacc, t, warp, lane,
+                        [&](int which, int m, int n, int g, float v) {
+    sl[(which == 0 ? 0 : which == 1 ? o1 : o2) + ((int64_t)m * NG + g) * c +
+       n] = v;
+  });
+  accs_to_loc<A>(fa, b, t, warp, lane);
+  float* loc = sl + o2 + (int64_t)c * NG * c;
+  for (int e = tid; e < Loc<A>::N * c; e += THREADS) loc[e] = b.loc[e];
+}
+
+template <class A, int MAXT, int SWEEP>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_mp_bwd_tile_kernel(const bf16* __restrict__ h,
+                         const bf16* __restrict__ hj,
+                         const bf16* __restrict__ attr,
+                         const int* __restrict__ dst,
+                         const uint8_t* __restrict__ mask,
+                         const int64_t* __restrict__ bounds,
+                         const float* __restrict__ dagg, Params p1,
+                         Params p2, Tabs<A> tb, float* __restrict__ dh,
+                         bf16* __restrict__ dhj, bf16* __restrict__ dattr,
+                         float* dx2, bf16* x2s, float* __restrict__ partials,
+                         Geom gm) {
+  constexpr int NB = A::NB;
+  extern __shared__ float smem[];
+  const int cm = gm.cm, ca = gm.ca, cin1 = cm + ca, c = gm.c;
+  const int msg_w = cm * NB, out_w = c * NB;
+  const TileGeom t1 = tile_geom(cin1, c), t2 = tile_geom(c, c);
+  // carved as tile_sweep_bytes counts
+  TParams sp;   // the sweep's block: 2 in sweep 1, else 1
+  char* q = carve_tparams<A>(reinterpret_cast<char*>(smem),
+                             SWEEP == 1 ? t2 : t1, sp);
+  bf16* x1 = nullptr;   // [NB][TROWS][t1.ldb], the whole tile (one chunk)
+  bf16* x2 = nullptr;   // [NB][TROWS][t2.ldb]
+  if (SWEEP != 1) {
+    x1 = reinterpret_cast<bf16*>(q);
+    q += al16(2 * (size_t)NB * TROWS * t1.ldb);
+  }
+  if (SWEEP != 2) {
+    x2 = reinterpret_cast<bf16*>(q);
+    q += al16(2 * (size_t)NB * TROWS * t2.ldb);
+  }
+  TileBufs b;   // the c-wide geometry of both blocks is t2's
+  q = carve_tilebufs<A>(q, t2, sweep_tiles<A>(SWEEP, t1, t2), b);
+  b.go_rnd = SWEEP == 1;   // d(agg) enters rounded, as in the row kernel
+  float* dhw = nullptr;     // [WSUB][cm][NB] d(h) rows
+  if (SWEEP == 2) {
+    dhw = reinterpret_cast<float*>(q);
+    q += al16(4 * (size_t)WSUB * msg_w);
+  }
+  int* dloc = reinterpret_cast<int*>(q);      // [TROWS]
+  if (SWEEP == 1)
+    stage_tparams<A>(p2, sp, t2);
+  else
+    stage_tparams<A>(p1, sp, t1);
+  if (x1 != nullptr) zero_bf16(x1, NB * TROWS * t1.ldb);
+  if (x2 != nullptr) zero_bf16(x2, NB * TROWS * t2.ldb);
+  zero_tilebufs<A>(b, t2);
+  if (SWEEP == 1)
+    build_wdesc<A>(b, t2, x2);
+  else if (SWEEP == 2)
+    build_wdesc<A>(b, t1, x1);
+  auto no_load = [](int) {};   // x tiles are whole here
+
+  const int warp = threadIdx.y, lane = threadIdx.x;
+  const int tid = lane + 32 * warp;
+  const int n_sub = gm.wn / WSUB + (gm.wn % WSUB ? 1 : 0);
+  float* part = partials + (int64_t)blockIdx.x * part_floats<A>(cin1, c);
+
+  // ---- sweep 0: block 1's forward; its output rows, block 2's input
+  // rounded to bf16, to the scratch x2s ([E][NB][C])
+  if constexpr (SWEEP == 0) {
+    for (int w = blockIdx.x; w < gm.n_win; w += gridDim.x) {
+      const int base = w * gm.wn;
+      const int64_t e0 = bounds[w], e1 = bounds[w + 1];
+      for (int64_t row0 = e0; row0 < e1; row0 += TROWS) {
+        const int nrow = e1 - row0 < TROWS ? (int)(e1 - row0) : TROWS;
+        __syncthreads();
+        load_msg_tile_bf16<A>(h, hj, attr, dst, mask, row0, nrow, base, cm,
+                              ca, x1, t1.ldb, dloc);
+        __syncthreads();
+        tile_block_forward<A>(sp, tb, x1, b, t1, nrow, x2, t2.ldb, warp,
+                              lane);
+        for (int e = tid; e < nrow * out_w; e += THREADS) {
+          const int r = e / out_w, i = (e / c) % NB, n = e % c;
+          x2s[row0 * out_w + e] = x2[(size_t)(i * TROWS + r) * t2.ldb + n];
+        }
+      }
+    }
+  }
+  // ---- sweep 1: block 2's backward from its input rows in x2s and d(agg)
+  // at the row's target; block 2's dx rows (block 1's output cotangent)
+  // to dx2
+  if constexpr (SWEEP == 1) {
+    FragAcc<A> fa;
+    zero_accs<A>(fa, b, t2);
+    float wacc[MAXT][4];
+#pragma unroll
+    for (int j = 0; j < MAXT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wacc[j][k] = 0.f;
+    for (int w = blockIdx.x; w < gm.n_win; w += gridDim.x) {
+      const int64_t e0 = bounds[w], e1 = bounds[w + 1];
+      for (int64_t row0 = e0; row0 < e1; row0 += TROWS) {
+        const int nrow = e1 - row0 < TROWS ? (int)(e1 - row0) : TROWS;
+        __syncthreads();
+        for (int e = tid; e < TROWS * out_w; e += THREADS) {
+          const int r = e / out_w, i = (e / c) % NB, n = e % c;
+          x2[(size_t)(i * TROWS + r) * t2.ldb + n] =
+              r < nrow ? x2s[row0 * out_w + e] : __float2bfloat16_rn(0.f);
+        }
+        if (tid < TROWS) {
+          const int64_t row = row0 + tid;
+          b.gor[tid] = tid < nrow && (mask == nullptr || mask[row])
+                           ? dagg + (int64_t)dst[row] * out_w : nullptr;
+        }
+        __syncthreads();
+        auto sink = [&](int r, int m, const float (&v)[NB]) {
+          float4* d =
+              reinterpret_cast<float4*>(dx2 + ((row0 + r) * c + m) * NB);
+#pragma unroll
+          for (int k = 0; k < NB / 4; ++k)
+            d[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2],
+                               v[4 * k + 3]);
+        };
+        tile_block_backward<A, MAXT, false, false>(sp, tb, x2, b, t2, nrow,
+                                                   sink, no_load, fa, wacc,
+                                                   warp, lane);
+      }
+    }
+    write_slice<A, MAXT>(part + block_part_floats<A>(cin1, c), c, c, wacc,
+                         t2, fa, b, warp, lane);
+  }
+  // ---- sweep 2: block 1's backward from block 2's dx; the message
+  // cotangent summed into the sub-window's d(h), each target's rows in
+  // order, and written out as dhj = -dmsg with dattr (masked rows zero)
+  if constexpr (SWEEP == 2) {
+    FragAcc<A> fa;
+    zero_accs<A>(fa, b, t2);
+    float wacc[MAXT][4];
+#pragma unroll
+    for (int j = 0; j < MAXT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) wacc[j][k] = 0.f;
+    const int aw = ca * NB;
+    for (int w = blockIdx.x; w < gm.n_win; w += gridDim.x) {
+      const int64_t we0 = bounds[w], we1 = bounds[w + 1];
+      for (int sw = 0; sw < n_sub; ++sw) {
+        const int base = w * gm.wn + sw * WSUB;
+        if (base >= gm.n_nodes) break;
+        const int64_t e0 =
+            sw == 0 ? we0 : lower_edge(dst, we0, we1, base);
+        const int64_t e1 =
+            sw == n_sub - 1 ? we1 : lower_edge(dst, we0, we1, base + WSUB);
+        __syncthreads();
+        for (int e = tid; e < WSUB * msg_w; e += THREADS) dhw[e] = 0.f;
+        for (int64_t row0 = e0; row0 < e1; row0 += TROWS) {
+          const int nrow = e1 - row0 < TROWS ? (int)(e1 - row0) : TROWS;
+          __syncthreads();
+          load_msg_tile_bf16<A>(h, hj, attr, dst, mask, row0, nrow, base, cm,
+                                ca, x1, t1.ldb, dloc);
+          if (tid < TROWS)
+            b.gor[tid] = tid < nrow ? dx2 + (row0 + tid) * out_w : nullptr;
+          __syncthreads();
+          // row r's message cotangent at input channel m, rows in order
+          auto sink = [&](int r, int m, const float (&v)[NB]) {
+            const int dd = dloc[r];
+            if (m < cm) {
+              st_bf16<NB>(dhj + (row0 + r) * msg_w + m * NB, v, -1.f,
+                          dd >= 0);
+              if (dd >= 0) {
+                float4* d = reinterpret_cast<float4*>(dhw + dd * msg_w +
+                                                      m * NB);
+#pragma unroll
+                for (int k = 0; k < NB / 4; ++k) {
+                  float4 u = d[k];
+                  u.x += v[4 * k];
+                  u.y += v[4 * k + 1];
+                  u.z += v[4 * k + 2];
+                  u.w += v[4 * k + 3];
+                  d[k] = u;
+                }
+              }
+            } else {
+              st_bf16<NB>(dattr + (row0 + r) * aw + (m - cm) * NB, v, 1.f,
+                          dd >= 0);
+            }
+          };
+          tile_block_backward<A, MAXT, true, false>(sp, tb, x1, b, t1, nrow,
+                                                    sink, no_load, fa, wacc,
+                                                    warp, lane);
+        }
+        __syncthreads();
+        int nn = gm.n_nodes - base < WSUB ? gm.n_nodes - base : WSUB;
+        nn = (w + 1) * gm.wn - base < nn ? (w + 1) * gm.wn - base : nn;
+        for (int e = tid; e < nn * msg_w; e += THREADS)
+          dh[(int64_t)base * msg_w + e] = dhw[e];
+      }
+    }
+    write_slice<A, MAXT>(part, cin1, c, wacc, t1, fa, b, warp, lane);
+  }
+}
+
 template <class A>
 size_t fwd_smem_bytes(int cm, int ca, int c, int wn) {
   const int cin1 = cm + ca;
@@ -399,6 +727,30 @@ size_t smem_bytes(int cm, int ca, int c, int wn, int backward) {
                   : fwd_smem_bytes<A>(cm, ca, c, wn);
 }
 
+// Shared-memory bytes of the fast-mode backward's largest sweep (the row
+// tiles), or 0 where it does not take the widths (see cemlp.cu's
+// tile_plan; K5's x tiles are whole).  K5's backward sweeps are
+// instantiated at 16, 24 and 32 weight-gradient tiles a warp.
+template <class A>
+int fused_maxt(int cin, int c) {
+  const int m = tile_maxt<A>(tile_geom(cin, c));
+  return m == 20 ? 24 : m == 40 ? 0 : m;
+}
+
+template <class A>
+size_t tile_smem_bytes(int cm, int ca, int c, int wn) {
+  if (!widths_ok<A>(cm, ca, c, wn) || c > 64) return 0;
+  size_t bytes = 0;
+  for (int sweep = 0; sweep < 3; ++sweep) {
+    const size_t b = tile_sweep_bytes<A>(sweep, cm, ca, c);
+    bytes = b > bytes ? b : bytes;
+  }
+  if (fused_maxt<A>(cm + ca, c) == 0 || fused_maxt<A>(c, c) == 0 ||
+      bytes > kMaxSmem)
+    return 0;
+  return bytes;
+}
+
 Params params_at(const float* const* pp) {
   return Params{pp[0], pp[1], pp[2], pp[3], pp[4],
                 pp[5], pp[6], pp[7], pp[8], pp[9]};
@@ -420,21 +772,78 @@ int launch_fwd(const void* h, const void* hj, const void* attr,
   return (int)cudaGetLastError();
 }
 
-template <class A, bool FAST>
+template <class A, int MAXT, int SWEEP>
+void launch_sweep(const void* h, const void* hj, const void* attr,
+                  const int* dst, const uint8_t* mask, const int64_t* bounds,
+                  const float* dagg, const float* const* params,
+                  const Tabs<A>& tb, float* dh, void* dhj, void* dattr,
+                  float* dx2, void* x2s, float* partials, Geom gm, int grid,
+                  size_t bytes, cudaStream_t st) {
+  cudaFuncSetAttribute(fused_mp_bwd_tile_kernel<A, MAXT, SWEEP>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  fused_mp_bwd_tile_kernel<A, MAXT, SWEEP>
+      <<<grid, dim3(32, TWARPS), bytes, st>>>(
+          static_cast<const bf16*>(h), static_cast<const bf16*>(hj),
+          static_cast<const bf16*>(attr), dst, mask, bounds, dagg,
+          params_at(params), params_at(params + 10), tb, dh,
+          static_cast<bf16*>(dhj), static_cast<bf16*>(dattr), dx2,
+          static_cast<bf16*>(x2s), partials, gm);
+}
+
+// One sweep at the MAXT its block's weight-gradient tiles need.
+template <class A, int SWEEP>
+void launch_sweep_maxt(int maxt, const void* h, const void* hj,
+                       const void* attr, const int* dst, const uint8_t* mask,
+                       const int64_t* bounds, const float* dagg,
+                       const float* const* params, const Tabs<A>& tb,
+                       float* dh, void* dhj, void* dattr, float* dx2,
+                       void* x2s, float* partials, Geom gm, int grid,
+                       size_t bytes, cudaStream_t st) {
+#define CSMPN_SWEEP(M)                                                        \
+  launch_sweep<A, M, SWEEP>(h, hj, attr, dst, mask, bounds, dagg, params, tb, \
+                            dh, dhj, dattr, dx2, x2s, partials, gm, grid,     \
+                            bytes, st)
+  if (maxt == 16)
+    CSMPN_SWEEP(16);
+  else if (maxt == 24)
+    CSMPN_SWEEP(24);
+  else
+    CSMPN_SWEEP(32);
+#undef CSMPN_SWEEP
+}
+
+template <class A>
 int launch_bwd(const void* h, const void* hj, const void* attr,
                const int* dst, const uint8_t* mask, const int64_t* bounds,
                const float* dagg, const float* const* params, Tabs<A> tb,
-               float* dh, void* dhj, void* dattr, float* dx2, float* partials,
-               Geom gm, int grid, cudaStream_t st) {
-  using T = typename Stream<FAST>::T;
+               float* dh, void* dhj, void* dattr, float* dx2, void* x2s,
+               float* partials, Geom gm, int fast, int grid,
+               cudaStream_t st) {
+  if (fast) {
+    auto bytes = [&](int sweep) {
+      return tile_sweep_bytes<A>(sweep, gm.cm, gm.ca, gm.c);
+    };
+    launch_sweep<A, 16, 0>(h, hj, attr, dst, mask, bounds, dagg, params, tb,
+                           dh, dhj, dattr, dx2, x2s, partials, gm, grid,
+                           bytes(0), st);
+    launch_sweep_maxt<A, 1>(fused_maxt<A>(gm.c, gm.c), h, hj, attr,
+                            dst, mask, bounds, dagg, params, tb, dh, dhj,
+                            dattr, dx2, x2s, partials, gm, grid, bytes(1),
+                            st);
+    launch_sweep_maxt<A, 2>(fused_maxt<A>(gm.cm + gm.ca, gm.c), h,
+                            hj, attr, dst, mask, bounds, dagg, params, tb, dh,
+                            dhj, dattr, dx2, x2s, partials, gm, grid,
+                            bytes(2), st);
+    return (int)cudaGetLastError();
+  }
   const size_t bytes = bwd_smem_bytes<A>(gm.cm, gm.ca, gm.c, gm.wn);
-  cudaFuncSetAttribute(fused_mp_bwd_kernel<A, FAST>,
+  cudaFuncSetAttribute(fused_mp_bwd_kernel<A>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  fused_mp_bwd_kernel<A, FAST><<<grid, dim3(32, ROWS), bytes, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(hj),
-      static_cast<const T*>(attr), dst, mask, bounds, dagg,
+  fused_mp_bwd_kernel<A><<<grid, dim3(32, ROWS), bytes, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(hj),
+      static_cast<const float*>(attr), dst, mask, bounds, dagg,
       params_at(params), params_at(params + 10), tb, dh,
-      static_cast<T*>(dhj), static_cast<T*>(dattr), dx2, partials, gm);
+      static_cast<float*>(dhj), static_cast<float*>(dattr), dx2, partials, gm);
   return (int)cudaGetLastError();
 }
 
@@ -461,22 +870,20 @@ int bwd_entry(const void* h, const void* hj, const void* attr,
               const int* dst, const uint8_t* mask, const int64_t* bounds,
               const float* dagg, const float* const* params, const float* bc,
               const float* sign, float* dh, void* dhj, void* dattr,
-              float* dx2, float* partials, float* grads, int n_nodes, int cm,
-              int ca, int c, int wn, int n_win, int fast, int grid,
-              void* stream) {
-  if (!widths_ok<A>(cm, ca, c, wn) ||
-      bwd_smem_bytes<A>(cm, ca, c, wn) > kMaxSmem || grid < 1)
+              float* dx2, void* x2s, float* partials, float* grads,
+              int n_nodes, int cm, int ca, int c, int wn, int n_win, int fast,
+              int grid, void* stream) {
+  const size_t bytes = fast ? tile_smem_bytes<A>(cm, ca, c, wn)
+                            : bwd_smem_bytes<A>(cm, ca, c, wn);
+  if (!widths_ok<A>(cm, ca, c, wn) || bytes == 0 || bytes > kMaxSmem ||
+      grid < 1 || (fast && x2s == nullptr))
     return (int)cudaErrorInvalidValue;
   Geom gm{n_nodes, cm, ca, c, wn, n_win};
   Tabs<A> tb = make_tabs<A>(bc, sign);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int err =
-      fast ? launch_bwd<A, true>(h, hj, attr, dst, mask, bounds, dagg, params,
-                                 tb, dh, dhj, dattr, dx2, partials, gm, grid,
-                                 st)
-           : launch_bwd<A, false>(h, hj, attr, dst, mask, bounds, dagg,
-                                  params, tb, dh, dhj, dattr, dx2, partials,
-                                  gm, grid, st);
+  const int err = launch_bwd<A>(h, hj, attr, dst, mask, bounds, dagg, params,
+                                tb, dh, dhj, dattr, dx2, x2s, partials, gm,
+                                fast, grid, st);
   if (err != (int)cudaSuccess) return err;
   const int64_t n = part_floats<A>(cm + ca, c);
   reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -489,7 +896,9 @@ int bwd_entry(const void* h, const void* hj, const void* attr,
 // One set of C entry points per algebra: csmpn_fused_mp_* (Cl(3,0)) and
 // csmpn_fused_mp_cl2_* (Cl(2,0)).
 //   smem_bytes: shared-memory bytes of a launch (0 if the widths are not
-//     supported);
+//     supported); tile_smem_bytes: those of the fast-mode backward;
+//     tile_maxt: the weight-gradient tiles a warp (the kernel instance) of
+//     its sweep `sweep` (0, 1, 2), 0 where it does not take the widths;
 //   partial_floats: floats of one CTA's partial gradient slice (the layout
 //     above);
 //   fwd: h (N, cm, NB), hj (E, cm, NB), attr (E, ca, NB) or null, bf16 if
@@ -501,12 +910,21 @@ int bwd_entry(const void* h, const void* hj, const void* attr,
 //   bwd: dagg (N, C, NB) fp32, the cotangent of the sum.  Outputs: dh
 //     (N, cm, NB) fp32; dhj (E, cm, NB) and dattr (E, ca, NB) in the stream
 //     type; grads (partial_floats,) the summed slice.  Scratch: dx2
-//     (E, C, NB) fp32, block 2's dx rows; partials (grid, partial_floats);
+//     (E, C, NB) fp32, block 2's dx rows; x2s (E, NB, C) bf16, block 2's
+//     input rows (fast mode; null in exact); partials (grid,
+//     partial_floats);
 //   tables: the structural tables the kernels assume (see
 //     csmpn_cemlp_tables).
 #define CSMPN_FUSED_MP_ENTRIES(PREFIX, ALG)                                   \
   size_t PREFIX##_smem_bytes(int cm, int ca, int c, int wn, int backward) {   \
     return smem_bytes<ALG>(cm, ca, c, wn, backward);                          \
+  }                                                                           \
+  size_t PREFIX##_tile_smem_bytes(int cm, int ca, int c, int wn) {            \
+    return tile_smem_bytes<ALG>(cm, ca, c, wn);                               \
+  }                                                                           \
+  int PREFIX##_tile_maxt(int cm, int ca, int c, int wn, int sweep) {          \
+    if (tile_smem_bytes<ALG>(cm, ca, c, wn) == 0) return 0;                   \
+    return sweep == 0 ? 16 : fused_maxt<ALG>(sweep == 1 ? c : cm + ca, c);    \
   }                                                                           \
   int64_t PREFIX##_partial_floats(int cm, int ca, int c) {                    \
     return part_floats<ALG>(cm + ca, c);                                      \
@@ -526,11 +944,11 @@ int bwd_entry(const void* h, const void* hj, const void* attr,
                    const int64_t* bounds, const float* dagg,                  \
                    const float* const* params, const float* bc,               \
                    const float* sign, float* dh, void* dhj, void* dattr,      \
-                   float* dx2, float* partials, float* grads, int n_nodes,    \
-                   int cm, int ca, int c, int wn, int n_win, int fast,        \
-                   int grid, void* stream) {                                  \
+                   float* dx2, void* x2s, float* partials, float* grads,      \
+                   int n_nodes, int cm, int ca, int c, int wn, int n_win,     \
+                   int fast, int grid, void* stream) {                        \
     return bwd_entry<ALG>(h, hj, attr, dst, mask, bounds, dagg, params, bc,   \
-                          sign, dh, dhj, dattr, dx2, partials, grads,         \
+                          sign, dh, dhj, dattr, dx2, x2s, partials, grads,    \
                           n_nodes, cm, ca, c, wn, n_win, fast, grid, stream); \
   }                                                                           \
   void PREFIX##_tables(int* i_of_out, int* path_out, int* grade_out) {        \

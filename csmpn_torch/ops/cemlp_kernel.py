@@ -7,7 +7,10 @@ two forms:
   * dense, nb = 8 and nb = 4: K2/K3 in ``csrc/cemlp.cu``, compiled for
     Cl(3,0) (the motion and MD17 tasks, output width <= 32 channels) and
     for Cl(2,0) (the NBA task, output width <= 64 channels: a lane holds
-    two 4-blade channels);
+    two 4-blade channels).  In fast mode K3 is the row tile kernel of
+    ``csrc/cemlp_tile.cuh`` (steps of 16 rows, the channel-mixing linears
+    and their weight gradients as bf16 ``mma.sync`` products); its widths
+    are those whose tiles fit in one CTA (``_smem``);
   * pair, nb = 32 and nb = 16: K2p/K3p, ``csrc/cemlp_pair_kernels.cuh``
     compiled for Cl(5,0) (``csrc/cemlp_pair.cu``, the hulls task) and for
     Cl(4,0) (``csrc/cemlp_pair_cl4.cu``, the bench at ``--dim 4``), where
@@ -310,18 +313,36 @@ def _grid(rows: int, device, smem_bytes: int, rows_per_cta: int) -> int:
     return max(1, min(n_tiles, props.multi_processor_count * per_sm))
 
 
-def _smem(kern: BlockKernel, cin, c, backward):
+# rows a CTA step of the dense form's fast-mode backward takes: TROWS of
+# csrc/cemlp_tile.cuh
+TILE_ROWS = 16
+
+
+def _tiled(kern: BlockKernel, backward: bool, exact: bool) -> bool:
+    """Whether the launch is the fast-mode row tile backward (K3)."""
+    return backward and not exact and kern.form == "dense"
+
+
+def _smem(kern: BlockKernel, cin, c, backward, exact=True):
     """Shared-memory bytes of a launch; NotImplementedError where the
-    widths do not fit in one CTA's 227 KB."""
-    fn = getattr(_build.load(kern.source), f"{kern.symbol}_smem_bytes")
+    widths do not fit in one CTA's 227 KB (or, for the fast-mode K3, in its
+    register tiles)."""
+    lib = _build.load(kern.source)
+    if _tiled(kern, backward, exact):
+        fn = getattr(lib, f"{kern.symbol}_tile_smem_bytes")
+        args = (cin, c)
+    else:
+        fn = getattr(lib, f"{kern.symbol}_smem_bytes")
+        args = (cin, c, int(backward))
     if fn.argtypes is None:
-        fn.argtypes = [_I, _I, _I]
+        fn.argtypes = [_I] * len(args)
         fn.restype = ctypes.c_size_t
-    n = int(fn(cin, c, int(backward)))
+    n = int(fn(*args))
     if n == 0:
         raise NotImplementedError(
-            f"{kern.label}: {cin} -> {c} channels do not fit in one CTA's "
-            f"shared memory ({'backward' if backward else 'forward'})")
+            f"{kern.label}: {cin} -> {c} channels do not fit in one CTA "
+            f"({'backward' if backward else 'forward'}, "
+            f"{'exact' if exact else 'fast'} mode)")
     return n
 
 
@@ -398,7 +419,8 @@ def block_backward(x: torch.Tensor, dout: torch.Tensor,
         raise ValueError(f"dout shape {tuple(dout.shape)} != {(rows, c, nb)}")
     bc, tabs = _tables(kern, alg, x.device)
     n_grad = sum(p.numel() for p in params)
-    grid = _grid(rows, x.device, _smem(kern, cin, c, True), kern.rows_bwd)
+    rows_cta = TILE_ROWS if _tiled(kern, True, exact) else kern.rows_bwd
+    grid = _grid(rows, x.device, _smem(kern, cin, c, True, exact), rows_cta)
     dx = torch.empty_like(x)
     partials = torch.empty((grid, _partial_floats(kern, cin, c, n_grad)),
                            dtype=torch.float32, device=x.device)

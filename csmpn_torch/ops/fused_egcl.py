@@ -20,6 +20,9 @@ kernels per algebra (``FusedKernel``, ``fused_kernel``):
 
   * K4/K5, ``csrc/fused_egcl.cu``, dense form: Cl(3,0) (8 blades, up to 32
     channels) and Cl(2,0) (4 blades; a lane holds channels n and n + 32);
+    in fast mode K5 is the row tile kernel of ``csrc/cemlp_tile.cuh``,
+    launched once for each of its three sweeps over the windows
+    (``_check_tile_smem`` holds its widths);
   * K4p/K5p, pair form, ``csrc/fused_egcl_pair.cuh`` compiled for Cl(5,0)
     (``csrc/fused_egcl_pair.cu``, 32 blades) and Cl(4,0)
     (``csrc/fused_egcl_pair_cl4.cu``, 16 blades), each up to 28 channels,
@@ -205,6 +208,17 @@ def _check_smem(kern: FusedKernel, cm: int, ca: int, c: int) -> None:
             f"shared memory at {cm} message + {ca} attribute -> {c} channels")
 
 
+@functools.lru_cache(maxsize=None)
+def _check_tile_smem(kern: FusedKernel, cm: int, ca: int, c: int) -> None:
+    """Raise unless the fast-mode backward of the dense form (the row tiles
+    of csrc/cemlp_tile.cuh) takes the widths."""
+    fn = _lib_fn(kern, "tile_smem_bytes", [_I, _I, _I, _I], ctypes.c_size_t)
+    if int(fn(cm, ca, c, kern.wn)) == 0:
+        raise NotImplementedError(
+            f"{kern.label}: the fast-mode backward does not fit in one CTA at "
+            f"{cm} message + {ca} attribute -> {c} channels")
+
+
 @dataclass
 class _Plan:
     """Window layout of one call, shared by its forward and backward."""
@@ -367,6 +381,8 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
         raise ValueError(f"dagg shape {tuple(dagg.shape)} != {(n, c, nb)}")
     if plan is None:
         plan = make_plan(dst, mask, n, cm, ca, c, nb)
+    if kern.form == "dense" and not exact:
+        _check_tile_smem(kern, cm, ca, c)
     bc, tabs = _tables(kern, alg, h.device)
     h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
     dagg = dagg.to(torch.float32).contiguous()
@@ -383,14 +399,19 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
         n_slice = int(_lib_fn(kern, "partial_floats", [_I, _I, _I],
                               ctypes.c_int64)(cm, ca, c))
         dx2 = torch.empty((e, c, nb), dtype=torch.float32, device=dev)
+        # the dense form's fast backward keeps block 2's input rows
+        x2s = (torch.empty((e, nb, c), dtype=torch.bfloat16, device=dev)
+               if kern.form == "dense" and not exact else None)
         partials = torch.empty((plan.grid, n_slice), dtype=torch.float32,
                                device=dev)
-        fn = _lib_fn(kern, "bwd", [_P] * 16 + [_I] * 8 + [_P])
+        fn = _lib_fn(kern, "bwd", [_P] * (16 if kern.form == "pair" else 17)
+                     + [_I] * 8 + [_P])
         err = fn(h_s.data_ptr(), hj_s.data_ptr(), _ptr(attr_s),
                  plan.dst.data_ptr(), _ptr(plan.mask),
                  plan.bounds.data_ptr(), dagg.data_ptr(),
                  _param_ptrs(params), bc.ctypes.data, tabs,
                  dh.data_ptr(), dhj.data_ptr(), _ptr(dattr), dx2.data_ptr(),
+                 *(() if kern.form == "pair" else (_ptr(x2s),)),
                  partials.data_ptr(), flat.data_ptr(), n, cm, ca, c,
                  kern.wn, plan.n_win, 0 if exact else 1, plan.grid,
                  torch.cuda.current_stream(dev).cuda_stream)

@@ -9,12 +9,19 @@ device µs per launch, fast mode, and the card:
 
   * K2 and K3 at the motion edge block 0 (23,200 rows, 34 -> 28, Cl(3,0));
   * K2 and K3 at Cl(2,0) at the NBA edge block 0 (35,200 rows, 46 -> 40);
+  * K2 and K3 at the widest inputs of the MD17 and NBA blocks: 90 -> 32
+    (Cl(3,0), the triangle embedding) at 30,000 rows and 83 -> 40 (Cl(2,0),
+    the node block) at 35,200 rows;
   * K2p and K3p at the hulls edge block 0 (13,184 rows, 34 -> 28,
     Cl(5,0)), and at Cl(4,0) at the bench's --dim 4 node block 0 (8,192
     rows, 56 -> 28);
   * K4 and K5 at the bench shape (E = 131,072, N = 8,192) of each algebra
     (bench.WIDTHS): Cl(3) 32 -> 32, Cl(2) 40 -> 40, K4p/K5p at Cl(5) and
-    Cl(4) 28 -> 28.
+    Cl(4) 28 -> 28;
+  * K1 at the bench's node aggregation (E = 131,072 sorted ids over
+    N = 8,192, D = 256 bf16, fast mode);
+  * P2, the envelope probe's resident bf16 product at its default sizes
+    (512 x 256 x 2048, 32 reps).
 
 A kernel the checkout at ROOT does not have (K2p/K3p and K4p/K5p at Cl(4)
 before they were ported) is left out of its line.  Run it for two trees in
@@ -68,6 +75,8 @@ def main(root: str) -> dict:
     # (key, dim, rows, Cin, C, forward iterations, backward iterations)
     blocks = [("k2", 3, 23200, 34, 28, 100, 40),
               ("k2_cl2", 2, 35200, 46, 40, 50, 20),
+              ("k2_md17", 3, 30000, 90, 32, 50, 20),
+              ("k2_nba83", 2, 35200, 83, 40, 50, 20),
               ("k2p", 5, 13184, 34, 28, 40, 10),
               ("k2p_cl4", 4, 8192, 56, 28, 40, 10)]
     for key, dim, rows, cin, c, itf, itb in blocks:
@@ -114,6 +123,16 @@ def main(root: str) -> dict:
             ps, alg, h_s, hj, None, dst, None, dagg, False, plan), itb)
         del h, h_s, hj, dagg
         torch.cuda.empty_cache()
+    from csmpn_torch.ops import probe_kernels as pk, segment_kernel as sk
+    e, n, d = 131072, 8192, 256
+    ids = torch.sort(torch.randint(0, n, (e,), generator=gen)).values.to(dev)
+    data = torch.randn(e, d, generator=gen).to(dev).to(torch.bfloat16)
+    out["k1_us"] = time_us(
+        lambda: sk.sorted_segment_sum(data, ids, n, exact=False), 100)
+    a = torch.randn(512, 256, generator=gen).to(dev)
+    b = (torch.randn(256, 2048, generator=gen) / 16).to(dev)
+    out["p2_bf16_us"] = time_us(lambda: pk.resident_matmul(a, b, 32, "bf16"),
+                                50)
     print("kernel_times " + json.dumps(out), flush=True)
     return out
 

@@ -1,0 +1,287 @@
+"""Host-side code of the fast-mode row tile backwards of the dense form (K3
+and K5 at Cl(3,0) and Cl(2,0), csrc/cemlp_tile.cuh): which launches take
+the tile kernels, the shared-memory entry points they ask, the CTA steps
+the grid is cut for, the partial layouts the tile kernels write, that
+the CPU wrappers take the plain versions and count no launch, and the
+shapes at which chip_smoke.py checks each tile kernel instance.
+
+The kernels themselves run only on the card; chip_smoke.py holds them to
+the plain versions there.  A stand-in library takes the place of the
+compiled one where a wrapper asks it for sizes.  Small widths throughout.
+"""
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from csmpn_torch.algebra import get_algebra
+from csmpn_torch.ops import _build
+from csmpn_torch.ops import cemlp_kernel as ck
+from csmpn_torch.ops import fused_egcl as fe
+
+KERNELS = [ck.DENSE, ck.DENSE_CL2, ck.PAIR, ck.PAIR_CL4]
+
+
+@pytest.mark.parametrize("kern", KERNELS, ids=lambda k: k.label)
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("exact", [False, True])
+def test_tiled_takes_only_the_fast_dense_backward(kern, backward, exact):
+    want = kern.form == "dense" and backward and not exact
+    assert ck._tiled(kern, backward, exact) == want
+
+
+def test_dense_kernels_step_16_rows_in_fast_backward():
+    assert ck.TILE_ROWS == 16
+    for kern in (ck.DENSE, ck.DENSE_CL2):
+        assert kern.rows_bwd == 8
+        assert ck._tiled(kern, True, False)
+    for kern in (ck.PAIR, ck.PAIR_CL4):
+        assert not ck._tiled(kern, True, False)
+
+
+class _Entry:
+    """A C entry point that records its calls and returns a fixed size."""
+
+    def __init__(self, value):
+        self.value, self.calls = value, []
+        self.argtypes = self.restype = None
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return self.value
+
+
+class _Lib:
+    def __init__(self, **entries):
+        self.__dict__.update(entries)
+
+
+@pytest.mark.parametrize("kern", [ck.DENSE, ck.DENSE_CL2],
+                         ids=lambda k: k.label)
+@pytest.mark.parametrize("backward,exact,entry", [
+    (True, False, "tile_smem_bytes"), (True, True, "smem_bytes"),
+    (False, False, "smem_bytes"), (False, True, "smem_bytes")])
+def test_smem_asks_the_entry_of_the_launch(monkeypatch, kern, backward,
+                                           exact, entry):
+    lib = _Lib(**{f"{kern.symbol}_smem_bytes": _Entry(1000),
+                  f"{kern.symbol}_tile_smem_bytes": _Entry(2000)})
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    got = ck._smem(kern, 34, 28, backward, exact)
+    called = getattr(lib, f"{kern.symbol}_{entry}")
+    assert got == (2000 if entry == "tile_smem_bytes" else 1000)
+    want_args = (34, 28) if entry == "tile_smem_bytes" else (34, 28,
+                                                             int(backward))
+    assert called.calls == [want_args]
+    assert called.argtypes == [ctypes.c_int] * len(want_args)
+
+
+def test_smem_raises_where_the_tile_backward_does_not_fit(monkeypatch):
+    lib = _Lib(csmpn_cemlp_cl2_smem_bytes=_Entry(1000),
+               csmpn_cemlp_cl2_tile_smem_bytes=_Entry(0))
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    with pytest.raises(NotImplementedError, match="fast mode"):
+        ck._smem(ck.DENSE_CL2, 64, 64, True, False)
+    assert ck._smem(ck.DENSE_CL2, 64, 64, True, True) == 1000
+
+
+@pytest.mark.parametrize("kern", [fe.DENSE, fe.DENSE_CL2],
+                         ids=lambda k: k.label)
+@pytest.mark.parametrize("size,fits", [(200_000, True), (0, False)])
+def test_fused_tile_check(monkeypatch, kern, size, fits):
+    entry = _Entry(size)
+    lib = _Lib(**{f"{kern.symbol}_tile_smem_bytes": entry})
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    fe._check_tile_smem.cache_clear()
+    try:
+        if fits:
+            fe._check_tile_smem(kern, 28, 3, 28)
+        else:
+            with pytest.raises(NotImplementedError, match="fast-mode"):
+                fe._check_tile_smem(kern, 28, 3, 28)
+    finally:
+        fe._check_tile_smem.cache_clear()
+    assert entry.calls == [(28, 3, 28, kern.wn)]
+
+
+@pytest.mark.parametrize("rows,smem,per_cta,want", [
+    (23_200, 160_000, 16, 132),    # one CTA an SM, 1,450 steps
+    (40, 160_000, 16, 3),          # fewer steps than SMs
+    (40, 160_000, 8, 5),
+    (23_200, 50_000, 16, 528),     # four CTAs an SM
+])
+def test_grid_counts_steps_of_the_launch(monkeypatch, rows, smem, per_cta,
+                                         want):
+    class _Props:
+        multi_processor_count = 132
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: _Props())
+    assert ck._grid(rows, "cuda", smem, per_cta) == want
+
+
+def _flax_vector(cin, c, ng, npath, rng):
+    """A K3 partial vector of random entries and the 10 tensors it holds,
+    in grad_floats' (flax) order."""
+    shapes = [(c, cin, ng), (c, 1), (c, ng), (c, ng), (c, npath),
+              (c, c, ng), (c, ng), (c, c, ng), (c, 1), (c,)]
+    parts = [rng.randn(*s).astype(np.float32) for s in shapes]
+    return np.concatenate([p.reshape(-1) for p in parts]), parts
+
+
+@pytest.mark.parametrize("nb,ng,npath", [(8, 4, 20), (4, 3, 10)])
+def test_k3_partial_vector_splits_into_flax_shapes(nb, ng, npath):
+    """The tile K3 writes its partials in grad_floats' layout, which
+    _split_grads reads back tensor by tensor."""
+    cin, c = 5, 3
+    vec, parts = _flax_vector(cin, c, ng, npath, np.random.RandomState(nb))
+    shapes = [torch.empty(p.shape) for p in parts]
+    got = ck._split_grads(torch.from_numpy(vec), shapes)
+    for g, p in zip(got, parts):
+        np.testing.assert_array_equal(g.numpy(), p)
+
+
+@pytest.mark.parametrize("kern", [fe.DENSE, fe.DENSE_CL2],
+                         ids=lambda k: k.label)
+def test_k5_slice_maps_entries_where_the_tile_kernel_writes_them(kern):
+    """The tile K5 writes weight-gradient entry (m, n, g) of a block at
+    ((m * G + g) * C + n) of its slice, then the per-channel rows; a
+    vector holding each entry's own coordinates comes back in flax shapes
+    with every entry in place."""
+    cin, c, ng = 5, 3, kern.n_grades
+    n1, nc = cin * ng * c, c * ng * c
+    v = np.zeros(fe.block_part_floats(kern, cin, c), np.float32)
+    for which, m_max, off in ((0, cin, 0), (1, c, n1), (2, c, n1 + nc)):
+        for m in range(m_max):
+            for g in range(ng):
+                for n in range(c):
+                    v[off + (m * ng + g) * c + n] = (
+                        1000 * which + 100 * m + 10 * g + n)
+    loc = np.arange(kern.nloc * c, dtype=np.float32) + 0.5
+    v[n1 + 2 * nc:] = loc
+    na = torch.zeros(c, ng)
+    grads = fe._block_grads(torch.from_numpy(v), cin, c, na, kern)
+    for which, idx in ((0, 0), (1, 5), (2, 7)):
+        t = grads[idx].numpy()
+        for n in range(t.shape[0]):
+            for m in range(t.shape[1]):
+                for g in range(ng):
+                    assert t[n, m, g] == 1000 * which + 100 * m + 10 * g + n
+    loc = loc.reshape(kern.nloc, c)
+    np.testing.assert_array_equal(grads[1].numpy().reshape(-1), loc[0])
+    np.testing.assert_array_equal(grads[9].numpy(), loc[-1])
+    # d sigmoid(a) chained to a at a = 0: times 1/4
+    ns = 1 + 2 * ng + kern.n_paths
+    np.testing.assert_allclose(grads[6].numpy(),
+                               loc[ns:ns + ng].T * 0.25, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("metric", [(1.0, 1.0, 1.0), (1.0, 1.0)],
+                         ids=["Cl3", "Cl2"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_cpu_block_backward_is_plain_and_counts_no_launch(metric, exact):
+    alg = get_algebra(metric)
+    nb, ng, npath = alg.n_blades, len(set(alg.blade_to_grade.tolist())), \
+        alg.n_product_paths
+    gen = torch.Generator().manual_seed(3)
+    cin, c, rows = 5, 3, 19
+    shapes = [(c, cin, ng), (c, 1), (c, ng), (c, ng), (c, npath),
+              (c, c, ng), (c, ng), (c, c, ng), (c, 1), (c,)]
+    params = [0.3 * torch.randn(*s, generator=gen) for s in shapes]
+    x = torch.randn(rows, cin, nb, generator=gen)
+    dout = torch.randn(rows, c, nb, generator=gen)
+    kern = ck.block_kernel(nb)
+    before = (kern.fwd.count, kern.bwd.count)
+    dx, grads = ck.block_backward(x, dout, params, alg, exact)
+    rdx, rgrads = ck.block_backward_plain(x, dout, params, alg, exact)
+    assert (kern.fwd.count, kern.bwd.count) == before
+    assert torch.equal(dx, rdx)
+    for g, r in zip(grads, rgrads):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("metric", [(1.0, 1.0, 1.0), (1.0, 1.0)],
+                         ids=["Cl3", "Cl2"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_cpu_mp_backward_is_plain_and_counts_no_launch(metric, exact):
+    alg = get_algebra(metric)
+    nb = alg.n_blades
+    ng = len(set(alg.blade_to_grade.tolist()))
+    npath = alg.n_product_paths
+    gen = torch.Generator().manual_seed(5)
+    cm, ca, c, n, e = 3, 1, 3, 6, 11
+    params = []
+    for cin in (cm + ca, c):
+        shapes = [(c, cin, ng), (c, 1), (c, ng), (c, ng), (c, npath),
+                  (c, c, ng), (c, ng), (c, c, ng), (c, 1), (c,)]
+        params += [0.3 * torch.randn(*s, generator=gen) for s in shapes]
+    h = torch.randn(n, cm, nb, generator=gen)
+    hj = torch.randn(e, cm, nb, generator=gen)
+    attr = torch.randn(e, ca, nb, generator=gen)
+    dst = torch.sort(torch.randint(0, n, (e,), generator=gen)).values
+    mask = torch.rand(e, generator=gen) > 0.3
+    dagg = torch.randn(n, c, nb, generator=gen)
+    kern = fe.fused_kernel(nb)
+    before = (kern.fwd.count, kern.bwd.count)
+    got = fe.mp_backward(params, alg, h, hj, attr, dst, mask, dagg, exact)
+    want = fe.message_aggregate_grad_plain(params, alg, h, hj, attr, dst,
+                                           mask, dagg, exact)
+    assert (kern.fwd.count, kern.bwd.count) == before
+    for g, w in zip(got[:3], want[:3]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[3], want[3]):
+        assert torch.equal(g, w)
+
+
+def _smoke():
+    import importlib
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+def test_instance_shapes_take_one_shape_per_instance(monkeypatch):
+    """chip_smoke's choice of the shapes at which it holds each tile
+    kernel instance to its plain version, on a stand-in library: K3 takes
+    inputs up to 100 (16 tiles a warp up to 30, 24 up to 60, else the
+    chunked instance at 40), its exact mode up to 50; K5's sweeps take
+    Cm up to 40 (sweep 1: 16 tiles a warp up to C = 20, else 24; sweep 2:
+    16 up to Cm = 20, else 32), its exact mode Cm up to 30.  Each instance
+    is taken at the narrowest C >= C_MIN at its widest input there,
+    one the exact mode takes where there is one; a shape two instances
+    share is taken once."""
+    cs = _smoke()
+    kb, kf = ck.DENSE, fe.DENSE
+
+    def plan(cin, c, info):
+        m = 16 if cin <= 30 else 24 if cin <= 60 else 40
+        ok = cin <= 100
+        info[0], info[1], info[2] = ((m, 2 if cin > 80 else 1, 64) if ok
+                                     else (0, 0, 0))
+        return 150_000 if ok else 0
+
+    lib = _Lib(**{f"{kb.symbol}_smem_bytes":
+                  lambda cin, c, bwd: 1000 if cin <= 50 else 0,
+                  f"{kb.symbol}_tile_plan": plan})
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+
+    def maxt5(cm, ca, c, wn, sweep):
+        if cm > 40:
+            return 0
+        if sweep == 1:
+            return 16 if c <= 20 else 24
+        return 16 if cm <= 20 else 32
+
+    fns = {"smem_bytes": lambda cm, ca, c, wn, bwd: 1000 if cm <= 30 else 0,
+           "tile_maxt": maxt5}
+    monkeypatch.setattr(fe, "_lib_fn", lambda k, name, *a: fns[name])
+    shapes3, shapes5 = cs.tile_instance_shapes(kb, kf)
+    assert cs.C_MIN == 4
+    cmax = kb.max_channels
+    assert shapes3 == [(30, 4, True, 16, 1, 64), (50, 4, True, 24, 1, 64),
+                       (100, 4, False, 40, 2, 64),
+                       (100, cmax, False, 40, 2, 64)]
+    assert shapes5 == [(30, 4, 16, 32), (30, 21, 24, 32), (20, 4, 16, 16)]
