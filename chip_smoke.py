@@ -5,8 +5,9 @@
 1. prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels from csmpn_torch/csrc, all sources in parallel, with each
    kernel's registers and spills; shows that the fast-mode backwards of
-   the dense form (K3 and K5, the row tiles) take at every C at least
-   the inputs their exact-mode row kernels take;
+   the dense form (K3 and K5, the row tiles) and of the pair form (K3p at
+   Cl(5) and Cl(4), its row tiles) take at every C at least the inputs
+   their exact-mode row kernels take;
 2. the envelope probe (P1 copy, P2 resident matrix product in bf16 and
    tf32 on the tensor cores and fp32 FFMA, P3 FMA chain): each kernel
    against its plain version at tools/mxu_probe.py's sizes (P1 bitwise at
@@ -15,7 +16,12 @@
    times, the bounds, and the measured envelope against the data sheet;
    every later bound is also given against that envelope;
 3. holds each kernel against its plain PyTorch version on the card, in
-   exact and fast mode, with stated tolerances: K1, K2 and K3 at the
+   exact and fast mode, with stated tolerances: K1 (bf16 and fp32 rows,
+   sum and masked mean, on the real batch's ids, with a sentinel tail,
+   and on synthetic ids; bitwise repeatable) at the motion widths D = 224
+   and 24 and, in the later phases, at every task's and every bench
+   algebra's width (160, 256, 896, 448), timed beside
+   torch.segment_reduce; K2 and K3 at the
    motion task's shapes and K2/K3 at the bench widths; K4 and K5 (fused
    message passing) over the bench graph and the stress layouts (empty
    windows, few edges over many windows, masked edges, ragged E and N,
@@ -64,7 +70,9 @@
    their plain versions at one shape of each instance of their fast-mode
    tile kernels (weight-gradient tiles a warp; K3's x tile whole and in
    chunks) and at K3's widest C, with the checks of 3 and 8, in both
-   modes where the exact mode takes the shape;
+   modes where the exact mode takes the shape; and K3p at Cl(5) and Cl(4)
+   at one shape of each instance of its fast-mode row tiles (16, 24, 32
+   weight-gradient tiles a warp) and at its widest C, over 1,001 rows;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -237,6 +245,10 @@ SMEM_K3 = {3: [(34, 28), (59, 28), (4, 28), (6, 28), (28, 28), (38, 32),
                (67, 32), (60, 32), (90, 32), (32, 32), (64, 32)],
            2: [(46, 40), (83, 40), (40, 40), (40, 20), (60, 40)]}
 CL2_MAX_C = 45    # the widest K5 at Cl(2) (shared memory, PR 6)
+# (dim, Cin, C) of K3p's shapes on the main paths: the hulls blocks (Cl(5))
+# and the bench's --dim 4 node blocks (Cl(4))
+PAIR_SMEM_SHAPES = [(5, 34, 28), (5, 28, 28), (5, 59, 28), (5, 2, 28),
+                    (5, 3, 28), (4, 56, 28), (4, 28, 28)]
 SMEM_K5 = {3: [(32, 0, 32), (28, 3, 28)],
            2: [(40, 0, 40), (28, 3, 28), (CL2_MAX_C, 0, CL2_MAX_C)]}
 
@@ -305,6 +317,97 @@ def print_dense_smem():
                                  f"{', '.join(narrower)}")
         print(f"  Cl({dim}): at every C the fast-mode K3 and K5 take every "
               f"input width their exact modes take")
+
+
+def pair_caps(kb):
+    """{C: (widest Cin of the exact-mode K3p row kernel, of the fast-mode
+    row tiles)} for the pair kernels kb, from their shared-memory entry
+    points, at every C the row kernel takes at some input width."""
+    import ctypes
+    from csmpn_torch.ops import _build
+    from csmpn_torch.ops import fused_egcl as fe
+
+    lib = _build.load(kb.source)
+    row = getattr(lib, f"{kb.symbol}_smem_bytes")
+    tile = getattr(lib, f"{kb.symbol}_tile_smem_bytes")
+    row.argtypes, row.restype = [ctypes.c_int] * 3, ctypes.c_size_t
+    tile.argtypes, tile.restype = [ctypes.c_int] * 2, ctypes.c_size_t
+
+    def cap(fits, hi=4096):   # fits holds up to the cap, then fails
+        lo = 0
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+        return lo
+
+    caps, c = {}, 1
+    while True:
+        ex = cap(lambda w: 0 < row(w, c, 1) <= fe.MAX_SMEM)
+        if ex == 0:
+            return caps
+        caps[c] = (ex, cap(lambda w: 0 < tile(w, c) <= fe.MAX_SMEM))
+        c += 1
+
+
+def print_pair_smem(shapes):
+    """K3p's shared-memory bytes in both modes at the main path's shapes
+    ((dim, Cin, C)), and both modes' widest inputs at every C; raises where
+    the fast mode's is the narrower."""
+    import ctypes
+    from csmpn_torch.ops import _build
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    for dim, kb in ((5, ck.PAIR), (4, ck.PAIR_CL4)):
+        lib = _build.load(kb.source)
+        maxt = getattr(lib, f"{kb.symbol}_tile_maxt")
+        maxt.argtypes, maxt.restype = [ctypes.c_int] * 2, ctypes.c_int
+        k3 = [f"{cin}->{c} {ck._smem(kb, cin, c, True, True)}/"
+              f"{ck._smem(kb, cin, c, True, False)} ({maxt(cin, c)} tiles "
+              f"a warp)" for d, cin, c in shapes if d == dim]
+        print(f"  K3p at Cl({dim}) smem bytes exact/fast: {', '.join(k3)}")
+        caps = pair_caps(kb)
+        print(f"  K3p at Cl({dim}) widest Cin exact/fast at C = 1.."
+              f"{max(caps)}: "
+              + ", ".join(f"{c}:{e}/{f}" for c, (e, f) in caps.items()))
+        narrower = [c for c, (e, f) in caps.items() if f < e]
+        if narrower:
+            raise AssertionError(f"K3p at Cl({dim}): the fast-mode backward "
+                                 f"takes narrower inputs than the exact one "
+                                 f"at C = {narrower}")
+        print(f"  Cl({dim}): at every C the fast-mode K3p takes every input "
+              f"width its exact mode takes")
+
+
+def pair_tile_instance_shapes(kb):
+    """One (Cin, C, exact takes it, tiles a warp) for each instance of the
+    fast-mode K3p row tiles (weight-gradient tiles a warp: 16, 24, 32) that
+    some width the exact mode takes reaches, at the narrowest C >= C_MIN
+    that reaches it (or below, where only that does) and the widest input
+    there that the exact mode takes; then the widest C at its widest input;
+    each shape once."""
+    import ctypes
+    from csmpn_torch.ops import _build
+
+    lib = _build.load(kb.source)
+    maxt = getattr(lib, f"{kb.symbol}_tile_maxt")
+    maxt.argtypes, maxt.restype = [ctypes.c_int] * 2, ctypes.c_int
+    by_m = {}
+    caps = pair_caps(kb)
+    for c, (ex, _) in caps.items():
+        for cin in range(1, ex + 1):
+            by_m.setdefault(maxt(cin, c), {})[c] = (cin, c, True,
+                                                    maxt(cin, c))
+    out = []
+    for m in sorted(by_m):
+        by_c = by_m[m]
+        c = (min(c for c in by_c if c >= C_MIN) if max(by_c) >= C_MIN
+             else min(by_c))
+        out.append(by_c[c])
+    widest = max(caps)
+    last = (caps[widest][0], widest, True, maxt(caps[widest][0], widest))
+    if last not in out:
+        out.append(last)
+    return out
 
 
 def tile_plan(kb, cin, c):
@@ -445,16 +548,55 @@ def phase_tile_instances(dev, gen, results):
         raise AssertionError("no K3 shape took the chunked x tile")
 
 
+def phase_pair_tile_instances(dev, gen, results):
+    """K3p at Cl(5) and Cl(4) against its plain version at the shapes of
+    pair_tile_instance_shapes (one for each instance of the fast-mode row
+    tiles, over 1,001 rows: a last step of fewer rows), dx and the 10
+    gradients, two launches bitwise equal, in both modes."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    print("K3p vs plain at one shape of each row tile instance")
+    rows = 1001
+    for dim, kb, key in ((5, ck.PAIR, "k3p"), (4, ck.PAIR_CL4, "k3p_cl4")):
+        alg = get_algebra((1.0,) * dim)
+        for cin, c, ex, m in pair_tile_instance_shapes(kb):
+            x, params, dout = block_inputs(rows, cin, c, gen, dev,
+                                           nb=alg.n_blades)
+            for exact in ((True, False) if ex else (False,)):
+                mode = "exact" if exact else "fast"
+                tag = (f"K3p at Cl({dim}) {cin}->{c} (rows {rows}; fast: {m} "
+                       f"tiles a warp) {mode}")
+                dx, grads = ck.block_backward(x, dout, params, alg, exact)
+                dx2, grads2 = ck.block_backward(x, dout, params, alg, exact)
+                rdx, rgrads = ck.block_backward_plain(x, dout, params, alg,
+                                                      exact)
+                field = "max_abs_err" if exact else "max_abs_err_fast"
+                for pn, g, g2, rg in zip(
+                        ["dx"] + [f"d{b}" for b in BLOCK_NAMES],
+                        [dx] + grads, [dx2] + grads2, [rdx] + rgrads):
+                    err = check(f"{tag} {pn}", g, rg, TOL[f"{key}_{mode}"])
+                    results[key][field] = max(results[key][field], err)
+                    if not torch.equal(g, g2):
+                        raise AssertionError(f"{tag} {pn}: two launches "
+                                             f"differ")
+                del dx, grads, dx2, grads2, rdx, rgrads
+            print(f"  K3p at Cl({dim}) {cin}->{c}: {m} tiles a warp; two "
+                  f"launches bitwise equal (exact and fast)")
+            del x, params, dout
+            torch.cuda.empty_cache()
+
+
 def kernel_name(ptxas_line: str) -> str:
     """'name<args>' from ptxas's 'Compiling entry function' line: the
     kernel's name (lower-case words ending in '_kernel', which no digit of
-    the mangled prefix can join), its algebra (Cl2E ... Cl5E) and its bool
-    template arguments (Lb0E / Lb1E)."""
+    the mangled prefix can join), its algebra (Cl2E ... Cl5E), its bool
+    (Lb0E / Lb1E) and int (Li16E) template arguments, in their order."""
     m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(I\w*?Ev)?", ptxas_line)
     if m is None:
         return ptxas_line.strip()[-40:]
-    args = (re.findall(r"(Cl\d)E", m.group(2) or "")
-            + re.findall(r"Lb([01])E", m.group(2) or ""))
+    args = ["".join(a) for a in re.findall(r"(Cl\d)E|Lb([01])E|Li(\d+)E",
+                                           m.group(2) or "")]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -624,14 +766,15 @@ def phase_envelope(dev, results):
 
 # ------------------------------------------------------------------- K1
 
-def k1_inputs(e, n, d, dtype, gen, dev):
+def k1_ids(e, n, gen, dev):
+    """Sorted synthetic ids over n segments with an empty run and a
+    sentinel tail, and a mask."""
     ids = torch.sort(torch.randint(0, n, (e,), generator=gen)).values
     ids[: e // 50] = torch.clamp(ids[: e // 50], max=3)   # empty middle run
     ids = torch.sort(ids).values
     ids[-(e // 40):] = n + 7                               # sentinel tail
-    data = torch.randn(e, d, generator=gen).to(dtype)
     mask = torch.rand(e, generator=gen) > 0.1
-    return data.to(dev), ids.to(dev), mask.to(dev)
+    return ids.to(dev), mask.to(dev)
 
 
 def motion_ids(dataroot, dev):
@@ -648,76 +791,112 @@ def motion_ids(dataroot, dev):
     return ei[1].contiguous(), src_sorted.contiguous(), mask.contiguous()
 
 
-def phase_k1(dev, gen, results, real):
+def with_sentinels(ids, n):
+    """ids with their last fortieth set past the last segment (sentinels,
+    which K1 drops), still ascending."""
+    out = ids.clone()
+    out[-(ids.numel() // 40):] = n + 7
+    return out
+
+
+def check_k1(dev, gen, tag, id_sets, n, widths):
+    """K1 against its plain version on each (name, ids, mask) of id_sets
+    over n segments, at each width D: bf16 and fp32 rows, exact and fast,
+    the sum and the masked mean (the mask given, or one drawn here), the
+    counts exactly, two launches bitwise equal.  Returns the worst error."""
     from csmpn_torch.ops import segment_kernel as sk
 
-    print("K1 sorted segment sum vs plain (motion shapes)")
     errs = []
+    for d in widths:
+        for name, ids, mask in id_sets:
+            e = ids.numel()
+            if mask is None:
+                mask = (torch.rand(e, generator=gen) > 0.1).to(dev)
+            for dtype in (torch.bfloat16, torch.float32):
+                data = torch.randn(e, d, generator=gen).to(dtype).to(dev)
+                for exact in (True, False):
+                    for m, mean in ((None, False), (mask, True)):
+                        out, cnt = sk.sorted_segment_sum(data, ids, n, exact,
+                                                         m, mean)
+                        out2, cnt2 = sk.sorted_segment_sum(data, ids, n,
+                                                           exact, m, mean)
+                        ref, rcnt = sk.segment_sum_plain(data, ids, n, exact,
+                                                         m, mean)
+                        what = (f"{tag} D={d} {name} {str(dtype)[6:]} "
+                                f"{'exact' if exact else 'fast'} "
+                                f"{'masked mean' if mean else 'sum'}")
+                        err, rel = rel_err(out, ref)
+                        if not (rel <= TOL["k1"]
+                                and torch.isfinite(out).all().item()):
+                            raise AssertionError(f"K1 {what}: rel err "
+                                                 f"{rel:.3e} > {TOL['k1']:.0e}")
+                        if not torch.equal(cnt, rcnt):
+                            raise AssertionError(f"K1 {what}: counts differ")
+                        if not (torch.equal(out, out2)
+                                and torch.equal(cnt, cnt2)):
+                            raise AssertionError(f"K1 {what}: two launches "
+                                                 f"differ")
+                        errs.append(err)
+        print(f"  {tag} D={d}: {len(id_sets)} id sets x bf16/fp32 x "
+              f"exact/fast x sum/masked mean within {TOL['k1']:.0e} of "
+              f"plain, counts exact, bitwise repeatable")
+    return max(errs)
+
+
+def time_k1(tag, data, ids, n, exact=False):
+    """K1's wrapper call, its plain version, torch.segment_reduce over the
+    same rows (the segment lengths computed beforehand, outside the timing)
+    and the bounds of one sum of data over ids.  Returns the fields of the
+    kernels-line entry, prefixed by tag where tag is not empty."""
+    from csmpn_torch.ops import segment_kernel as sk
+
+    e, d = data.shape
+    ms = time_ms(lambda: sk.sorted_segment_sum(data, ids, n, exact))
+    plain = time_ms(lambda: sk.segment_sum_plain(data, ids, n, exact),
+                    iters=10)
+    lengths = torch.bincount(ids[ids < n], minlength=n)[:n]
+    n_read = int(lengths.sum())
+    kept = data[:n_read]
+    lib = time_ms(lambda: torch.segment_reduce(kept, "sum", lengths=lengths,
+                                               axis=0, unsafe=True))
+    b_ms, b_by, b_env = bound(n_read * d * data.element_size() + n * d * 4
+                              + e * ids.element_size(), n_read * d, FP32_PEAK)
+    shape = f"E={e} N={n} D={d} {str(data.dtype)[6:]}"
+    print(f"  K1 time {tag or 'motion'} ({shape}): kernel {ms*1e3:.1f} us  "
+          f"plain {plain*1e3:.1f} us  segment_reduce {lib*1e3:.1f} us  "
+          f"bound {b_ms*1e3:.1f} us ({b_by}), measured envelope "
+          f"{b_env*1e3:.1f} us; kernel / segment_reduce {ms / lib:.3f}")
+    pre = f"{tag}_" if tag else ""
+    return {f"{pre}ms": ms, f"{pre}plain_ms": plain, f"{pre}library_ms": lib,
+            f"{pre}bound_ms": b_ms, f"{pre}bound_by": b_by,
+            f"{pre}bound_env_ms": b_env, f"{pre}shape": shape}
+
+
+def phase_k1(dev, gen, results, real):
+    print("K1 sorted segment sum vs plain (motion shapes)")
     dst, src_sorted, emask = real
-    for ids, m, mean, tag in ((dst, emask, True, "targets, masked mean"),
-                              (dst, None, False, "targets, sum"),
-                              (src_sorted, None, False, "sources, sum")):
-        for d in (HID * 8, 3 * 8):
-            for dtype, exact in ((torch.float32, True),
-                                 (torch.bfloat16, True),
-                                 (torch.float32, False)):
-                data = torch.randn(E_TOT, d, generator=gen).to(dtype).to(dev)
-                out, cnt = sk.sorted_segment_sum(data, ids, N_TOT, exact, m,
-                                                 mean)
-                ref, rcnt = sk.segment_sum_plain(data, ids, N_TOT, exact, m,
-                                                 mean)
-                name = (f"motion {tag} D={d} {str(dtype)[6:]} "
-                        f"{'exact' if exact else 'fast'}")
-                errs.append(check(name, out, ref, TOL["k1"]))
-                check(name + " counts", cnt, rcnt, 0.0)
-    for d in (224, 24):
-        for dtype, exact in ((torch.float32, True), (torch.float32, False),
-                             (torch.bfloat16, True)):
-            data, ids, mask = k1_inputs(E_TOT, N_TOT, d, dtype, gen, dev)
-            for m, mean in ((None, False), (mask, True)):
-                out, cnt = sk.sorted_segment_sum(data, ids, N_TOT, exact, m,
-                                                 mean)
-                ref, rcnt = sk.segment_sum_plain(data, ids, N_TOT, exact, m,
-                                                 mean)
-                tag = (f"synthetic D={d} {str(dtype)[6:]} "
-                       f"{'exact' if exact else 'fast'} "
-                       f"{'masked mean' if mean else 'sum'}")
-                errs.append(check(tag, out, ref, TOL["k1"]))
-                check(tag + " counts", cnt, rcnt, 0.0)
+    # the main path's widths on the real ids (and with a sentinel tail),
+    # and on synthetic ids with an empty run and a sentinel tail
+    syn, syn_mask = k1_ids(E_TOT, N_TOT, gen, dev)
+    errs = [check_k1(dev, gen, "motion", [
+        ("targets", dst, emask), ("sorted sources", src_sorted, None),
+        ("targets + sentinels", with_sentinels(dst, N_TOT), emask),
+        ("synthetic", syn, syn_mask)], N_TOT, (HID * 8, 3 * 8))]
     # timing at the main path's largest launch: the gradient of h (bf16
     # rows) over the real target ids, E edges into N nodes, D = 28 * 8
     d = HID * 8
     data = torch.randn(E_TOT, d, generator=gen).to(torch.bfloat16).to(dev)
-    ids = dst
-    ms = time_ms(lambda: sk.sorted_segment_sum(data, ids, N_TOT, False))
-    plain = time_ms(lambda: sk.segment_sum_plain(data, ids, N_TOT, False))
-    offsets = sk.csr_offsets(ids, N_TOT)
-    lengths = (offsets[1:] - offsets[:-1])
-    kept = data[: int(offsets[-1])]
-    lib = time_ms(lambda: torch.segment_reduce(kept, "sum", lengths=lengths,
-                                               axis=0, unsafe=True))
-    n_read = int(offsets[-1])
-    bytes_moved = n_read * d * 2 + N_TOT * d * 4 + E_TOT * 8
-    b_ms, b_by, b_env = bound(bytes_moved, n_read * d, FP32_PEAK)
-    print(f"  time (motion target ids) E={E_TOT} N={N_TOT} D={d} bf16: "
-          f"kernel {ms*1e3:.1f} us"
-          f"  plain {plain*1e3:.1f} us  segment_reduce {lib*1e3:.1f} us"
-          f"  bound {b_ms*1e3:.1f} us ({b_by})")
+    timed = time_k1("", data, dst, N_TOT)
     # the node-attribute gathers' backward: D = 3 types * 8 blades, fp32
     attr = torch.randn(E_TOT, 24, generator=gen).to(dev)
-    ms24 = time_ms(lambda: sk.sorted_segment_sum(attr, ids, N_TOT, True))
-    b24, _, _ = bound(n_read * 24 * 4 + N_TOT * 24 * 4 + E_TOT * 8,
-                      n_read * 24, FP32_PEAK)
-    print(f"  time E={E_TOT} N={N_TOT} D=24 fp32: kernel {ms24*1e3:.1f} us"
-          f"  bound {b24*1e3:.1f} us; per training step (12 at D={d} bf16,"
-          f" 2 at D=24): {12 * ms + 2 * ms24:.3f} ms")
+    t24 = time_k1("motion_d24", attr, dst, N_TOT, exact=True)
+    print(f"  per training step (12 at D={d} bf16, 2 at D=24): "
+          f"{12 * timed['ms'] + 2 * t24['motion_d24_ms']:.3f} ms")
     results["k1"] = dict(
         name="sorted_segment_sum", route="cuda",
         source="csmpn_torch/csrc/segment_sum.cu",
         replaces="csmpn_tpu/ops/pallas_segment.py:33",
-        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib, bound_env_ms=b_env,
-        shape=f"E={E_TOT} N={N_TOT} D={d} bf16")
+        max_abs_err=max(errs), **timed, **t24)
 
 
 # --------------------------------------------------------------- K2 / K3
@@ -1189,16 +1368,19 @@ def phase_fused_time(dev, results, dim=3, keys=("k4", "k5")):
     del out
     _t.cuda.empty_cache()
     # K1 on the bench path: the source gather's backward, bf16 rows of
-    # D = C * nb over the sorted sources
-    from csmpn_torch.ops import segment_kernel as sk
-
+    # D = C * nb over the sorted sources; checked at that width on the
+    # bench graph's ids, and timed beside segment_reduce
     d = c * nb
+    tag = "bench" if dim == 3 else f"bench_cl{dim}"
+    print(f"K1 vs plain at the bench shape (E={e} N={n} D={d})")
+    results["k1"]["max_abs_err"] = max(
+        results["k1"]["max_abs_err"],
+        check_k1(dev, _t.Generator().manual_seed(dim), tag, [
+            ("sorted sources", src_sort[1], None),
+            ("targets + sentinels", with_sentinels(dst, n), None)],
+            n, (d,)))
     rows = _t.randn(e, d, device=dev).to(_t.bfloat16)
-    k1 = time_ms(lambda: sk.sorted_segment_sum(rows, src_sort[1], n, False))
-    b1, _, _ = bound(e * d * 2 + n * d * 4 + e * 8, e * d, FP32_PEAK)
-    print(f"K1 at the bench shape (E={e} N={n} D={d} bf16, sorted "
-          f"sources): {k1*1e3:.1f} us  bound {b1*1e3:.1f} us")
-    results["k1"]["bench_ms" if dim == 3 else f"bench_cl{dim}_ms"] = k1
+    results["k1"].update(time_k1(tag, rows, src_sort[1], n))
     del rows
     pbytes = sum(p.numel() for p in params) * 4
     flops = block_flops(e, c, c, nb) * 2
@@ -1440,9 +1622,9 @@ def hulls_shapes(spec):
 
 def phase_k1_task(dev, gen, ds, results, d, tag):
     """K1 at a task's width (D = hidden x blades) on a real batch's ids:
-    hulls D = 28 x 32 = 896, NBA 40 x 4 = 160, MD17 32 x 8 = 256."""
+    hulls D = 28 x 32 = 896, NBA 40 x 4 = 160, MD17 32 x 8 = 256; checked
+    as check_k1 does and timed as time_k1 does."""
     from csmpn_torch.models.common import flatten_graph
-    from csmpn_torch.ops import segment_kernel as sk
 
     batch = next(iter(ds.train_loader(seed=0))).to(dev)
     ei, emask, (_, src_sorted) = flatten_graph(batch)
@@ -1450,36 +1632,12 @@ def phase_k1_task(dev, gen, ds, results, d, tag):
     n, e = batch.node_types.numel(), dst.numel()
     print(f"K1 vs plain at the {tag} shape (E={e} N={n} D={d}, a real "
           f"batch's ids)")
-    errs = []
-    for ids, m, mean, what in ((dst, emask, True, "targets, masked mean"),
-                               (src_sorted, None, False, "sources, sum")):
-        for dtype, exact in ((torch.bfloat16, False), (torch.float32, True)):
-            data = torch.randn(e, d, generator=gen).to(dtype).to(dev)
-            out, cnt = sk.sorted_segment_sum(data, ids, n, exact, m, mean)
-            ref, rcnt = sk.segment_sum_plain(data, ids, n, exact, m, mean)
-            name = (f"{tag} {what} {str(dtype)[6:]} "
-                    f"{'exact' if exact else 'fast'}")
-            errs.append(check(name, out, ref, TOL["k1"]))
-            check(name + " counts", cnt, rcnt, 0.0)
+    err = check_k1(dev, gen, tag, [
+        ("targets", dst, emask), ("sorted sources", src_sorted, None),
+        ("targets + sentinels", with_sentinels(dst, n), emask)], n, (d,))
     data = torch.randn(e, d, generator=gen).to(torch.bfloat16).to(dev)
-    ms = time_ms(lambda: sk.sorted_segment_sum(data, dst, n, False))
-    plain = time_ms(lambda: sk.segment_sum_plain(data, dst, n, False))
-    offsets = sk.csr_offsets(dst, n)
-    lengths = offsets[1:] - offsets[:-1]
-    n_read = int(offsets[-1])
-    kept = data[:n_read]
-    lib = time_ms(lambda: torch.segment_reduce(kept, "sum", lengths=lengths,
-                                               axis=0, unsafe=True))
-    b_ms, b_by, b_env = bound(n_read * d * 2 + n * d * 4 + e * 8,
-                              n_read * d, FP32_PEAK)
-    print(f"  time ({tag} target ids) E={e} N={n} D={d} bf16: kernel "
-          f"{ms*1e3:.1f} us  plain {plain*1e3:.1f} us  segment_reduce "
-          f"{lib*1e3:.1f} us  bound {b_ms*1e3:.1f} us ({b_by})")
-    results["k1"]["max_abs_err"] = max(results["k1"]["max_abs_err"], *errs)
-    results["k1"].update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain,
-                          f"{tag}_library_ms": lib, f"{tag}_bound_ms": b_ms,
-                          f"{tag}_bound_env_ms": b_env,
-                          f"{tag}_shape": f"E={e} N={n} D={d} bf16"})
+    results["k1"]["max_abs_err"] = max(results["k1"]["max_abs_err"], err)
+    results["k1"].update(time_k1(tag, data, dst, n))
 
 
 def check_block_form(dev, gen, alg, shapes, keys):
@@ -1960,6 +2118,7 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name}.cu {fn}: {line.split(':', 1)[-1].strip()}")
     print_dense_smem()
+    print_pair_smem(PAIR_SMEM_SHAPES)
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     results = {}
@@ -2002,6 +2161,7 @@ def main() -> int:
         runs["md17"] = phase_md17(dev, gen, results, dataroot,
                                   motion_counters)[:2]
         phase_tile_instances(dev, gen, results)
+        phase_pair_tile_instances(dev, gen, results)
     runs["bench"] = phase_bench(counters)[:2]
     runs["bench_cl2"] = phase_bench(cl2_counters, 2, BENCH_CL2_PER_STEP)[:2]
     runs["bench_cl5"] = phase_bench(cl5_counters, 5, BENCH_CL5_PER_STEP)[:2]

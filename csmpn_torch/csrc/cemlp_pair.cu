@@ -5,9 +5,11 @@
 // csmpn_cemlp_pair_*.
 //
 // Row tile.  A row's 32 blades are a warp; a CTA holds 8 row slots of 2
-// warps in the forward and 4 of 4 warps in the backward (16 warps each).
-// At the hulls widths (C = 28, Cin up to 59) the parameters take ~86 KB and
-// the row slots the rest: 220 KB forward, 219 KB backward, one CTA an SM.
+// warps in the forward and, in the exact backward, 4 of 4 warps (16 warps
+// each).  At the hulls widths (C = 28, Cin up to 59) the parameters take
+// ~86 KB and the row slots the rest: 220 KB forward, 219 KB backward, one
+// CTA an SM.  The fast backward is cemlp_pair_tile.cuh's row tile kernel
+// (steps of 4 rows, 12 warps, three a row).
 
 #include "cemlp_pair_kernels.cuh"
 

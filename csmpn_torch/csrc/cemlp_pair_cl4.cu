@@ -15,7 +15,9 @@
 //     56 -> 28.
 // Both leave one CTA an SM; the forward takes Cin up to 77 and the backward
 // up to 83 at C = 28.  K3p on 16 warps (128 registers, small spills) ran
-// 1.23x faster on the H100 than on 8 warps of a slot each.
+// 1.23x faster on the H100 than on 8 warps of a slot each.  That is the
+// exact backward; the fast one is cemlp_pair_tile.cuh's row tile kernel
+// (steps of 8 rows, 8 warps, one a row).
 
 #include "cemlp_pair_kernels.cuh"
 

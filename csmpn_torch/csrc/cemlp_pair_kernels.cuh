@@ -50,7 +50,10 @@
 // left in shared memory), each entry owned by one thread.  CTAs write
 // partial sums that a second kernel adds in a fixed order: no atomics,
 // bitwise repeatable.  The per-row device code is cemlp_pair.cuh, shared
-// with the pair-form fused message-passing kernels K4p/K5p.
+// with the pair-form fused message-passing kernels K4p/K5p.  This row
+// kernel is K3p in exact mode; in fast mode K3p is the row tile kernel of
+// cemlp_pair_tile.cuh (the linears and their weight gradients on the
+// tensor cores).
 //
 // Precision: FAST = false is fp32 throughout.  FAST = true rounds to bf16
 // the operands of each product that the TPU kernel feeds its matrix unit
@@ -61,6 +64,7 @@
 #pragma once
 
 #include "cemlp_pair.cuh"
+#include "cemlp_pair_tile.cuh"
 
 namespace {
 
@@ -112,16 +116,8 @@ size_t fwd_smem_bytes(int cin, int c) {
                           (size_t)K::ROWS_F * (cin + 2 * pad4(c)) * A::RP);
 }
 
-// Gradient vector layout (flax parameter order and shapes):
-//   dW1 (C, Cin, NG) | db1 (C) | dsilu_a (C, NG) | dsilu_b (C, NG) |
-//   dgp_weight (C, NP) | dWr (C, C, NG) | dsigmoid(norm_a) (C, NG) |
-//   dWL (C, C, NG) | dbL (C) | dln_a (C)
-template <class A>
-__host__ __device__ inline int64_t grad_floats(int cin, int c) {
-  constexpr int NG = A::NG;
-  return (int64_t)c * cin * NG + c + 2 * NG * c + A::NP * c + c * c * NG +
-         NG * c + c * c * NG + 2 * c;
-}
+// The gradient vector's layout (flax order) is grad_floats in
+// cemlp_pair_tile.cuh.
 
 // One CTA's scratch: its partial gradient vector, then its channel-mixing
 // accumulators.
@@ -130,7 +126,9 @@ __host__ __device__ inline int64_t partial_floats(int cin, int c) {
   return grad_floats<A>(cin, c) + (int64_t)(cin + 2 * c) * A::NG * pad4(c);
 }
 
-template <class A, class K, bool FAST>
+// The exact backward (fp32 throughout); the fast one is the row tile
+// kernel of cemlp_pair_tile.cuh.
+template <class A, class K>
 __global__ void __launch_bounds__(K::THREADS_B)
 cemlp_pair_bwd_kernel(const float* __restrict__ x,
                       const float* __restrict__ dout, Params p, Tabs<A> tb,
@@ -153,7 +151,7 @@ cemlp_pair_bwd_kernel(const float* __restrict__ x,
   float* xch = gacc + NP * c4;                       // [ROWS_B][XCH]
   float* rowbuf = xch + ROWS_B * A::XCH;             // [ROWS_B][rows]
   const int tid = threadIdx.x + 32 * threadIdx.y;
-  stage_params<A, FAST>(p, s, cin, c, THREADS_B);
+  stage_params<A, false>(p, s, cin, c, THREADS_B);
   for (int e = tid; e < A::TAB_LEN; e += THREADS_B) tab[e] = tabs[e];
   for (int e = tid; e < ROWS_B * NLOC * c4; e += THREADS_B) locs[e] = 0.f;
   for (int e = tid; e < NP * c4; e += THREADS_B) gacc[e] = 0.f;
@@ -178,9 +176,9 @@ cemlp_pair_bwd_kernel(const float* __restrict__ x,
     __syncthreads();   // staging done / previous tile consumed
     if (row < rows) {
       for (int m = tm.h; m < cin; m += tm.nh)
-        b.xs[m * A::RP + l.id] = rnd<FAST>(x[(row * cin + m) * NB + l.id]);
+        b.xs[m * A::RP + l.id] = x[(row * cin + m) * NB + l.id];
       team_sync<A>(tm);
-      row_backward<A, FAST>(s, l, tm, t1, t2, t3, b, scw, loc,
+      row_backward<A, false>(s, l, tm, t1, t2, t3, b, scw, loc,
                             dout + row * c * NB, dx + row * cin * NB, cin, c);
     }
     __syncthreads();
@@ -278,27 +276,25 @@ int launch_fwd(const float* x, Params p, const float* bc,
 }
 
 // partials: (grid, partial_floats) scratch; grads: (grad_floats,) output.
+// Fast mode: the row tile kernel, partials (grid, grad_floats); exact mode:
+// the row kernel, partials (grid, partial_floats).
 template <class A, class K>
 int launch_bwd(const float* x, const float* dout, Params p, const float* bc,
                const uint16_t* tabs, float* dx, float* partials,
                float* grads, int rows, int cin, int c, int fast, int grid,
                void* stream) {
-  const size_t bytes = smem_bytes<A, K>(cin, c, 1);
-  if (bytes == 0) return (int)cudaErrorInvalidValue;
   Tabs<A> tb = make_tabs<A>(bc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fast)
+    return launch_pair_tile_bwd<A>(x, dout, p, tb, tabs, dx, partials, grads,
+                                   rows, cin, c, grid, st);
+  const size_t bytes = smem_bytes<A, K>(cin, c, 1);
+  if (bytes == 0) return (int)cudaErrorInvalidValue;
   dim3 block(32, K::WARPS_B);
-  if (fast) {
-    cudaFuncSetAttribute(cemlp_pair_bwd_kernel<A, K, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    cemlp_pair_bwd_kernel<A, K, true><<<grid, block, bytes, st>>>(
-        x, dout, p, tb, tabs, dx, partials, rows, cin, c);
-  } else {
-    cudaFuncSetAttribute(cemlp_pair_bwd_kernel<A, K, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    cemlp_pair_bwd_kernel<A, K, false><<<grid, block, bytes, st>>>(
-        x, dout, p, tb, tabs, dx, partials, rows, cin, c);
-  }
+  cudaFuncSetAttribute(cemlp_pair_bwd_kernel<A, K>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cemlp_pair_bwd_kernel<A, K><<<grid, block, bytes, st>>>(
+      x, dout, p, tb, tabs, dx, partials, rows, cin, c);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t n = grad_floats<A>(cin, c);
@@ -314,7 +310,8 @@ int launch_bwd(const float* x, const float* dout, Params p, const float* bc,
 // order (w1 b1 sa sb gw wr na wl bl aln); bc the host quadratic-form
 // coefficients; tabs the packed tables on the device.  x (rows, cin, NB)
 // fp32, out (rows, c, NB).  The backward writes dx (rows, cin, NB) and
-// grads (grad_floats,), with partials (grid, partial_floats) as scratch.
+// grads (grad_floats,), with partials as scratch: (grid, partial_floats)
+// in exact mode, (grid, grad_floats) in fast mode.
 #define CSMPN_PAIR_PARAMS_DECL                                                \
   const float *w1, const float *b1, const float *sa, const float *sb,         \
       const float *gw, const float *wr, const float *na, const float *wl,     \
@@ -325,9 +322,17 @@ int launch_bwd(const float* x, const float* dout, Params p, const float* bc,
   size_t PREFIX##_smem_bytes(int cin, int c, int backward) {                  \
     return smem_bytes<ALG, TILE>(cin, c, backward);                           \
   }                                                                           \
-  /* floats of one CTA's slice of the backward's scratch */                   \
+  /* floats of one CTA's slice of the exact backward's scratch */             \
   long long PREFIX##_partial_floats(int cin, int c) {                         \
     return (long long)partial_floats<ALG>(cin, c);                            \
+  }                                                                           \
+  /* shared-memory bytes of the fast backward (the row tiles; 0 if the      \
+     widths do not fit) and the weight-gradient tiles a warp it holds */     \
+  size_t PREFIX##_tile_smem_bytes(int cin, int c) {                           \
+    return pair_tile_smem_bytes<ALG>(cin, c);                                 \
+  }                                                                           \
+  int PREFIX##_tile_maxt(int cin, int c) {                                    \
+    return pair_tile_maxt<ALG>(cin, c);                                       \
   }                                                                           \
   /* the structure the kernels assume: i_of, path ids and signs of the       \
      pairs [j * NB + k], grades (NB), for the host to check */               \

@@ -15,7 +15,10 @@ two forms:
     compiled for Cl(5,0) (``csrc/cemlp_pair.cu``, the hulls task) and for
     Cl(4,0) (``csrc/cemlp_pair_cl4.cu``, the bench at ``--dim 4``), where
     the weighted geometric product runs over the Cayley pairs (one left
-    blade and one sign per (output j, right k)).
+    blade and one sign per (output j, right k)).  In fast mode K3p is the
+    row tile kernel of ``csrc/cemlp_pair_tile.cuh`` (steps of 128 (row,
+    blade) pairs, the channel-mixing linears and their weight gradients as
+    bf16 ``mma.sync`` products).
 
 Cl(1) (nb = 2), which the reference's dense form also serves, has no
 kernel yet and raises.  Widths whose block does not fit in one CTA's
@@ -316,17 +319,26 @@ def _grid(rows: int, device, smem_bytes: int, rows_per_cta: int) -> int:
 # rows a CTA step of the dense form's fast-mode backward takes: TROWS of
 # csrc/cemlp_tile.cuh
 TILE_ROWS = 16
+# (row, blade) pairs a CTA step of the pair form's fast-mode backward takes:
+# PT_PAIRS of csrc/cemlp_pair_tile.cuh (4 rows at Cl(5), 8 at Cl(4))
+PAIR_TILE_PAIRS = 128
 
 
 def _tiled(kern: BlockKernel, backward: bool, exact: bool) -> bool:
-    """Whether the launch is the fast-mode row tile backward (K3)."""
-    return backward and not exact and kern.form == "dense"
+    """Whether the launch is a fast-mode row tile backward (K3 or K3p)."""
+    return backward and not exact
+
+
+def _tile_rows(kern: BlockKernel) -> int:
+    """Rows a CTA step of the fast-mode row tile backward takes."""
+    return TILE_ROWS if kern.form == "dense" else \
+        PAIR_TILE_PAIRS // kern.n_blades
 
 
 def _smem(kern: BlockKernel, cin, c, backward, exact=True):
     """Shared-memory bytes of a launch; NotImplementedError where the
-    widths do not fit in one CTA's 227 KB (or, for the fast-mode K3, in its
-    register tiles)."""
+    widths do not fit in one CTA's 227 KB (or, for the fast-mode K3 and
+    K3p, in their register tiles)."""
     lib = _build.load(kern.source)
     if _tiled(kern, backward, exact):
         fn = getattr(lib, f"{kern.symbol}_tile_smem_bytes")
@@ -392,10 +404,12 @@ def _split_grads(flat: torch.Tensor, params) -> List[torch.Tensor]:
     return out
 
 
-def _partial_floats(kern: BlockKernel, cin: int, c: int, n_grad: int) -> int:
+def _partial_floats(kern: BlockKernel, cin: int, c: int, n_grad: int,
+                    exact: bool = True) -> int:
     """Floats of one CTA's slice of the backward's scratch: its partial
-    gradient vector, and for K3p also its channel-mixing accumulators."""
-    if kern.form != "pair":
+    gradient vector, and for K3p's exact-mode row kernel also its
+    channel-mixing accumulators."""
+    if kern.form != "pair" or _tiled(kern, True, exact):
         return n_grad
     fn = getattr(_build.load(kern.source), f"{kern.symbol}_partial_floats")
     fn.argtypes = [_I, _I]
@@ -419,10 +433,12 @@ def block_backward(x: torch.Tensor, dout: torch.Tensor,
         raise ValueError(f"dout shape {tuple(dout.shape)} != {(rows, c, nb)}")
     bc, tabs = _tables(kern, alg, x.device)
     n_grad = sum(p.numel() for p in params)
-    rows_cta = TILE_ROWS if _tiled(kern, True, exact) else kern.rows_bwd
+    rows_cta = _tile_rows(kern) if _tiled(kern, True, exact) \
+        else kern.rows_bwd
     grid = _grid(rows, x.device, _smem(kern, cin, c, True, exact), rows_cta)
     dx = torch.empty_like(x)
-    partials = torch.empty((grid, _partial_floats(kern, cin, c, n_grad)),
+    partials = torch.empty((grid, _partial_floats(kern, cin, c, n_grad,
+                                                  exact)),
                            dtype=torch.float32, device=x.device)
     flat = torch.empty(n_grad, dtype=torch.float32, device=x.device)
     fn = _fn(f"{kern.symbol}_bwd", 17, 5, kern.source)

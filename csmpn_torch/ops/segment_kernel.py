@@ -23,8 +23,9 @@ from . import _build
 LAUNCHES = _build.LaunchCounter("sorted_segment_sum")
 
 _argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p]
 
 
 def _lib():
@@ -60,21 +61,16 @@ def segment_sum_plain(data: torch.Tensor, segment_ids: torch.Tensor,
     return out, counts
 
 
-def csr_offsets(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """offsets[s] = first row with id >= s, for s in 0..N (int64)."""
-    r = torch.arange(num_segments + 1, device=segment_ids.device,
-                     dtype=segment_ids.dtype)
-    return torch.searchsorted(segment_ids, r, side="left")
-
-
 def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                        num_segments: int, exact: bool = True,
                        mask: Optional[torch.Tensor] = None,
                        mean: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1.  data (E, D) float32 or bfloat16, segment_ids (E,) int sorted
-    ascending, mask (E,) bool or None.  Returns (out (N, D) float32,
-    counts (N,) float32)."""
+    """K1.  data (E, D) float32 or bfloat16, segment_ids (E,) int32 or
+    int64 sorted ascending, mask (E,) bool or None.  Returns (out (N, D)
+    float32, counts (N,) float32).  On the card this is one kernel launch
+    (the kernel finds the segment bounds in the ids itself and reads the
+    bool mask as its bytes) and the two output allocations."""
     if not data.is_cuda:
         return segment_sum_plain(data, segment_ids, num_segments, exact,
                                  mask, mean)
@@ -83,24 +79,28 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     if data.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"data dtype {data.dtype} not supported")
     e, d = data.shape
-    if segment_ids.shape != (e,) or not segment_ids.is_cuda:
+    if segment_ids.shape != (e,) or segment_ids.device != data.device:
         raise ValueError("segment_ids must be (E,) on the data's device")
-    if mask is not None and (mask.shape != (e,) or not mask.is_cuda):
-        raise ValueError("mask must be (E,) on the data's device")
+    if segment_ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"segment_ids dtype {segment_ids.dtype} not "
+                        f"supported (int32 or int64)")
+    if mask is not None and (mask.shape != (e,) or mask.device != data.device
+                             or mask.dtype != torch.bool):
+        raise ValueError("mask must be (E,) bool on the data's device")
     data = data.contiguous()
-    offsets = csr_offsets(segment_ids.contiguous(), num_segments)
-    mask_u8 = (mask.contiguous().to(torch.uint8) if mask is not None
-               else None)
+    segment_ids = segment_ids.contiguous()
+    mask = mask.contiguous() if mask is not None else None
     out = torch.empty((num_segments, d), dtype=torch.float32,
                       device=data.device)
     counts = torch.empty(num_segments, dtype=torch.float32,
                          device=data.device)
     fn = _lib()
     err = fn(data.data_ptr(), 1 if data.dtype == torch.bfloat16 else 0,
-             0 if exact else 1, offsets.data_ptr(),
-             mask_u8.data_ptr() if mask_u8 is not None else None,
-             out.data_ptr(), counts.data_ptr(), num_segments, d, int(mean),
-             torch.cuda.current_stream(data.device).cuda_stream)
+             0 if exact else 1, segment_ids.data_ptr(),
+             int(segment_ids.dtype == torch.int64),
+             mask.data_ptr() if mask is not None else None,
+             out.data_ptr(), counts.data_ptr(), e, num_segments, d,
+             int(mean), torch.cuda.current_stream(data.device).cuda_stream)
     _build.check(err, "sorted_segment_sum kernel")
     LAUNCHES.add()
     return out, counts

@@ -19,7 +19,11 @@ device µs per launch, fast mode, and the card:
     (bench.WIDTHS): Cl(3) 32 -> 32, Cl(2) 40 -> 40, K4p/K5p at Cl(5) and
     Cl(4) 28 -> 28;
   * K1 at the bench's node aggregation (E = 131,072 sorted ids over
-    N = 8,192, D = 256 bf16, fast mode);
+    N = 8,192, D = 256 bf16, fast mode) and at each task's aggregation
+    width and batch size (motion D = 224, E = 23,200, N = 5,600; NBA 160,
+    35,200, 4,800; MD17 256, 39,200, 7,200; hulls 896, 13,184, 1,536; ids
+    drawn uniformly), each beside torch.segment_reduce over the same rows
+    (its lengths computed beforehand);
   * P2, the envelope probe's resident bf16 product at its default sizes
     (512 x 256 x 2048, 32 reps).
 
@@ -124,11 +128,22 @@ def main(root: str) -> dict:
         del h, h_s, hj, dagg
         torch.cuda.empty_cache()
     from csmpn_torch.ops import probe_kernels as pk, segment_kernel as sk
-    e, n, d = 131072, 8192, 256
-    ids = torch.sort(torch.randint(0, n, (e,), generator=gen)).values.to(dev)
-    data = torch.randn(e, d, generator=gen).to(dev).to(torch.bfloat16)
-    out["k1_us"] = time_us(
-        lambda: sk.sorted_segment_sum(data, ids, n, exact=False), 100)
+    # (key, E, N, D): the bench's node aggregation, then each task's
+    # aggregation width at its batch's edge and node counts
+    for key, e, n, d in (("k1", 131072, 8192, 256),
+                         ("k1_motion", 23200, 5600, 224),
+                         ("k1_nba", 35200, 4800, 160),
+                         ("k1_md17", 39200, 7200, 256),
+                         ("k1_hulls", 13184, 1536, 896)):
+        ids = torch.sort(torch.randint(0, n, (e,), generator=gen)).values
+        ids = ids.to(dev)
+        data = torch.randn(e, d, generator=gen).to(dev).to(torch.bfloat16)
+        lengths = torch.bincount(ids, minlength=n)
+        out[f"{key}_us"] = time_us(
+            lambda: sk.sorted_segment_sum(data, ids, n, exact=False), 100)
+        out[f"{key}_segment_reduce_us"] = time_us(
+            lambda: torch.segment_reduce(data, "sum", lengths=lengths,
+                                         axis=0, unsafe=True), 100)
     a = torch.randn(512, 256, generator=gen).to(dev)
     b = (torch.randn(256, 2048, generator=gen) / 16).to(dev)
     out["p2_bf16_us"] = time_us(lambda: pk.resident_matmul(a, b, 32, "bf16"),

@@ -1,5 +1,6 @@
 """Host-side code of the fast-mode row tile backwards of the dense form (K3
-and K5 at Cl(3,0) and Cl(2,0), csrc/cemlp_tile.cuh): which launches take
+and K5 at Cl(3,0) and Cl(2,0), csrc/cemlp_tile.cuh; the pair form's K3p
+has its own in tests/test_torch_pair_tiles.py): which launches take
 the tile kernels, the shared-memory entry points they ask, the CTA steps
 the grid is cut for, the partial layouts the tile kernels write, that
 the CPU wrappers take the plain versions and count no launch, and the
@@ -27,7 +28,9 @@ KERNELS = [ck.DENSE, ck.DENSE_CL2, ck.PAIR, ck.PAIR_CL4]
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("exact", [False, True])
 def test_tiled_takes_only_the_fast_dense_backward(kern, backward, exact):
-    want = kern.form == "dense" and backward and not exact
+    """The row tiles take the fast-mode backward only: K3 in the dense form
+    and, since the pair form has its own row tiles, K3p too."""
+    want = backward and not exact
     assert ck._tiled(kern, backward, exact) == want
 
 
@@ -36,8 +39,11 @@ def test_dense_kernels_step_16_rows_in_fast_backward():
     for kern in (ck.DENSE, ck.DENSE_CL2):
         assert kern.rows_bwd == 8
         assert ck._tiled(kern, True, False)
-    for kern in (ck.PAIR, ck.PAIR_CL4):
-        assert not ck._tiled(kern, True, False)
+        assert ck._tile_rows(kern) == 16
+    # the pair form's tiles step over 128 (row, blade) pairs
+    for kern, rows in ((ck.PAIR, 4), (ck.PAIR_CL4, 8)):
+        assert ck._tiled(kern, True, False)
+        assert ck._tile_rows(kern) == rows
 
 
 class _Entry:
