@@ -4,10 +4,12 @@
 
 1. prints the card (nvidia-smi name and power limit) and builds the CUDA
    kernels from csmpn_torch/csrc, all sources in parallel, with each
-   kernel's registers and spills; shows that the fast-mode backwards of
-   the dense form (K3 and K5, the row tiles) and of the pair form (K3p at
-   Cl(5) and Cl(4), its row tiles) take at every C at least the inputs
-   their exact-mode row kernels take;
+   kernel's registers and spills; shows that the fast-mode row tile
+   kernels take at every C at least the inputs their exact-mode row
+   kernels take: the backwards of the dense form (K3 and K5) and of the
+   pair form (K3p at Cl(5) and Cl(4)), the pair form's forward (K2p) and
+   the dense fused forward (K4 at Cl(3) and Cl(2), whose fast mode sums
+   sub-windows where a window's sum does not fit);
 2. the envelope probe (P1 copy, P2 resident matrix product in bf16 and
    tf32 on the tensor cores and fp32 FFMA, P3 FMA chain): each kernel
    against its plain version at tools/mxu_probe.py's sizes (P1 bitwise at
@@ -27,7 +29,8 @@
    windows, few edges over many windows, masked edges, ragged E and N,
    with and without edge attributes), bitwise repeatable, masked rows of
    d(hj) exactly 0; the same for K4/K5 at Cl(2) (C = 40, or 28 with
-   attributes) and for K4p/K5p, the pair form at Cl(5) (C = 28, the
+   attributes, 45 and 53, where the fast K4 sums sub-windows) and for
+   K4p/K5p, the pair form at Cl(5) (C = 28, the
    layouts cut to at most 16,384 edges: the plain pair form holds
    (E, C, 32, 32) products) and at Cl(4) (C = 28, cut to at most 65,536
    edges: (E, C, 16, 16) products, a quarter of Cl(5)'s a row);
@@ -72,7 +75,9 @@
    chunks) and at K3's widest C, with the checks of 3 and 8, in both
    modes where the exact mode takes the shape; and K3p at Cl(5) and Cl(4)
    at one shape of each instance of its fast-mode row tiles (16, 24, 32
-   weight-gradient tiles a warp) and at its widest C, over 1,001 rows;
+   weight-gradient tiles a warp) and at its widest C, and K2p at C_MIN and
+   its widest C (each at the widest input its exact mode takes), over
+   1,001 rows;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -245,12 +250,25 @@ SMEM_K3 = {3: [(34, 28), (59, 28), (4, 28), (6, 28), (28, 28), (38, 32),
                (67, 32), (60, 32), (90, 32), (32, 32), (64, 32)],
            2: [(46, 40), (83, 40), (40, 40), (40, 20), (60, 40)]}
 CL2_MAX_C = 45    # the widest K5 at Cl(2) (shared memory, PR 6)
+# (Cm, Ca, C) at Cl(2) where the fast K4's sum of a whole window does not
+# fit beside its tiles, so that it sums sub-windows (print_k4_widths)
+CL2_SUB = (4, 0, 53)
 # (dim, Cin, C) of K3p's shapes on the main paths: the hulls blocks (Cl(5))
 # and the bench's --dim 4 node blocks (Cl(4))
 PAIR_SMEM_SHAPES = [(5, 34, 28), (5, 28, 28), (5, 59, 28), (5, 2, 28),
                     (5, 3, 28), (4, 56, 28), (4, 28, 28)]
 SMEM_K5 = {3: [(32, 0, 32), (28, 3, 28)],
            2: [(40, 0, 40), (28, 3, 28), (CL2_MAX_C, 0, CL2_MAX_C)]}
+
+
+def widest(fits, hi=4096):
+    """The widest width w <= hi with fits(w), where fits holds up to a
+    cap and fails above it (0: none)."""
+    lo = 0
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
 
 
 def print_dense_smem():
@@ -285,24 +303,16 @@ def print_dense_smem():
                          f"{kb.symbol}_tile_smem_bytes")
         k3row.argtypes, k3row.restype = [ctypes.c_int] * 3, ctypes.c_size_t
         k3tile.argtypes, k3tile.restype = [ctypes.c_int] * 2, ctypes.c_size_t
-
-        def cap(fits, hi=4096):   # fits holds up to the cap, then fails
-            lo = 0
-            while lo < hi:
-                mid = (lo + hi + 1) // 2
-                lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
-            return lo
-
         diff3, diff5, narrower = [], [], []
         for c in range(1, kb.max_channels + 1):
-            caps = (cap(lambda w: 0 < k3row(w, c, 1) <= ck_max),
-                    cap(lambda w: 0 < k3tile(w, c) <= ck_max))
+            caps = (widest(lambda w: 0 < k3row(w, c, 1) <= ck_max),
+                    widest(lambda w: 0 < k3tile(w, c) <= ck_max))
             if caps[0] != caps[1]:
                 diff3.append(f"C={c} {caps[0]}/{caps[1]}")
             if caps[1] < caps[0]:
                 narrower.append(f"K3 C={c}")
-            caps = (cap(lambda w: 0 < row(w, 0, c, kf.wn, 1) <= ck_max),
-                    cap(lambda w: 0 < tile(w, 0, c, kf.wn) <= ck_max))
+            caps = (widest(lambda w: 0 < row(w, 0, c, kf.wn, 1) <= ck_max),
+                    widest(lambda w: 0 < tile(w, 0, c, kf.wn) <= ck_max))
             if caps[0] != caps[1]:
                 diff5.append(f"C={c} {caps[0]}/{caps[1]}")
             if caps[1] < caps[0]:
@@ -319,34 +329,116 @@ def print_dense_smem():
               f"input width their exact modes take")
 
 
-def pair_caps(kb):
-    """{C: (widest Cin of the exact-mode K3p row kernel, of the fast-mode
-    row tiles)} for the pair kernels kb, from their shared-memory entry
-    points, at every C the row kernel takes at some input width."""
+def pair_caps(kb, backward=True):
+    """{C: (widest Cin of the exact-mode row kernel, of the fast-mode row
+    tiles)} for the pair kernels kb (K3p, or K2p where not backward), from
+    their shared-memory entry points, at every C the row kernel takes at
+    some input width."""
     import ctypes
     from csmpn_torch.ops import _build
     from csmpn_torch.ops import fused_egcl as fe
 
     lib = _build.load(kb.source)
     row = getattr(lib, f"{kb.symbol}_smem_bytes")
-    tile = getattr(lib, f"{kb.symbol}_tile_smem_bytes")
+    tile = getattr(lib, f"{kb.symbol}_"
+                        f"{'tile' if backward else 'fwd_tile'}_smem_bytes")
     row.argtypes, row.restype = [ctypes.c_int] * 3, ctypes.c_size_t
     tile.argtypes, tile.restype = [ctypes.c_int] * 2, ctypes.c_size_t
-
-    def cap(fits, hi=4096):   # fits holds up to the cap, then fails
-        lo = 0
-        while lo < hi:
-            mid = (lo + hi + 1) // 2
-            lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
-        return lo
-
     caps, c = {}, 1
     while True:
-        ex = cap(lambda w: 0 < row(w, c, 1) <= fe.MAX_SMEM)
+        ex = widest(lambda w: 0 < row(w, c, int(backward)) <= fe.MAX_SMEM)
         if ex == 0:
             return caps
-        caps[c] = (ex, cap(lambda w: 0 < tile(w, c) <= fe.MAX_SMEM))
+        caps[c] = (ex, widest(lambda w: 0 < tile(w, c) <= fe.MAX_SMEM))
         c += 1
+
+
+def print_pair_fwd_widths():
+    """K2p's shared-memory bytes in both modes at the hulls edge block 0
+    and the --dim 4 node block 0, and both modes' widest inputs at every
+    C; raises where the fast mode's (the row tile forward's) is the
+    narrower."""
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    for dim, kb, (cin, c) in ((5, ck.PAIR, (34, 28)),
+                              (4, ck.PAIR_CL4, (56, 28))):
+        print(f"  K2p at Cl({dim}) smem bytes exact/fast at {cin}->{c}: "
+              f"{ck._smem(kb, cin, c, False, True)}/"
+              f"{ck._smem(kb, cin, c, False, False)}")
+        caps = pair_caps(kb, backward=False)
+        print(f"  K2p at Cl({dim}) widest Cin exact/fast at C = 1.."
+              f"{max(caps)}: "
+              + ", ".join(f"{c}:{e}/{f}" for c, (e, f) in caps.items()))
+        narrower = [c for c, (e, f) in caps.items() if f < e]
+        if narrower:
+            raise AssertionError(f"K2p at Cl({dim}): the fast-mode forward "
+                                 f"takes narrower inputs than the exact one "
+                                 f"at C = {narrower}")
+        print(f"  Cl({dim}): at every C the fast-mode K2p takes every input "
+              f"width its exact mode takes")
+
+
+def k4_caps(kf):
+    """{C: (widest Cm at Ca = 0 that the K4 wrapper takes in exact mode,
+    which asks the row kernels of both directions to fit (make_plan), and
+    of the fast-mode row tile forward)} for the dense fused kernels kf, at
+    every C <= kf.max_channels that the exact mode takes at some Cm."""
+    import ctypes
+    from csmpn_torch.ops import fused_egcl as fe
+
+    row = fe._lib_fn(kf, "smem_bytes", [ctypes.c_int] * 5, ctypes.c_size_t)
+    tile = fe._lib_fn(kf, "fwd_tile_smem_bytes", [ctypes.c_int] * 4,
+                      ctypes.c_size_t)
+    caps = {}
+    for c in range(1, kf.max_channels + 1):
+        ex = widest(lambda w: 0 < max(row(w, 0, c, kf.wn, 0),
+                                      row(w, 0, c, kf.wn, 1)) <= fe.MAX_SMEM)
+        if ex:
+            caps[c] = (ex, widest(lambda w: 0 < tile(w, 0, c, kf.wn)
+                                  <= fe.MAX_SMEM))
+    return caps
+
+
+def print_k4_widths():
+    """K4's shared-memory bytes in both modes at the bench shapes, both
+    modes' widest message widths at every C and where the fast forward
+    sums fewer targets than a window at a time; raises where the fast
+    mode's widest is the narrower, or where the sub-window layout of
+    cl2_layouts does not take the sub-window path."""
+    import ctypes
+    from csmpn_torch.ops import fused_egcl as fe
+
+    for dim, kf in ((3, fe.DENSE), (2, fe.DENSE_CL2)):
+        row = fe._lib_fn(kf, "smem_bytes", [ctypes.c_int] * 5,
+                         ctypes.c_size_t)
+        tile = fe._lib_fn(kf, "fwd_tile_smem_bytes", [ctypes.c_int] * 4,
+                          ctypes.c_size_t)
+        wsub = fe._lib_fn(kf, "fwd_tile_wsub", [ctypes.c_int] * 4,
+                          ctypes.c_int)
+        k4 = [f"{cm}+{ca}->{c} {row(cm, ca, c, kf.wn, 0)}/"
+              f"{tile(cm, ca, c, kf.wn)}" for cm, ca, c in SMEM_K5[dim]]
+        print(f"  K4 at Cl({dim}) smem bytes exact/fast: {', '.join(k4)}")
+        caps = k4_caps(kf)
+        diff = [f"C={c} {e}/{f}" for c, (e, f) in caps.items() if e != f]
+        print(f"  K4 at Cl({dim}) widest Cm (Ca 0) exact/fast where they "
+              f"differ: {', '.join(diff) or 'none'}")
+        sub = [c for c, (e, _) in caps.items() if wsub(e, 0, c, kf.wn) <
+               kf.wn]
+        print(f"  K4 at Cl({dim}) fast: sums of fewer than {kf.wn} targets "
+              f"at the widest Cm of C = {sub or 'none'}")
+        narrower = [c for c, (e, f) in caps.items() if f < e]
+        if narrower:
+            raise AssertionError(f"K4 at Cl({dim}): the fast-mode forward "
+                                 f"takes narrower inputs than the exact one "
+                                 f"at C = {narrower}")
+        print(f"  Cl({dim}): at every C the fast-mode K4 takes every message "
+              f"width its exact mode takes")
+        if dim == 2:
+            cm, ca, c = CL2_SUB
+            if not 0 < wsub(cm, ca, c, kf.wn) < kf.wn:
+                raise AssertionError(f"K4 at Cl(2) {cm}+{ca}->{c}: sums of "
+                                     f"{wsub(cm, ca, c, kf.wn)} targets, "
+                                     f"not a sub-window")
 
 
 def print_pair_smem(shapes):
@@ -548,18 +640,50 @@ def phase_tile_instances(dev, gen, results):
         raise AssertionError("no K3 shape took the chunked x tile")
 
 
+def pair_fwd_shapes(kb):
+    """(Cin, C) at which the K2p row tile forward (one kernel instance an
+    algebra) is held to its plain version: the widest input the exact
+    mode takes at C_MIN and at its widest C."""
+    caps = pair_caps(kb, backward=False)
+    widest_c = max(caps)
+    return [(caps[C_MIN][0], C_MIN), (caps[widest_c][0], widest_c)]
+
+
 def phase_pair_tile_instances(dev, gen, results):
     """K3p at Cl(5) and Cl(4) against its plain version at the shapes of
     pair_tile_instance_shapes (one for each instance of the fast-mode row
     tiles, over 1,001 rows: a last step of fewer rows), dx and the 10
-    gradients, two launches bitwise equal, in both modes."""
+    gradients, two launches bitwise equal, in both modes; then K2p at
+    the shapes of pair_fwd_shapes likewise."""
     from csmpn_torch.algebra import get_algebra
     from csmpn_torch.ops import cemlp_kernel as ck
 
-    print("K3p vs plain at one shape of each row tile instance")
+    print("K3p vs plain at one shape of each row tile instance; K2p at its "
+          "narrowest and widest C")
     rows = 1001
     for dim, kb, key in ((5, ck.PAIR, "k3p"), (4, ck.PAIR_CL4, "k3p_cl4")):
         alg = get_algebra((1.0,) * dim)
+        k2key = key.replace("k3p", "k2p")
+        for cin, c in pair_fwd_shapes(kb):
+            x, params, _ = block_inputs(rows, cin, c, gen, dev,
+                                        nb=alg.n_blades)
+            for exact in (True, False):
+                mode = "exact" if exact else "fast"
+                tag = f"K2p at Cl({dim}) {cin}->{c} (rows {rows}) {mode}"
+                out = ck.block_forward(x, params, alg, exact)
+                again = ck.block_forward(x, params, alg, exact)
+                ref = ck.block_forward_plain(x, params, alg, exact)
+                field = "max_abs_err" if exact else "max_abs_err_fast"
+                results[k2key][field] = max(
+                    results[k2key][field],
+                    check(tag, out, ref, TOL[f"{k2key}_{mode}"]))
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{tag}: two launches differ")
+                del out, again, ref
+            print(f"  K2p at Cl({dim}) {cin}->{c}: two launches bitwise "
+                  f"equal (exact and fast)")
+            del x, params
+            torch.cuda.empty_cache()
         for cin, c, ex, m in pair_tile_instance_shapes(kb):
             x, params, dout = block_inputs(rows, cin, c, gen, dev,
                                            nb=alg.n_blades)
@@ -1178,12 +1302,15 @@ def phase_fused(dev, gen, results):
 def cl2_layouts():
     """fused_layouts() at the NBA width: C = 40 (Cm 40), and Cm 28 + Ca 3
     -> C 28 where a layout has attributes; then the ragged layout at the
-    widest C the kernels take at Cl(2), 45."""
+    widest C the kernels take at Cl(2) at Cm = C, 45, and at CL2_SUB,
+    where the fast K4 sums sub-windows."""
     out = [(name, dst, n, cm if ca else N_HID, ca, c if ca else N_HID,
             masked) for name, dst, n, cm, ca, c, masked in fused_layouts()]
     name, dst, n, _, _, _, masked = out[4]
     return out + [(f"{name}, the widest C", dst, n, CL2_MAX_C, 0, CL2_MAX_C,
-                   masked)]
+                   masked),
+                  (f"{name}, C = {CL2_SUB[2]}: the fast K4 sums "
+                   f"sub-windows", dst, n, *CL2_SUB, masked)]
 
 
 def pair_layouts(max_edges=PAIR_MAX_EDGES):
@@ -2119,6 +2246,8 @@ def main() -> int:
                 print(f"  {name}.cu {fn}: {line.split(':', 1)[-1].strip()}")
     print_dense_smem()
     print_pair_smem(PAIR_SMEM_SHAPES)
+    print_pair_fwd_widths()
+    print_k4_widths()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     results = {}

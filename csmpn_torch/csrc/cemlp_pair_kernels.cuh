@@ -50,12 +50,13 @@
 // left in shared memory), each entry owned by one thread.  CTAs write
 // partial sums that a second kernel adds in a fixed order: no atomics,
 // bitwise repeatable.  The per-row device code is cemlp_pair.cuh, shared
-// with the pair-form fused message-passing kernels K4p/K5p.  This row
-// kernel is K3p in exact mode; in fast mode K3p is the row tile kernel of
-// cemlp_pair_tile.cuh (the linears and their weight gradients on the
-// tensor cores).
+// with the pair-form fused message-passing kernels K4p/K5p.  These row
+// kernels are K2p and K3p in exact mode; in fast mode K3p is the row tile
+// kernel of cemlp_pair_tile.cuh (the linears and their weight gradients on
+// the tensor cores) and K2p that of cemlp_pair_fwd_tile.cuh (the linears
+// on the tensor cores, the pair product unrolled at compile time).
 //
-// Precision: FAST = false is fp32 throughout.  FAST = true rounds to bf16
+// Precision: exact mode is fp32 throughout.  Fast mode rounds to bf16
 // the operands of each product that the TPU kernel feeds its matrix unit
 // (`_cast_pair`/`_dot*`), and accumulates in fp32.  In the pair form that
 // includes the pair product z_i * yn_k * w (the operand of the S4 sum;
@@ -64,11 +65,14 @@
 #pragma once
 
 #include "cemlp_pair.cuh"
+#include "cemlp_pair_fwd_tile.cuh"
 #include "cemlp_pair_tile.cuh"
 
 namespace {
 
-template <class A, class K, bool FAST>
+// The exact forward (fp32 throughout); the fast one is the row tile kernel
+// of cemlp_pair_fwd_tile.cuh.
+template <class A, class K>
 __global__ void __launch_bounds__(K::THREADS_F)
 cemlp_pair_fwd_kernel(const float* __restrict__ x, Params p, Tabs<A> tb,
                       const uint16_t* __restrict__ tabs,
@@ -82,7 +86,7 @@ cemlp_pair_fwd_kernel(const float* __restrict__ x, Params p, Tabs<A> tb,
   float* sc = smem + params_floats<A>(cin, c) + A::TAB_FLOATS;  // [WARPS][32]
   float* xch = sc + K::WARPS_F * 32;                          // [ROWS][XCH]
   float* rowbuf = xch + K::ROWS_F * A::XCH;
-  stage_params<A, FAST>(p, s, cin, c, K::THREADS_F);
+  stage_params<A, false>(p, s, cin, c, K::THREADS_F);
   const int tid = threadIdx.x + 32 * threadIdx.y;
   for (int e = tid; e < NB * NB; e += K::THREADS_F) t1[e] = tabs[e];
   __syncthreads();
@@ -100,10 +104,10 @@ cemlp_pair_fwd_kernel(const float* __restrict__ x, Params p, Tabs<A> tb,
        row += (int64_t)gridDim.x * K::ROWS_F) {
     team_sync<A>(tm);   // the previous row's output is written
     for (int m = tm.h; m < cin; m += tm.nh)
-      xs[m * RP + l.id] = rnd<FAST>(x[(row * cin + m) * NB + l.id]);
+      xs[m * RP + l.id] = x[(row * cin + m) * NB + l.id];
     team_sync<A>(tm);
-    const float mden = row_forward<A, FAST>(s, l, tm, t1, xs, zs, nullptr,
-                                            os, scw, cin, c);
+    const float mden = row_forward<A, false>(s, l, tm, t1, xs, zs, nullptr,
+                                             os, scw, cin, c);
     for (int n = tm.h; n < c; n += tm.nh)
       out[(row * c + n) * NB + l.id] = s.aln[n] / mden * os[n * RP + l.id];
   }
@@ -250,27 +254,22 @@ size_t smem_bytes(int cin, int c, int backward) {
   return n > kMaxSmem ? 0 : n;
 }
 
+// Fast mode: the row tile kernel; exact mode: the row kernel.
 template <class A, class K>
 int launch_fwd(const float* x, Params p, const float* bc,
                const uint16_t* tabs, float* out, int rows, int cin, int c,
                int fast, int grid, void* stream) {
-  const size_t bytes = smem_bytes<A, K>(cin, c, 0);
-  if (bytes == 0) return (int)cudaErrorInvalidValue;
   Tabs<A> tb = make_tabs<A>(bc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 block(32, K::WARPS_F);
+  if (fast)
+    return launch_pair_tile_fwd<A>(x, p, tb, out, rows, cin, c, grid, st);
+  const size_t bytes = smem_bytes<A, K>(cin, c, 0);
+  if (bytes == 0) return (int)cudaErrorInvalidValue;
   if (rows > 0) {
-    if (fast) {
-      cudaFuncSetAttribute(cemlp_pair_fwd_kernel<A, K, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      cemlp_pair_fwd_kernel<A, K, true><<<grid, block, bytes, st>>>(
-          x, p, tb, tabs, out, rows, cin, c);
-    } else {
-      cudaFuncSetAttribute(cemlp_pair_fwd_kernel<A, K, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      cemlp_pair_fwd_kernel<A, K, false><<<grid, block, bytes, st>>>(
-          x, p, tb, tabs, out, rows, cin, c);
-    }
+    cudaFuncSetAttribute(cemlp_pair_fwd_kernel<A, K>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    cemlp_pair_fwd_kernel<A, K><<<grid, dim3(32, K::WARPS_F), bytes, st>>>(
+        x, p, tb, tabs, out, rows, cin, c);
   }
   return (int)cudaGetLastError();
 }
@@ -333,6 +332,11 @@ int launch_bwd(const float* x, const float* dout, Params p, const float* bc,
   }                                                                           \
   int PREFIX##_tile_maxt(int cin, int c) {                                    \
     return pair_tile_maxt<ALG>(cin, c);                                       \
+  }                                                                           \
+  /* shared-memory bytes of the fast forward (the row tiles; 0 if the       \
+     widths do not fit) */                                                    \
+  size_t PREFIX##_fwd_tile_smem_bytes(int cin, int c) {                       \
+    return pair_fwd_tile_smem_bytes<ALG>(cin, c);                             \
   }                                                                           \
   /* the structure the kernels assume: i_of, path ids and signs of the       \
      pairs [j * NB + k], grades (NB), for the host to check */               \

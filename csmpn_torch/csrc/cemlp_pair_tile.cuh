@@ -88,13 +88,16 @@ __host__ __device__ inline size_t pt_al16(size_t b) {
   return (b + 15) & ~(size_t)15;
 }
 
-template <class A>
+// A step of R rows on WARPS warps: by default the backward's.
+template <class A, int R_ = PT_PAIRS / A::NB, int WARPS_ = A::NB == 32 ? 12
+                                                                      : 8>
 struct PTile {
   static constexpr int NB = A::NB, NG = A::NG;
-  static constexpr int R = PT_PAIRS / NB;         // rows a step
-  // warps a CTA: three row members a row, as many as the registers allow
-  // (the weight-gradient tiles take fewer a warp with more warps)
-  static constexpr int WARPS = NB == 32 ? 12 : 8, THREADS = 32 * WARPS;
+  static constexpr int R = R_;                    // rows a step
+  // the backward's warps: three row members a row at Cl(5), as many as the
+  // registers allow (the weight-gradient tiles take fewer a warp with more
+  // warps)
+  static constexpr int WARPS = WARPS_, THREADS = 32 * WARPS;
   static constexpr int MR = R * (NB + 1);         // tile rows
   static constexpr int ZROW = NB;                 // a zero tile row
   static constexpr int WPR = WARPS / R;           // warps a row (row phase)
@@ -118,16 +121,18 @@ struct PTile {
   }
 };
 
-// A launch's geometry and the byte offsets of its shared regions.
+// A launch's geometry and the byte offsets of its shared regions, for the
+// step P.  The forward (cemlp_pair_fwd_tile.cuh, K2p; fwd = true) takes
+// the weights, parameters, row lists, x, z, fa and fb, and no others.
 struct PLayout {
   int cin, c, c2, kin, kc, nt, ntm, ldx, ldc, fp, mt;
   size_t w1, wr, wl, prm, tab, ml, x, z, df, dr, yd, fa, fb, loc, gacc,
       sacc, sc, ps, xch, wd, total;
 };
 
-template <class A>
-__host__ __device__ inline PLayout pair_tile_layout(int cin, int c) {
-  using P = PTile<A>;
+template <class A, class P = PTile<A>>
+__host__ __device__ inline PLayout pair_tile_layout(int cin, int c,
+                                                    bool fwd = false) {
   constexpr int NG = A::NG, NP = A::NP;
   PLayout L;
   L.cin = cin;
@@ -147,26 +152,27 @@ __host__ __device__ inline PLayout pair_tile_layout(int cin, int c) {
     o += pt_al16(bytes);
     return at;
   };
+  const size_t b = fwd ? 0 : 1;   // the backward's regions
   L.w1 = take(2 * (size_t)(NG * c + 1) * L.ldx);
   L.wr = take(2 * (size_t)(NG * c + 1) * L.ldc);
   L.wl = take(2 * (size_t)(NG * c + 1) * L.ldc);
   L.prm = take(4 * ((size_t)c * (3 * NG + 3) + (size_t)NP * L.fp));
-  L.tab = take(2 * (size_t)A::TAB_LEN);
+  L.tab = take(b * 2 * A::TAB_LEN);
   L.ml = take(2 * (size_t)L.mt * 17 + 2 * (NG + 1));
   L.x = take(2 * (size_t)P::MR * L.ldx);
   L.z = take(2 * (size_t)P::MR * L.ldc);
-  L.df = take(2 * (size_t)P::MR * L.ldc);
-  L.dr = take(2 * (size_t)P::MR * L.ldc);
-  L.yd = take(2 * (size_t)P::MR * L.ldc);
+  L.df = take(b * 2 * P::MR * L.ldc);
+  L.dr = take(b * 2 * P::MR * L.ldc);
+  L.yd = take(b * 2 * P::MR * L.ldc);
   L.fa = take(4 * ((size_t)P::MR * L.fp + 8));
   L.fb = take(4 * ((size_t)P::MR * L.fp + 8));
-  L.loc = take(4 * (size_t)P::R * P::NLOC * c);
-  L.gacc = take(4 * (size_t)NP * c);
-  L.sacc = take(4 * (size_t)P::NSIL * P::R * c);
-  L.sc = take(4 * (size_t)P::WARPS * 32 * PT_GROUP);
-  L.ps = take(4 * (size_t)P::WARPS * 4 * 32);
-  L.xch = take(4 * (size_t)P::R * A::XCH);
-  L.wd = take(4 * (size_t)P::WARPS * 32);
+  L.loc = take(b * 4 * P::R * P::NLOC * c);
+  L.gacc = take(b * 4 * NP * c);
+  L.sacc = take(b * 4 * P::NSIL * P::R * c);
+  L.sc = take(b * 4 * P::WARPS * 32 * PT_GROUP);
+  L.ps = take(b * 4 * P::WARPS * 4 * 32);
+  L.xch = take(b * 4 * P::R * A::XCH);
+  L.wd = take(b * 4 * P::WARPS * 32);
   L.total = o;
   return L;
 }
@@ -267,12 +273,12 @@ __device__ inline PBufs<A> carve_pbufs(char* base, const PLayout& L) {
 
 // Zeroes all of shared memory, then stages the parameters (the linears'
 // weights rounded to bf16, silu.a rounded, sigmoid(normalization.a), the
-// path weights fp32), the packed tables and the M tiles' row lists.
-template <class A>
+// path weights fp32), the M tiles' row lists and, for the backward
+// (!FWD), the packed tables and the weight-gradient tiles.
+template <class A, bool FWD = false, class P = PTile<A>>
 __device__ void stage_pair_tile(const Params& p, const uint16_t* tabs,
                                 const PBufs<A>& b, const PLayout& L,
                                 char* base) {
-  using P = PTile<A>;
   constexpr int NG = A::NG, NP = A::NP, NB = A::NB;
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int c = L.c, cin = L.cin;
@@ -304,8 +310,10 @@ __device__ void stage_pair_tile(const Params& p, const uint16_t* tabs,
     b.bl[e] = p.bl[e];
     b.aln[e] = p.aln[e];
   }
-  uint16_t* tab = const_cast<uint16_t*>(b.t1);
-  for (int e = tid; e < A::TAB_LEN; e += P::THREADS) tab[e] = tabs[e];
+  if (!FWD) {
+    uint16_t* tab = const_cast<uint16_t*>(b.t1);
+    for (int e = tid; e < A::TAB_LEN; e += P::THREADS) tab[e] = tabs[e];
+  }
   // M tile t of grade g holds the grade's (row, blade) pairs 16 (t - first)
   // ... + 15, row by row; past the last pair, the zero row
   for (int q = tid; q < 16 * L.mt; q += P::THREADS) {
@@ -318,8 +326,12 @@ __device__ void stage_pair_tile(const Params& p, const uint16_t* tabs,
                             : P::ZROW);
     if (q % 16 == 0) b.mtg[t] = (short)g;
   }
-  for (int e = tid; e < P::WARPS * 32; e += P::THREADS)   // [warp][j]
-    b.wd[e] = pack_wtile<A>(L, e / 32 + P::WARPS * (e % 32));
+  // after the row lists, as before the forward shared this function: with
+  // these first, ptxas allocated K3p's registers at Cl(5) otherwise,
+  // spilled ~4% more and ran 6% slower (PERF.md)
+  if (!FWD)
+    for (int e = tid; e < P::WARPS * 32; e += P::THREADS)   // [warp][j]
+      b.wd[e] = pack_wtile<A>(L, e / 32 + P::WARPS * (e % 32));
   if (tid == 0) {
     int first = 0;
     for (int g = 0; g < NG; ++g) {
@@ -708,12 +720,11 @@ __device__ __forceinline__ void pair_gates(float (&y)[A::NB],
 
 // The x tile of the step: rows row0 .. row0 + nrow - 1 of x, rounded to
 // bf16, at tile rows r * (NB + 1) + i, column m.
-template <class A>
+template <class A, class P = PTile<A>>
 __device__ __forceinline__ void load_pair_x(const float* __restrict__ x,
                                             const PBufs<A>& b,
                                             const PLayout& L, int64_t row0,
                                             int nrow) {
-  using P = PTile<A>;
   constexpr int NB = A::NB;
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const float4* src =
@@ -737,6 +748,70 @@ __device__ __forceinline__ void load_pair_x(const float* __restrict__ x,
       dst[2 * L.ldx] = __float2bfloat16_rn(v[u].z);
       dst[3 * L.ldx] = __float2bfloat16_rn(v[u].w);
     }
+  }
+}
+
+// The step's three linears and MVSiLU, the phases the forward (K2p) and
+// the backward (K3p) share; each ends before a barrier.  c is the
+// caller's output width (L.c), passed so that the kernel keeps one copy
+// of it live (with L.c beside it the backward spilled more).
+// F1: Y = X W1 -> fa.
+template <class A, class P = PTile<A>>
+__device__ __forceinline__ void pt_f1(const PBufs<A>& b, const PLayout& L,
+                                      int c, int warp, int lane) {
+  const int zw1 = A::NG * c;   // the weights' zero row
+  for (int task = warp; task < L.mt * L.nt; task += P::WARPS) {
+    const int t = task / L.nt, n0 = 8 * (task % L.nt);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    p_linear(acc, b.x, L.ldx, L.kin, b.w1, L.ldx, b.mtg[t], c, zw1,
+             b.mrow + 16 * t, n0, lane);
+    p_store(acc, b.fa, L.fp, c, b.mrow + 16 * t, n0, P::ZROW, lane);
+  }
+}
+
+// S1: MVSiLU, a thread per (row, channel) -> z (zero past the step's
+// nrow rows).
+template <class A, class P = PTile<A>>
+__device__ __forceinline__ void pt_s1(const PBufs<A>& b, const PLayout& L,
+                                      const Tabs<A>& tb, int c, int nrow) {
+  constexpr int NB = A::NB, NG = A::NG;
+  const int tid = threadIdx.x + 32 * threadIdx.y;
+  for (int it = tid; it < P::R * c; it += P::THREADS) {
+    const int r = it / c, n = it % c, t0 = r * (NB + 1);
+    float y[NB], inv[NG], sg[NG];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) y[i] = b.fa[(t0 + i) * L.fp + n];
+    pair_gates<A>(y, b, tb, n, c, inv, sg);
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      b.z[(t0 + i) * L.ldc + n] = __float2bfloat16_rn(
+          r < nrow ? rnd<true>(sg[A::grade(i)] * y[i]) : 0.f);
+  }
+}
+
+// F2: YR = z Wr -> fb, FI = z WL -> fa, one z fragment for both.
+template <class A, class P = PTile<A>>
+__device__ __forceinline__ void pt_f2(const PBufs<A>& b, const PLayout& L,
+                                      int c, int warp, int lane) {
+  const int zw1 = A::NG * c;
+  for (int task = warp; task < L.mt * L.nt; task += P::WARPS) {
+    const int t = task / L.nt, n0 = 8 * (task % L.nt), g = b.mtg[t];
+    const short* mr = b.mrow + 16 * t;
+    float ar[4] = {0.f, 0.f, 0.f, 0.f}, al[4] = {0.f, 0.f, 0.f, 0.f};
+    const bf16* arow = b.z + (size_t)mr[lane & 15] * L.ldc + (lane >> 4) * 8;
+    const int n = n0 + (lane & 7);
+    const size_t wrow = (size_t)(n < c ? g * c + n : zw1) * L.ldc +
+                        ((lane >> 3) & 1) * 8;
+    for (int ks = 0; ks < L.kc; ks += 16) {
+      uint32_t af[4], br[2], bl[2];
+      ldsm4(af, arow + ks);
+      ldsm2(br, b.wr + wrow + ks);
+      ldsm2(bl, b.wl + wrow + ks);
+      mma_bf16_s(ar, af, br);
+      mma_bf16_s(al, af, bl);
+    }
+    p_store(ar, b.fb, L.fp, c, mr, n0, P::ZROW, lane);
+    p_store(al, b.fa, L.fp, c, mr, n0, P::ZROW, lane);
   }
 }
 
@@ -778,48 +853,11 @@ cemlp_pair_bwd_tile_kernel(const float* __restrict__ x,
     __syncthreads();   // the previous step's tiles are consumed
     load_pair_x<A>(x, b, L, row0, nrow);
     __syncthreads();
-    // ---- F1: Y = X W1 -> fa
-    for (int task = warp; task < L.mt * L.nt; task += P::WARPS) {
-      const int t = task / L.nt, n0 = 8 * (task % L.nt);
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      p_linear(acc, b.x, L.ldx, L.kin, b.w1, L.ldx, b.mtg[t], c, zw1,
-               b.mrow + 16 * t, n0, lane);
-      p_store(acc, b.fa, L.fp, c, b.mrow + 16 * t, n0, P::ZROW, lane);
-    }
+    pt_f1<A>(b, L, c, warp, lane);  // Y = X W1 -> fa
     __syncthreads();
-    // ---- S1: MVSiLU -> z (zero past the step's rows)
-    for (int it = tid; it < R * c; it += P::THREADS) {
-      const int r = it / c, n = it % c, t0 = r * (NB + 1);
-      float y[NB], inv[NG], sg[NG];
-#pragma unroll
-      for (int i = 0; i < NB; ++i) y[i] = b.fa[(t0 + i) * L.fp + n];
-      pair_gates<A>(y, b, tb, n, c, inv, sg);
-#pragma unroll
-      for (int i = 0; i < NB; ++i)
-        b.z[(t0 + i) * L.ldc + n] = __float2bfloat16_rn(
-            r < nrow ? rnd<true>(sg[A::grade(i)] * y[i]) : 0.f);
-    }
+    pt_s1<A>(b, L, tb, c, nrow);  // MVSiLU -> z
     __syncthreads();
-    // ---- F2: YR = z Wr -> fb, FI = z WL -> fa, one z fragment for both
-    for (int task = warp; task < L.mt * L.nt; task += P::WARPS) {
-      const int t = task / L.nt, n0 = 8 * (task % L.nt), g = b.mtg[t];
-      const short* mr = b.mrow + 16 * t;
-      float ar[4] = {0.f, 0.f, 0.f, 0.f}, al[4] = {0.f, 0.f, 0.f, 0.f};
-      const bf16* arow = b.z + (size_t)mr[lane & 15] * L.ldc + (lane >> 4) * 8;
-      const int n = n0 + (lane & 7);
-      const size_t wrow = (size_t)(n < c ? g * c + n : zw1) * L.ldc +
-                          ((lane >> 3) & 1) * 8;
-      for (int ks = 0; ks < L.kc; ks += 16) {
-        uint32_t af[4], br[2], bl[2];
-        ldsm4(af, arow + ks);
-        ldsm2(br, b.wr + wrow + ks);
-        ldsm2(bl, b.wl + wrow + ks);
-        mma_bf16_s(ar, af, br);
-        mma_bf16_s(al, af, bl);
-      }
-      p_store(ar, b.fb, L.fp, c, mr, n0, P::ZROW, lane);
-      p_store(al, b.fa, L.fp, c, mr, n0, P::ZROW, lane);
-    }
+    pt_f2<A>(b, L, c, warp, lane);  // YR = z Wr -> fb, FI = z WL -> fa
     __syncthreads();
     // ---- the row phase (rows past nrow: zero cotangents)
     if (r_team < nrow) {

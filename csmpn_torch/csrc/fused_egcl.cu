@@ -52,15 +52,17 @@
 //     the one launch: both forwards and the block-2 backward, which writes
 //     block 2's dx rows to scratch; then block 1's forward (recomputed) and
 //     backward from them.
-//   * that is the exact-mode K5.  In fast mode K5 is the row tiles of
-//     cemlp_tile.cuh (`fused_mp_bwd_tile_kernel`): 16 edge rows of a window
-//     a step, the channel-mixing linears and their weight gradients as
-//     bf16 mma.sync products, the weight gradients in registers for a whole
-//     sweep, so nothing is read back and written per tile in device memory.
-//     It sweeps the windows three times, as three launches, each CTA
-//     taking the same windows (see `fused_mp_bwd_tile_kernel`).
+//   * those are the exact-mode K4 and K5.  In fast mode both are the row
+//     tiles of cemlp_tile.cuh: 16 edge rows of a window a step, the
+//     channel-mixing linears (and K5's weight gradients) as bf16 mma.sync
+//     products.  K4 (`fused_mp_fwd_tile_kernel`) runs both blocks' forwards
+//     a step and adds the message rows into the window's sum as the row
+//     kernel does.  K5 keeps its weight gradients in registers for a whole
+//     sweep, so nothing is read back and written per tile in device
+//     memory, and sweeps the windows three times, as three launches, each
+//     CTA taking the same windows (see `fused_mp_bwd_tile_kernel`).
 //
-// Precision: FAST = false is fp32 throughout.  FAST = true streams h, hj
+// Precision: exact mode is fp32 throughout.  Fast mode streams h, hj
 // and attr as bf16, rounds the message before the first linear and block 1's
 // output before the second (as K2 does), rounds each message row to bf16
 // before the sum, gathers d(agg) bf16-rounded, writes dhj and dattr as
@@ -73,12 +75,13 @@
 namespace {
 
 // Block-1 input rows of a tile, x = [h[dst] - hj, attr], into shared memory
-// as [r][i][m] (rounded in fast mode; rows past `end` are zero), and each
+// as [r][i][m] (rows past `end` are zero), and each
 // row's target offset in the window (-1 for a masked edge or a row past
 // `end`).
-template <class A, typename T, bool FAST>
-__device__ void load_msg_tile(const T* __restrict__ h, const T* __restrict__ hj,
-                              const T* __restrict__ attr,
+template <class A>
+__device__ void load_msg_tile(const float* __restrict__ h,
+                              const float* __restrict__ hj,
+                              const float* __restrict__ attr,
                               const int* __restrict__ dst,
                               const uint8_t* __restrict__ mask, int64_t row0,
                               int64_t end, int base, int cm, int ca,
@@ -98,18 +101,17 @@ __device__ void load_msg_tile(const T* __restrict__ h, const T* __restrict__ hj,
     float v = 0.f;
     if (row < end) {
       if (m < cm)
-        v = ldf(h + (int64_t)dst[row] * cm * NB + rem) -
-            ldf(hj + row * cm * NB + rem);
+        v = h[(int64_t)dst[row] * cm * NB + rem] - hj[row * cm * NB + rem];
       else
-        v = ldf(attr + row * ca * NB + (rem - cm * NB));
+        v = attr[row * ca * NB + (rem - cm * NB)];
     }
-    xs[(r * NB + i) * cin + m] = rnd<FAST>(v);
+    xs[(r * NB + i) * cin + m] = v;
   }
 }
 
-// A block's output for this lane's channel slots, rounded in fast mode:
+// A block's output for this lane's channel slots:
 // out[i * si + n * sn] = aln[n] / m * o[i] for every channel n < c it owns.
-template <class A, bool FAST>
+template <class A>
 __device__ __forceinline__ void write_scaled(const Fwd<A> (&f)[A::SLOTS],
                                              const Smem& s, float* out,
                                              int si, int sn, int c,
@@ -121,15 +123,17 @@ __device__ __forceinline__ void write_scaled(const Fwd<A> (&f)[A::SLOTS],
     const float scale = s.aln[n] / f[u].m;
 #pragma unroll
     for (int i = 0; i < A::NB; ++i)
-      out[i * si + n * sn] = rnd<FAST>(scale * f[u].o[i]);
+      out[i * si + n * sn] = scale * f[u].o[i];
   }
 }
 
-template <class A, bool FAST>
+// K4 in exact mode (fp32 throughout); the fast one is
+// fused_mp_fwd_tile_kernel.
+template <class A>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_mp_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
-                    const typename Stream<FAST>::T* __restrict__ hj,
-                    const typename Stream<FAST>::T* __restrict__ attr,
+fused_mp_fwd_kernel(const float* __restrict__ h,
+                    const float* __restrict__ hj,
+                    const float* __restrict__ attr,
                     const int* __restrict__ dst,
                     const uint8_t* __restrict__ mask,
                     const int64_t* __restrict__ bounds, Params p1, Params p2,
@@ -147,8 +151,8 @@ fused_mp_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   float* ys = xs2 + ROWS * NB * c;             // [ROWS][c][NB] messages
   float* acc = ys + ROWS * NB * c;             // [wn][c][NB] window sum
   int* dloc = reinterpret_cast<int*>(acc + gm.wn * per_node);   // [ROWS]
-  stage_params<A, FAST>(p1, s1, cin1, c);
-  stage_params<A, FAST>(p2, s2, c, c);
+  stage_params<A, false>(p1, s1, cin1, c);
+  stage_params<A, false>(p2, s2, c, c);
 
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int lane = threadIdx.x, r = threadIdx.y;
@@ -158,20 +162,20 @@ fused_mp_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
     for (int e = tid; e < gm.wn * per_node; e += THREADS) acc[e] = 0.f;
     for (int64_t row0 = e0; row0 < e1; row0 += ROWS) {
       __syncthreads();   // staging done / previous tile summed
-      load_msg_tile<A, typename Stream<FAST>::T, FAST>(
+      load_msg_tile<A>(
           h, hj, attr, dst, mask, row0, e1, base, gm.cm, gm.ca, xs1, dloc);
       __syncthreads();
       if (row0 + r < e1) {   // whole warp: no shuffle partner missing
         float* zt = zs + r * NB * c;
         float* xr2 = xs2 + r * NB * c;
         Fwd<A> f[S];
-        block_forward<A, FAST>(f, s1, tb, xs1 + r * NB * cin1, zt, cin1, c,
+        block_forward<A, false>(f, s1, tb, xs1 + r * NB * cin1, zt, cin1, c,
                                lane);
         // block 2 reads its input rounded, as K2 does
-        write_scaled<A, FAST>(f, s1, xr2, c, 1, c, lane);
+        write_scaled<A>(f, s1, xr2, c, 1, c, lane);
         __syncwarp();
-        block_forward<A, FAST>(f, s2, tb, xr2, zt, c, c, lane);
-        write_scaled<A, FAST>(f, s2, ys + r * per_node, 1, NB, c, lane);
+        block_forward<A, false>(f, s2, tb, xr2, zt, c, c, lane);
+        write_scaled<A>(f, s2, ys + r * per_node, 1, NB, c, lane);
       }
       __syncthreads();
       const int nrow = (int)(e1 - row0 < ROWS ? e1 - row0 : ROWS);
@@ -271,7 +275,7 @@ fused_mp_bwd_kernel(const float* __restrict__ h,
       const int64_t e0 = bounds[w], e1 = bounds[w + 1];
       for (int64_t row0 = e0; row0 < e1; row0 += ROWS) {
         __syncthreads();   // staging and zeroing done / previous tile used
-        load_msg_tile<A, float, false>(
+        load_msg_tile<A>(
             h, hj, attr, dst, mask, row0, e1, base, cm, ca, xs1, dloc);
         __syncthreads();
         const int64_t row = row0 + r;
@@ -279,7 +283,7 @@ fused_mp_bwd_kernel(const float* __restrict__ h,
           const int d = dloc[r];
           Fwd<A> f[S];
           block_forward<A, false>(f, s1, tb, xr1, zt1, cin1, c, lane);
-          write_scaled<A, false>(f, s1, xr2, c, 1, c, lane);
+          write_scaled<A>(f, s1, xr2, c, 1, c, lane);
           __syncwarp();
           block_forward<A, false>(f, s2, tb, xr2, zs2 + r * NB * c, c, c,
                                  lane);
@@ -320,7 +324,7 @@ fused_mp_bwd_kernel(const float* __restrict__ h,
       for (int e = tid; e < gm.wn * msg_w; e += THREADS) dhw[e] = 0.f;
       for (int64_t row0 = e0; row0 < e1; row0 += ROWS) {
         __syncthreads();
-        load_msg_tile<A, float, false>(
+        load_msg_tile<A>(
             h, hj, attr, dst, mask, row0, e1, base, cm, ca, xs1, dloc);
         __syncthreads();
         const int64_t row = row0 + r;
@@ -751,23 +755,165 @@ size_t tile_smem_bytes(int cm, int ca, int c, int wn) {
   return bytes;
 }
 
+// K4 in fast mode: the row tiles of cemlp_tile.cuh, TROWS edge rows of a
+// window a step: the step's message tile (load_msg_tile_bf16), block 1's
+// forward into the bf16 x2 tile (tile_block_forward: F1 and F2 on the
+// tensor cores, the row phase a warp per row), block 2's forward from x2,
+// whose output rows (the messages, rounded to bf16) it writes over x2
+// once its F1 has read it; then each element of the message rows is added
+// into the window's fp32 sum in shared memory by one thread, the step's
+// rows in order.  Both blocks' parameters are staged once (bf16 weights).
+// The sum is written once.  Where a whole window's sum does not fit in
+// shared memory beside the rest (at Cl(2), C of 49 and more), a CTA takes
+// its window in sub-windows of wsub targets, each edge range found by a
+// search in dst and each sub-window's sum written once.
+
+// Shared-memory bytes of the fast forward summing wsub targets at a time,
+// in the order the kernel carves them.
+template <class A>
+__host__ __device__ inline size_t fwd_tile_bytes(int cm, int ca, int c,
+                                                 int wsub) {
+  const TileGeom t1 = tile_geom(cm + ca, c), t2 = tile_geom(c, c);
+  return tparams_bytes<A>(t1) + tparams_bytes<A>(t2) +
+         al16(2 * (size_t)A::NB * TROWS * t1.ldb) +      // x1
+         2 * al16(2 * (size_t)A::NB * TROWS * t2.ldc) +  // z, x2
+         2 * al16(4 * (size_t)A::NB * TROWS * t2.fp) +   // yr, first
+         al16(4 * (size_t)wsub * A::NB * (c | 1)) +      // the sum
+         al16(4 * TROWS);                                // the rows' targets
+}
+
+// The targets the fast forward sums at a time: the window's wn, else the
+// widest of 16 and 8 that fits; 0 where none does.
+template <class A>
+int fwd_tile_wsub(int cm, int ca, int c, int wn) {
+  if (!widths_ok<A>(cm, ca, c, wn) || c > 64) return 0;
+  const int cand[3] = {wn, 16, 8};
+  for (int k = 0; k < 3; ++k)
+    if (cand[k] <= wn && fwd_tile_bytes<A>(cm, ca, c, cand[k]) <= kMaxSmem)
+      return cand[k];
+  return 0;
+}
+
+template <class A>
+size_t fwd_tile_smem_bytes(int cm, int ca, int c, int wn) {
+  const int wsub = fwd_tile_wsub<A>(cm, ca, c, wn);
+  return wsub == 0 ? 0 : fwd_tile_bytes<A>(cm, ca, c, wsub);
+}
+
+template <class A>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_mp_fwd_tile_kernel(const bf16* __restrict__ h,
+                         const bf16* __restrict__ hj,
+                         const bf16* __restrict__ attr,
+                         const int* __restrict__ dst,
+                         const uint8_t* __restrict__ mask,
+                         const int64_t* __restrict__ bounds, Params p1,
+                         Params p2, Tabs<A> tb, float* __restrict__ out,
+                         Geom gm, int wsub) {
+  constexpr int NB = A::NB;
+  extern __shared__ float smem[];
+  const int cm = gm.cm, ca = gm.ca, c = gm.c, cp = c | 1, out_w = c * NB;
+  const TileGeom t1 = tile_geom(cm + ca, c), t2 = tile_geom(c, c);
+  // carved as fwd_tile_bytes counts
+  TParams s1, s2;
+  char* q = carve_tparams<A>(reinterpret_cast<char*>(smem), t1, s1);
+  q = carve_tparams<A>(q, t2, s2);
+  bf16* x1 = reinterpret_cast<bf16*>(q);   // [NB][TROWS][t1.ldb]
+  q += al16(2 * (size_t)NB * TROWS * t1.ldb);
+  TileBufs b{};   // the forward's tiles, in t2's geometry: z, yr, first
+  b.z = reinterpret_cast<bf16*>(q);
+  q += al16(2 * (size_t)NB * TROWS * t2.ldc);
+  bf16* x2 = reinterpret_cast<bf16*>(q);   // block 2's input, then output
+  q += al16(2 * (size_t)NB * TROWS * t2.ldc);
+  b.yr = reinterpret_cast<float*>(q);
+  q += al16(4 * (size_t)NB * TROWS * t2.fp);
+  b.ff = reinterpret_cast<float*>(q);
+  q += al16(4 * (size_t)NB * TROWS * t2.fp);
+  float* acc = reinterpret_cast<float*>(q);   // [wsub][NB][cp]
+  q += al16(4 * (size_t)wsub * NB * cp);
+  int* dloc = reinterpret_cast<int*>(q);      // [TROWS]
+  stage_tparams<A>(p1, s1, t1);
+  stage_tparams<A>(p2, s2, t2);
+  zero_bf16(x1, NB * TROWS * t1.ldb);   // the padded columns stay zero
+  zero_bf16(b.z, NB * TROWS * t2.ldc);
+  zero_bf16(x2, NB * TROWS * t2.ldc);
+
+  const int warp = threadIdx.y, lane = threadIdx.x;
+  const int tid = lane + 32 * warp;
+  const int n_sub = (gm.wn + wsub - 1) / wsub;
+  for (int w = blockIdx.x; w < gm.n_win; w += gridDim.x) {
+    const int64_t we0 = bounds[w], we1 = bounds[w + 1];
+    for (int sw = 0; sw < n_sub; ++sw) {
+      const int base = w * gm.wn + sw * wsub;
+      if (base >= gm.n_nodes) break;
+      const int64_t e0 = sw == 0 ? we0 : lower_edge(dst, we0, we1, base);
+      const int64_t e1 =
+          sw == n_sub - 1 ? we1 : lower_edge(dst, we0, we1, base + wsub);
+      __syncthreads();   // staging done / the previous sum written
+      for (int e = tid; e < wsub * NB * cp; e += THREADS) acc[e] = 0.f;
+      for (int64_t row0 = e0; row0 < e1; row0 += TROWS) {
+        const int nrow = e1 - row0 < TROWS ? (int)(e1 - row0) : TROWS;
+        __syncthreads();   // the sum zeroed / the previous step's added
+        load_msg_tile_bf16<A>(h, hj, attr, dst, mask, row0, nrow, base, cm,
+                              ca, x1, t1.ldb, dloc);
+        __syncthreads();
+        tile_block_forward<A>(s1, tb, x1, b, t1, nrow, x2, t2.ldb, warp,
+                              lane);
+        tile_block_forward<A>(s2, tb, x2, b, t2, nrow, x2, t2.ldb, warp,
+                              lane);
+        // element (i, n) of every message row, by one thread, rows in order
+        for (int e = tid; e < out_w; e += THREADS) {
+          const int i = e / c, n = e % c;
+          const bf16* m = x2 + (size_t)i * TROWS * t2.ldb + n;
+          float* a = acc + i * cp + n;
+          for (int r = 0; r < nrow; ++r) {
+            const int d = dloc[r];
+            if (d >= 0)
+              a[d * NB * cp] += __bfloat162float(m[(size_t)r * t2.ldb]);
+          }
+        }
+      }
+      __syncthreads();
+      int nn = gm.n_nodes - base < wsub ? gm.n_nodes - base : wsub;
+      nn = (w + 1) * gm.wn - base < nn ? (w + 1) * gm.wn - base : nn;
+      for (int e = tid; e < nn * out_w; e += THREADS) {
+        const int v = e / out_w, n = (e / NB) % c, i = e % NB;
+        out[(int64_t)base * out_w + e] = acc[(v * NB + i) * cp + n];
+      }
+    }
+  }
+}
+
 Params params_at(const float* const* pp) {
   return Params{pp[0], pp[1], pp[2], pp[3], pp[4],
                 pp[5], pp[6], pp[7], pp[8], pp[9]};
 }
 
-template <class A, bool FAST>
+// Fast mode: the row tiles at the widest sum that fits; exact mode: the
+// row kernel.
+template <class A>
 int launch_fwd(const void* h, const void* hj, const void* attr,
                const int* dst, const uint8_t* mask, const int64_t* bounds,
                const float* const* params, Tabs<A> tb, float* out, Geom gm,
-               int grid, cudaStream_t st) {
-  using T = typename Stream<FAST>::T;
+               int fast, int grid, cudaStream_t st) {
+  if (fast) {
+    const int wsub = fwd_tile_wsub<A>(gm.cm, gm.ca, gm.c, gm.wn);
+    const size_t bytes = fwd_tile_bytes<A>(gm.cm, gm.ca, gm.c, wsub);
+    cudaFuncSetAttribute(fused_mp_fwd_tile_kernel<A>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    fused_mp_fwd_tile_kernel<A><<<grid, dim3(32, TWARPS), bytes, st>>>(
+        static_cast<const bf16*>(h), static_cast<const bf16*>(hj),
+        static_cast<const bf16*>(attr), dst, mask, bounds, params_at(params),
+        params_at(params + 10), tb, out, gm, wsub);
+    return (int)cudaGetLastError();
+  }
   const size_t bytes = fwd_smem_bytes<A>(gm.cm, gm.ca, gm.c, gm.wn);
-  cudaFuncSetAttribute(fused_mp_fwd_kernel<A, FAST>,
+  cudaFuncSetAttribute(fused_mp_fwd_kernel<A>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  fused_mp_fwd_kernel<A, FAST><<<grid, dim3(32, ROWS), bytes, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(hj),
-      static_cast<const T*>(attr), dst, mask, bounds, params_at(params),
+  fused_mp_fwd_kernel<A><<<grid, dim3(32, ROWS), bytes, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(hj),
+      static_cast<const float*>(attr), dst, mask, bounds, params_at(params),
       params_at(params + 10), tb, out, gm);
   return (int)cudaGetLastError();
 }
@@ -853,16 +999,15 @@ int fwd_entry(const void* h, const void* hj, const void* attr,
               const float* const* params, const float* bc, const float* sign,
               float* out, int n_nodes, int cm, int ca, int c, int wn,
               int n_win, int fast, int grid, void* stream) {
-  if (!widths_ok<A>(cm, ca, c, wn) ||
-      fwd_smem_bytes<A>(cm, ca, c, wn) > kMaxSmem || grid < 1)
+  const size_t bytes = fast ? fwd_tile_smem_bytes<A>(cm, ca, c, wn)
+                            : fwd_smem_bytes<A>(cm, ca, c, wn);
+  if (!widths_ok<A>(cm, ca, c, wn) || bytes == 0 || bytes > kMaxSmem ||
+      grid < 1)
     return (int)cudaErrorInvalidValue;
   Geom gm{n_nodes, cm, ca, c, wn, n_win};
   Tabs<A> tb = make_tabs<A>(bc, sign);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return fast ? launch_fwd<A, true>(h, hj, attr, dst, mask, bounds, params,
-                                    tb, out, gm, grid, st)
-              : launch_fwd<A, false>(h, hj, attr, dst, mask, bounds, params,
-                                     tb, out, gm, grid, st);
+  return launch_fwd<A>(h, hj, attr, dst, mask, bounds, params, tb, out, gm,
+                       fast, grid, static_cast<cudaStream_t>(stream));
 }
 
 template <class A>
@@ -897,6 +1042,9 @@ int bwd_entry(const void* h, const void* hj, const void* attr,
 // csmpn_fused_mp_cl2_* (Cl(2,0)).
 //   smem_bytes: shared-memory bytes of a launch (0 if the widths are not
 //     supported); tile_smem_bytes: those of the fast-mode backward;
+//     fwd_tile_smem_bytes: those of the fast-mode forward, and
+//     fwd_tile_wsub the targets it sums at a time (wn, or less where a
+//     window's sum does not fit; 0 where none does);
 //     tile_maxt: the weight-gradient tiles a warp (the kernel instance) of
 //     its sweep `sweep` (0, 1, 2), 0 where it does not take the widths;
 //   partial_floats: floats of one CTA's partial gradient slice (the layout
@@ -921,6 +1069,12 @@ int bwd_entry(const void* h, const void* hj, const void* attr,
   }                                                                           \
   size_t PREFIX##_tile_smem_bytes(int cm, int ca, int c, int wn) {            \
     return tile_smem_bytes<ALG>(cm, ca, c, wn);                               \
+  }                                                                           \
+  size_t PREFIX##_fwd_tile_smem_bytes(int cm, int ca, int c, int wn) {        \
+    return fwd_tile_smem_bytes<ALG>(cm, ca, c, wn);                           \
+  }                                                                           \
+  int PREFIX##_fwd_tile_wsub(int cm, int ca, int c, int wn) {                 \
+    return fwd_tile_wsub<ALG>(cm, ca, c, wn);                                 \
   }                                                                           \
   int PREFIX##_tile_maxt(int cm, int ca, int c, int wn, int sweep) {          \
     if (tile_smem_bytes<ALG>(cm, ca, c, wn) == 0) return 0;                   \

@@ -18,7 +18,10 @@ two forms:
     blade and one sign per (output j, right k)).  In fast mode K3p is the
     row tile kernel of ``csrc/cemlp_pair_tile.cuh`` (steps of 128 (row,
     blade) pairs, the channel-mixing linears and their weight gradients as
-    bf16 ``mma.sync`` products).
+    bf16 ``mma.sync`` products), and K2p that of
+    ``csrc/cemlp_pair_fwd_tile.cuh`` (the same steps and linears, the pair
+    product a thread per (row, channel, group of output blades) over the
+    Cayley terms of ``csrc/pair_terms.cuh``, unrolled at compile time).
 
 Cl(1) (nb = 2), which the reference's dense form also serves, has no
 kernel yet and raises.  Widths whose block does not fit in one CTA's
@@ -320,19 +323,25 @@ def _grid(rows: int, device, smem_bytes: int, rows_per_cta: int) -> int:
 # csrc/cemlp_tile.cuh
 TILE_ROWS = 16
 # (row, blade) pairs a CTA step of the pair form's fast-mode backward takes:
-# PT_PAIRS of csrc/cemlp_pair_tile.cuh (4 rows at Cl(5), 8 at Cl(4))
+# PT_PAIRS of csrc/cemlp_pair_tile.cuh (4 rows at Cl(5), 8 at Cl(4)); and
+# of its forward, PT_FWD_PAIRS of csrc/cemlp_pair_fwd_tile.cuh (8 and 16)
 PAIR_TILE_PAIRS = 128
+PAIR_FWD_TILE_PAIRS = 256
 
 
 def _tiled(kern: BlockKernel, backward: bool, exact: bool) -> bool:
-    """Whether the launch is a fast-mode row tile backward (K3 or K3p)."""
-    return backward and not exact
+    """Whether the launch is a fast-mode row tile kernel: the backward of
+    either form (K3, K3p) or the pair form's forward (K2p)."""
+    return not exact and (backward or kern.form == "pair")
 
 
-def _tile_rows(kern: BlockKernel) -> int:
-    """Rows a CTA step of the fast-mode row tile backward takes."""
-    return TILE_ROWS if kern.form == "dense" else \
-        PAIR_TILE_PAIRS // kern.n_blades
+def _tile_rows(kern: BlockKernel, backward: bool = True) -> int:
+    """Rows a CTA step of the fast-mode row tile backward (or forward, of
+    the pair form) takes."""
+    if kern.form == "dense":
+        return TILE_ROWS
+    return (PAIR_TILE_PAIRS if backward else PAIR_FWD_TILE_PAIRS) \
+        // kern.n_blades
 
 
 def _smem(kern: BlockKernel, cin, c, backward, exact=True):
@@ -341,7 +350,8 @@ def _smem(kern: BlockKernel, cin, c, backward, exact=True):
     K3p, in their register tiles)."""
     lib = _build.load(kern.source)
     if _tiled(kern, backward, exact):
-        fn = getattr(lib, f"{kern.symbol}_tile_smem_bytes")
+        entry = "tile_smem_bytes" if backward else "fwd_tile_smem_bytes"
+        fn = getattr(lib, f"{kern.symbol}_{entry}")
         args = (cin, c)
     else:
         fn = getattr(lib, f"{kern.symbol}_smem_bytes")
@@ -384,7 +394,10 @@ def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
     if rows == 0:
         return out
     bc, tabs = _tables(kern, alg, x.device)
-    grid = _grid(rows, x.device, _smem(kern, cin, c, False), kern.rows_fwd)
+    rows_cta = _tile_rows(kern, False) if _tiled(kern, False, exact) \
+        else kern.rows_fwd
+    grid = _grid(rows, x.device, _smem(kern, cin, c, False, exact),
+                 rows_cta)
     fn = _fn(f"{kern.symbol}_fwd", 14, 5, kern.source)
     err = fn(x.data_ptr(), *[p.data_ptr() for p in params],
              bc.ctypes.data, tabs, out.data_ptr(), rows, cin, c,

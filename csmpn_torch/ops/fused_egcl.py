@@ -20,9 +20,10 @@ kernels per algebra (``FusedKernel``, ``fused_kernel``):
 
   * K4/K5, ``csrc/fused_egcl.cu``, dense form: Cl(3,0) (8 blades, up to 32
     channels) and Cl(2,0) (4 blades; a lane holds channels n and n + 32);
-    in fast mode K5 is the row tile kernel of ``csrc/cemlp_tile.cuh``,
-    launched once for each of its three sweeps over the windows
-    (``_check_tile_smem`` holds its widths);
+    in fast mode both are row tile kernels over ``csrc/cemlp_tile.cuh``:
+    K4 runs both blocks' forwards on 16 edge rows a step, K5 is launched
+    once for each of its three sweeps over the windows
+    (``_check_tile_smem`` holds their widths);
   * K4p/K5p, pair form, ``csrc/fused_egcl_pair.cuh`` compiled for Cl(5,0)
     (``csrc/fused_egcl_pair.cu``, 32 blades) and Cl(4,0)
     (``csrc/fused_egcl_pair_cl4.cu``, 16 blades), each up to 28 channels,
@@ -209,14 +210,17 @@ def _check_smem(kern: FusedKernel, cm: int, ca: int, c: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _check_tile_smem(kern: FusedKernel, cm: int, ca: int, c: int) -> None:
-    """Raise unless the fast-mode backward of the dense form (the row tiles
-    of csrc/cemlp_tile.cuh) takes the widths."""
-    fn = _lib_fn(kern, "tile_smem_bytes", [_I, _I, _I, _I], ctypes.c_size_t)
+def _check_tile_smem(kern: FusedKernel, cm: int, ca: int, c: int,
+                     backward: bool = True) -> None:
+    """Raise unless the fast-mode backward (or forward) of the dense form
+    (the row tiles of csrc/cemlp_tile.cuh) takes the widths."""
+    entry = "tile_smem_bytes" if backward else "fwd_tile_smem_bytes"
+    fn = _lib_fn(kern, entry, [_I, _I, _I, _I], ctypes.c_size_t)
     if int(fn(cm, ca, c, kern.wn)) == 0:
         raise NotImplementedError(
-            f"{kern.label}: the fast-mode backward does not fit in one CTA at "
-            f"{cm} message + {ca} attribute -> {c} channels")
+            f"{kern.label}: the fast-mode "
+            f"{'backward' if backward else 'forward'} does not fit in one CTA "
+            f"at {cm} message + {ca} attribute -> {c} channels")
 
 
 @dataclass
@@ -316,6 +320,8 @@ def mp_forward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst,
     n, nb = h.shape[0], kern.n_blades
     if plan is None:
         plan = make_plan(dst, mask, n, cm, ca, c, nb)
+    if kern.form == "dense" and not exact:
+        _check_tile_smem(kern, cm, ca, c, backward=False)
     bc, tabs = _tables(kern, alg, h.device)
     h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
     out = torch.empty((n, c, nb), dtype=torch.float32, device=h.device)

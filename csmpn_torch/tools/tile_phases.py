@@ -1,20 +1,22 @@
-"""Where the fast-mode K3p row tile kernel spends its time, phase by phase,
-on one card:
+"""Where the fast-mode pair-form row tile kernels spend their time, phase
+by phase, on one card:
 
     python -m csmpn_torch.tools.tile_phases
 
-Copies ``csmpn_torch/csrc`` into ``build/phases/``, marks each phase of
-``cemlp_pair_bwd_tile_kernel``'s step (csrc/cemlp_pair_tile.cuh) with
-``clock64()`` at its barriers (every warp adds the cycles from one mark to
-the next, before and after each barrier, into shared counters that go to
-a device array at the end), compiles the marked ``cemlp_pair.cu`` and
+Copies ``csmpn_torch/csrc`` into ``build/phases/``, marks each phase of the
+steps of ``cemlp_pair_bwd_tile_kernel`` (K3p, csrc/cemlp_pair_tile.cuh) and
+``cemlp_pair_fwd_tile_kernel`` (K2p, csrc/cemlp_pair_fwd_tile.cuh) with
+``clock64()`` at their barriers (every warp adds the cycles from one mark
+to the next, before and after each barrier, into shared counters that go
+to a device array at the end), compiles the marked ``cemlp_pair.cu`` and
 ``cemlp_pair_cl4.cu`` with the build's own flags, and runs the fast-mode
-K3p through its wrapper at the hulls edge block 0 (Cl(5,0), 13,184 rows,
-34 -> 28) and the ``--dim 4`` bench's node block 0 (Cl(4,0), 8,192 rows,
-56 -> 28).  It prints, for each, the marked kernel's time per launch and
-every phase's share of all warps' cycles: busy (up to the barrier) and
-waiting (at it).  The marks cost registers and a few percent of the time,
-so the shares, not the time, are the reading.  It needs a CUDA card.
+K3p and K2p through their wrappers at the hulls edge block 0 (Cl(5,0),
+13,184 rows, 34 -> 28) and the ``--dim 4`` bench's node block 0 (Cl(4,0),
+8,192 rows, 56 -> 28).  It prints, for each, the marked kernel's time per
+launch and every phase's share of all warps' cycles: busy (up to the
+barrier) and waiting (at it).  The marks cost registers and a few percent
+of the time, so the shares, not the time, are the reading.  It needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -37,6 +39,11 @@ PHASES = ["B3 + B4 (and staging)", "x load", "F1", "S1 (MVSiLU)", "F2",
 PATH_MARK = "    // ---- B2: Y -> fa"
 LOOP_MARK = "for (int step = blockIdx.x; step < n_steps"
 END_MARK = "// ---- this CTA's partial gradient vector"
+# the forward's phases (the last, a warp a row, runs on to the next step's
+# first barrier); its step loop ends with the kernel
+FWD_PHASES = ["pair, mean, y (and staging)", "x load", "F1", "S1 (MVSiLU)",
+              "F2"]
+FWD_END = "}"
 PRE = r'''
 __device__ unsigned long long g_phase[32];
 #define PH_BUSY(k) do { long long t_ = clock64(); \
@@ -60,17 +67,21 @@ extern "C" void csmpn_tile_phases(unsigned long long* out, int reset) {
 '''
 
 
-def marked_header(text: str) -> str:
-    """The tile header with the phase marks; raises where its structure is
-    not the one the marks expect."""
+def marked_header(text: str, forward: bool = False) -> str:
+    """The backward's tile header (or, where forward, the forward's) with
+    the phase marks; raises where its structure is not the one the marks
+    expect.  The backward's header defines the marks."""
+    phases = FWD_PHASES if forward else PHASES
+    barriers = len(phases) if forward else len(phases) - 1
     out, k, in_loop = [], 0, False
     for line in text.split("\n"):
         if LOOP_MARK in line:
             in_loop = True
-        if in_loop and line.strip().startswith(END_MARK):
+        if in_loop and (line == FWD_END if forward
+                        else line.strip().startswith(END_MARK)):
             in_loop = False
             out.append("  PH_FLUSH();")
-        if in_loop and line.startswith(PATH_MARK):
+        if in_loop and not forward and line.startswith(PATH_MARK):
             out.append(f"    PH_BUSY({len(PHASES) - 1});")
         if in_loop and line.strip().startswith("__syncthreads();"):
             pad = line[:len(line) - len(line.lstrip())]
@@ -78,11 +89,13 @@ def marked_header(text: str) -> str:
             k += 1
             continue
         out.append(line)
-    if k != len(PHASES) - 1:
-        raise RuntimeError(f"cemlp_pair_tile.cuh: {k} barriers in the step "
-                           f"loop, the marks expect {len(PHASES) - 1}")
+    name = "cemlp_pair_fwd_tile.cuh" if forward else "cemlp_pair_tile.cuh"
+    if k != barriers:
+        raise RuntimeError(f"{name}: {k} barriers in the step loop, the "
+                           f"marks expect {barriers}")
     text = "\n".join(out)
-    text = text.replace("namespace {\n", "namespace {\n" + PRE, 1)
+    if not forward:
+        text = text.replace("namespace {\n", "namespace {\n" + PRE, 1)
     return text.replace(
         "  const int n_steps = (rows + R - 1) / R;\n",
         "  const int n_steps = (rows + R - 1) / R;\n"
@@ -98,11 +111,13 @@ def build_marked(out_dir: str) -> dict:
     src = os.path.join(out_dir, "src")
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(_build.CSRC, src)
-    header = os.path.join(src, "cemlp_pair_tile.cuh")
-    with open(header) as f:
-        text = marked_header(f.read())
-    with open(header, "w") as f:
-        f.write(text)
+    for name, forward in (("cemlp_pair_tile.cuh", False),
+                          ("cemlp_pair_fwd_tile.cuh", True)):
+        header = os.path.join(src, name)
+        with open(header) as f:
+            text = marked_header(f.read(), forward)
+        with open(header, "w") as f:
+            f.write(text)
     libs, procs = {}, []
     for name in ("cemlp_pair", "cemlp_pair_cl4"):
         with open(os.path.join(src, f"{name}.cu"), "a") as f:
@@ -170,25 +185,30 @@ def main() -> None:
                                        kern.n_grades, kern.n_paths, gen, dev)
         plain = _build.load(source)
         _build._libs[source] = libs[source]
+        runs = (("K3p", PHASES, lambda: ck.block_backward(
+                    x, dout, params, alg, False)),
+                ("K2p", FWD_PHASES, lambda: ck.block_forward(
+                    x, params, alg, False)))
         try:
-            counts = (ctypes.c_ulonglong * 32)()
-            libs[source].csmpn_tile_phases(counts, 1)
-            for _ in range(3):
-                ck.block_backward(x, dout, params, alg, False)
-            torch.cuda.synchronize()
-            libs[source].csmpn_tile_phases(counts, 0)
-            us = time_us(lambda: ck.block_backward(x, dout, params, alg,
-                                                   False))
+            for label, phases, fn in runs:
+                counts = (ctypes.c_ulonglong * 32)()
+                libs[source].csmpn_tile_phases(counts, 1)
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                libs[source].csmpn_tile_phases(counts, 0)
+                us = time_us(fn)
+                total = sum(counts) or 1
+                print(f"{label} fast, Cl({dim}), {rows} rows, {cin} -> {c}: "
+                      f"{us:.1f} us per launch with the marks; share of all "
+                      f"warps' cycles, busy / waiting:")
+                for k, name in enumerate(phases):
+                    busy, wait = counts[k] / total, counts[16 + k] / total
+                    print(f"  {name:<24s} {100 * busy:6.2f}% / "
+                          f"{100 * wait:6.2f}%")
+                sys.stdout.flush()
         finally:
             _build._libs[source] = plain
-        total = sum(counts) or 1
-        print(f"K3p fast, Cl({dim}), {rows} rows, {cin} -> {c}: "
-              f"{us:.1f} us per launch with the marks; share of all warps' "
-              f"cycles, busy / waiting:")
-        for k, name in enumerate(PHASES):
-            busy, wait = counts[k] / total, counts[16 + k] / total
-            print(f"  {name:<24s} {100 * busy:6.2f}% / {100 * wait:6.2f}%")
-        sys.stdout.flush()
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
-"""Host-side code of the fast-mode row tile backwards of the dense form (K3
-and K5 at Cl(3,0) and Cl(2,0), csrc/cemlp_tile.cuh; the pair form's K3p
-has its own in tests/test_torch_pair_tiles.py): which launches take
-the tile kernels, the shared-memory entry points they ask, the CTA steps
-the grid is cut for, the partial layouts the tile kernels write, that
-the CPU wrappers take the plain versions and count no launch, and the
-shapes at which chip_smoke.py checks each tile kernel instance.
+"""Host-side code of the fast-mode row tile kernels of the dense form at
+Cl(3,0) and Cl(2,0) over csrc/cemlp_tile.cuh: the backwards K3 and K5 and
+the fused forward K4 (the pair form's K2p and K3p have their own in
+tests/test_torch_pair_tiles.py): which launches take the tile kernels,
+the shared-memory entry points they ask, the CTA steps the grid is cut
+for, the partial layouts the tile kernels write, that the CPU wrappers
+take the plain versions and count no launch, the shapes at which
+chip_smoke.py checks each tile kernel instance and the widths it compares
+between the modes.
 
 The kernels themselves run only on the card; chip_smoke.py holds them to
 the plain versions there.  A stand-in library takes the place of the
@@ -28,9 +30,10 @@ KERNELS = [ck.DENSE, ck.DENSE_CL2, ck.PAIR, ck.PAIR_CL4]
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("exact", [False, True])
 def test_tiled_takes_only_the_fast_dense_backward(kern, backward, exact):
-    """The row tiles take the fast-mode backward only: K3 in the dense form
-    and, since the pair form has its own row tiles, K3p too."""
-    want = backward and not exact
+    """Of the block kernels of the dense form, the row tiles take the
+    fast-mode backward only (K3; the dense K2 keeps its row kernel); the
+    pair form has row tiles of its own for both directions (K2p, K3p)."""
+    want = not exact and (backward or kern.form == "pair")
     assert ck._tiled(kern, backward, exact) == want
 
 
@@ -94,20 +97,29 @@ def test_smem_raises_where_the_tile_backward_does_not_fit(monkeypatch):
 @pytest.mark.parametrize("kern", [fe.DENSE, fe.DENSE_CL2],
                          ids=lambda k: k.label)
 @pytest.mark.parametrize("size,fits", [(200_000, True), (0, False)])
-def test_fused_tile_check(monkeypatch, kern, size, fits):
-    entry = _Entry(size)
-    lib = _Lib(**{f"{kern.symbol}_tile_smem_bytes": entry})
+@pytest.mark.parametrize("backward", [True, False])
+def test_fused_tile_check(monkeypatch, kern, size, fits, backward):
+    """The fast-mode K5 (backward) and K4 (forward) each ask their own
+    entry; 0 raises."""
+    entry, other = _Entry(size), _Entry(size)
+    name = "tile_smem_bytes" if backward else "fwd_tile_smem_bytes"
+    rest = "fwd_tile_smem_bytes" if backward else "tile_smem_bytes"
+    lib = _Lib(**{f"{kern.symbol}_{name}": entry,
+                  f"{kern.symbol}_{rest}": other})
     monkeypatch.setattr(_build, "load", lambda name: lib)
     fe._check_tile_smem.cache_clear()
     try:
         if fits:
-            fe._check_tile_smem(kern, 28, 3, 28)
+            fe._check_tile_smem(kern, 28, 3, 28, backward)
         else:
-            with pytest.raises(NotImplementedError, match="fast-mode"):
-                fe._check_tile_smem(kern, 28, 3, 28)
+            with pytest.raises(NotImplementedError,
+                               match="fast-mode " + ("backward" if backward
+                                                     else "forward")):
+                fe._check_tile_smem(kern, 28, 3, 28, backward)
     finally:
         fe._check_tile_smem.cache_clear()
     assert entry.calls == [(28, 3, 28, kern.wn)]
+    assert other.calls == []
 
 
 @pytest.mark.parametrize("rows,smem,per_cta,want", [
@@ -239,6 +251,117 @@ def test_cpu_mp_backward_is_plain_and_counts_no_launch(metric, exact):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("metric", [(1.0, 1.0, 1.0), (1.0, 1.0)],
+                         ids=["Cl3", "Cl2"])
+@pytest.mark.parametrize("exact", [True, False])
+def test_cpu_mp_forward_is_plain_and_counts_no_launch(metric, exact):
+    alg = get_algebra(metric)
+    nb = alg.n_blades
+    ng = len(set(alg.blade_to_grade.tolist()))
+    npath = alg.n_product_paths
+    gen = torch.Generator().manual_seed(6)
+    cm, ca, c, n, e = 3, 1, 3, 6, 11
+    params = []
+    for cin in (cm + ca, c):
+        shapes = [(c, cin, ng), (c, 1), (c, ng), (c, ng), (c, npath),
+                  (c, c, ng), (c, ng), (c, c, ng), (c, 1), (c,)]
+        params += [0.3 * torch.randn(*s, generator=gen) for s in shapes]
+    h = torch.randn(n, cm, nb, generator=gen)
+    hj = torch.randn(e, cm, nb, generator=gen)
+    attr = torch.randn(e, ca, nb, generator=gen)
+    dst = torch.sort(torch.randint(0, n, (e,), generator=gen)).values
+    mask = torch.rand(e, generator=gen) > 0.3
+    kern = fe.fused_kernel(nb)
+    before = (kern.fwd.count, kern.bwd.count)
+    got = fe.mp_forward(params, alg, h, hj, attr, dst, mask, exact)
+    want = fe.message_aggregate_plain(params, alg, h, hj, attr, dst, mask,
+                                      False, exact)
+    assert (kern.fwd.count, kern.bwd.count) == before
+    assert torch.equal(got, want)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card, so that the wrapper
+    takes its kernel path with a stand-in library."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("kern", [fe.DENSE, fe.DENSE_CL2],
+                         ids=lambda k: k.label)
+@pytest.mark.parametrize("exact,tile_bytes", [(True, 2000), (False, 2000),
+                                              (False, 0)])
+def test_card_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
+    """On the card the fast K4 asks the row tile forward's entry (the
+    exact one does not) before its one launch, and raises without a launch
+    where the tile forward does not take the widths; the grid is one CTA
+    an SM at most, cut for the windows."""
+    alg = get_algebra((1.0,) * (3 if kern is fe.DENSE else 2))
+    nb = alg.n_blades
+    ng, npath = kern.n_grades, kern.n_paths
+    gen = torch.Generator().manual_seed(7)
+    cm, ca, c, n, e = 3, 1, 3, 70, 40
+    params = []
+    for cin in (cm + ca, c):
+        shapes = [(c, cin, ng), (c, 1), (c, ng), (c, ng), (c, npath),
+                  (c, c, ng), (c, ng), (c, c, ng), (c, 1), (c,)]
+        params += [torch.randn(*s, generator=gen) for s in shapes]
+    dst = torch.sort(torch.randint(0, n, (e,), generator=gen)).values
+    ins = [torch.randn(n, cm, nb, generator=gen),
+           torch.randn(e, cm, nb, generator=gen),
+           torch.randn(e, ca, nb, generator=gen), dst]
+    on = [torch.Tensor._make_subclass(_OnCard, t) for t in ins + params]
+    calls = {"smem_bytes": [], "fwd_tile_smem_bytes": [], "fwd": []}
+
+    def fn(name, value):
+        def entry(*args):
+            calls[name].append(args)
+            return value
+        return entry
+
+    fns = {"smem_bytes": fn("smem_bytes", 1000),
+           "fwd_tile_smem_bytes": fn("fwd_tile_smem_bytes", tile_bytes),
+           "fwd": fn("fwd", 0)}
+
+    class _Props:
+        multi_processor_count = 132
+
+    class _Stream:
+        cuda_stream = 77
+
+    monkeypatch.setattr(fe, "_lib_fn", lambda k, name, *a: fns[name])
+    monkeypatch.setattr(fe, "_tables", lambda k, a, d: (np.zeros(
+        nb, np.float32), 0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: _Props())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    fe._check_smem.cache_clear()
+    fe._check_tile_smem.cache_clear()
+    before = (kern.fwd.count, kern.bwd.count)
+    try:
+        if tile_bytes == 0:
+            with pytest.raises(NotImplementedError, match="fast-mode forward"):
+                fe.mp_forward(on[4:], alg, *on[:4], None, exact)
+        else:
+            out = fe.mp_forward(on[4:], alg, *on[:4], None, exact)
+            assert tuple(out.shape) == (n, c, nb)
+    finally:
+        fe._check_smem.cache_clear()
+        fe._check_tile_smem.cache_clear()
+    launched = tile_bytes != 0
+    assert (kern.fwd.count, kern.bwd.count) == (before[0] + launched,
+                                                before[1])
+    assert calls["fwd_tile_smem_bytes"] == ([] if exact
+                                            else [(cm, ca, c, kern.wn)])
+    assert len(calls["fwd"]) == int(launched)
+    if launched:   # ... n_nodes, cm, ca, c, wn, n_win, fast, grid, stream
+        n_win = -(-n // kern.wn)
+        assert calls["fwd"][0][-9:-1] == (n, cm, ca, c, kern.wn, n_win,
+                                          int(not exact), n_win)
+
+
 def _smoke():
     import importlib
     import os
@@ -291,3 +414,44 @@ def test_instance_shapes_take_one_shape_per_instance(monkeypatch):
                        (100, 4, False, 40, 2, 64),
                        (100, cmax, False, 40, 2, 64)]
     assert shapes5 == [(30, 4, 16, 32), (30, 21, 24, 32), (20, 4, 16, 16)]
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_k4_widths_fast_takes_what_exact_takes(monkeypatch, capsys, narrow):
+    """k4_caps takes, at every C, the widest message width (Ca = 0) that
+    the K4 wrapper takes in exact mode, where the row kernels of both
+    directions must fit, and that of the fast row tile forward;
+    print_k4_widths raises where the fast mode's is the narrower, and
+    checks that chip_smoke's sub-window layout at Cl(2) sums fewer targets
+    than a window."""
+    cs = _smoke()
+
+    def lib(kf):
+        def row(cm, ca, c, wn, bwd):
+            if c > 3:
+                return 0
+            return 1000 if cm <= (60 if bwd else 80) else 300_000
+
+        def tile(cm, ca, c, wn):
+            lim = 50 if narrow and c == 2 and kf is fe.DENSE_CL2 else 90
+            return 2000 if cm <= lim else 0
+
+        def wsub(cm, ca, c, wn):
+            return 16 if (cm, ca, c) == cs.CL2_SUB or c == 3 else wn
+
+        return {"smem_bytes": row, "fwd_tile_smem_bytes": tile,
+                "fwd_tile_wsub": wsub}
+
+    libs = {k.symbol: lib(k) for k in (fe.DENSE, fe.DENSE_CL2)}
+    monkeypatch.setattr(fe, "_lib_fn",
+                        lambda k, name, *a: libs[k.symbol][name])
+    assert cs.k4_caps(fe.DENSE) == {c: (60, 90) for c in (1, 2, 3)}
+    if narrow:
+        with pytest.raises(AssertionError, match=r"K4 at Cl\(2\).*C = \[2\]"):
+            cs.print_k4_widths()
+    else:
+        cs.print_k4_widths()
+        out = capsys.readouterr().out
+        assert "Cl(3): at every C the fast-mode K4 takes" in out
+        assert "Cl(2): at every C the fast-mode K4 takes" in out
+        assert "fewer than 32 targets at the widest Cm of C = [3]" in out

@@ -6,12 +6,20 @@ wrappers.
     Pallas interpret mode, as tests/test_segment_ops.py runs it;
   * K2 (CEMLP block forward) against the flat XLA oracle
     ``_block_flat_xla`` and the composed flax CEMLP;
-  * K3 (CEMLP block backward) against ``jax.grad`` of the composed CEMLP.
+  * K3 (CEMLP block backward) against ``jax.grad`` of the composed CEMLP;
+  * K2 and K3 in fast mode against the body of the reference's kernel
+    (``_forward_math`` with the dense tables, the rounding points of
+    ``_fwd_kernel`` without Pallas) and its ``jax.vjp``, at C = 1, 2, 3, 8
+    and 32.
 
 Tolerances: rtol 2e-4 / atol 1e-5 in exact fp32 (the reference's parity
 tolerance); K1 against the interpret-mode kernel rtol/atol 1e-4 as in
-tests/test_segment_ops.py.  The CUDA kernels themselves are held to these
-plain versions on the card by chip_smoke.py.
+tests/test_segment_ops.py.  Fast mode as tests/test_torch_cl2_kernels.py:
+both sides round the same operands to bf16, but a different fp32
+summation order can move a value across a bf16 rounding boundary, so
+1e-2 (forward) and 3e-2 (backward) of each tensor's largest magnitude.
+The CUDA kernels themselves are held to these plain versions on the card
+by chip_smoke.py.
 """
 import numpy as np
 import pytest
@@ -34,6 +42,7 @@ from csmpn_torch.ops import segment as seg
 from csmpn_torch.ops import segment_kernel as sk
 
 RTOL, ATOL = 2e-4, 1e-5
+FAST_TOL = {"fwd": 1e-2, "bwd": 3e-2}
 CL3 = (1.0, 1.0, 1.0)
 
 
@@ -154,6 +163,62 @@ def test_plain_k3_matches_jax_grad():
     assert len(names) == len(grads) == 10
     for k, gr in zip(names, grads):
         close(gr, j_grads[k].numpy(), msg=k)
+
+
+def _fast_close(got, want, kind, msg=""):
+    got = got.detach().numpy()
+    want = np.asarray(want)
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+    assert err <= FAST_TOL[kind], f"{msg}: rel err {err:.3e}"
+
+
+def _jax_kernel_body(m, cin, c):
+    """params, x (rows, cin, 8) -> the block output through the body of the
+    reference's kernel (``_forward_math``, dense tables), fast mode."""
+    lin_p = jck._round_up(cin * 8, 128)
+    lp = jck._round_up(c * 8, 128)
+    const = tuple(jnp.asarray(a) for a in
+                  jck._structural_tables(3, CL3, c, lp))
+
+    def run(params, x):
+        rows = x.shape[0]
+        xf = jnp.pad(x.reshape(rows, cin * 8), ((0, 0), (0, lin_p - cin * 8)))
+
+        def body(mod):
+            refs = tuple(jck.block_tables(mod, 0, lin_p, lp)) + const
+            return jck._forward_math(xf, refs, 8, False)["out"]
+
+        out = m.apply(params, method=body)
+        return out[:, :c * 8].reshape(rows, c, 8)
+
+    return run
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 8, 32])
+def test_plain_k2_k3_fast_match_kernel_body(c):
+    """Plain K2 and K3 at Cl(3) in fast mode (the default of motion, MD17
+    and the Cl(3) bench) against the reference kernel's body and its vjp:
+    the output, dx and all 10 parameter gradients, at narrow C too (where
+    the layer norm spans 1-3 channels)."""
+    cin, rows = 6, 13
+    _, m, params, x = _flax_cemlp(cin, c, c, 1, rows=rows, seed=c)
+    g = np.random.RandomState(10 + c).randn(rows, c, 8).astype(np.float32)
+    fn = _jax_kernel_body(m, cin, c)
+    alg = get_algebra(CL3)
+    t = _port_cemlp(cin, c, c, 1, params)
+    got = ck.block_forward_plain(torch.from_numpy(x), ck.block_params(t, 0),
+                                 alg, exact=False)
+    _fast_close(got, jax.jit(fn)(params, jnp.asarray(x)), "fwd", "out")
+    j_gp, j_gx = jax.jit(lambda p, xx, gg: jax.vjp(fn, p, xx)[1](gg))(
+        params, jnp.asarray(x), jnp.asarray(g))
+    dx, grads = ck.block_backward(torch.from_numpy(x), torch.from_numpy(g),
+                                  ck.block_params(t, 0), alg, exact=False)
+    _fast_close(dx, j_gx, "bwd", "dx")
+    j_grads = params_from_jax(jax.tree.map(np.asarray, j_gp))
+    names = [k for k, _ in t.named_parameters()]
+    assert len(names) == len(grads) == 10
+    for k, gr in zip(names, grads):
+        _fast_close(gr, j_grads[k].numpy(), "bwd", k)
 
 
 def test_cpu_wrappers_take_plain_versions_and_count_nothing():
