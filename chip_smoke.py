@@ -220,6 +220,15 @@ TOL = {  # max |kernel - plain| allowed, relative to max |plain|: fp32
     "k5p_cl4_exact": 1e-4, "k5p_cl4_fast": 3e-2,
     "bench_cl4_fast_loss": 1e-3, "bench_cl4_fused_loss": 3e-4,
     "bench_cl4_fused_grad": 3e-2,
+    # the fast K5p's 20 parameter gradients against the composed route
+    # (K2p/K3p row tiles, the message rounded, a masked sum) at the
+    # instance shapes: both round at the same points, only the order of
+    # fp32 sums differs (the partial vectors), K5's exact limit (readings
+    # in PERF.md).  The sum, d(h) and the bf16 outputs dhj and dattr are
+    # held at the fast limits, as at the bench shape: a bf16 message or dhj
+    # element can round one unit apart where the two kernels' fp32 differ
+    # in the last bit, and the route sums d(h) with atomics
+    "k5p_route": 1e-4,
 }
 # the measured envelope of this card (phase_envelope): "bytes" (P1's best
 # copy bandwidth, bytes/s), "bf16" (P2's bf16 mma.sync rate) and "fp32"
@@ -439,6 +448,112 @@ def print_k4_widths():
                 raise AssertionError(f"K4 at Cl(2) {cm}+{ca}->{c}: sums of "
                                      f"{wsub(cm, ca, c, kf.wn)} targets, "
                                      f"not a sub-window")
+
+
+def pair_fused_caps(kf):
+    """{C: [(Cm, widest Ca of the exact mode, of the fast forward, of the
+    fast backward), ...]} for the pair-form fused kernels kf (K4p/K5p), at
+    every C <= kf.max_channels and every Cm at which the exact mode takes
+    Ca = 0; the exact mode's as the wrapper asks it (make_plan: both
+    directions' row kernels fit), the fast directions' from their tile
+    sweeps' entries; -1 where none."""
+    import ctypes
+    from csmpn_torch.ops import fused_egcl as fe
+
+    ci, sz = [ctypes.c_int], ctypes.c_size_t
+    row = fe._lib_fn(kf, "smem_bytes", ci * 5, sz)
+    fwd = fe._lib_fn(kf, "fwd_tile_smem_bytes", ci * 4, sz)
+    bwd = fe._lib_fn(kf, "tile_smem_bytes", ci * 4, sz)
+    wn = kf.wn
+
+    def exact(cm, ca, c):
+        return 0 < max(row(cm, ca, c, wn, 0), row(cm, ca, c, wn, 1)) \
+            <= fe.MAX_SMEM
+
+    caps = {}
+    for c in range(1, kf.max_channels + 1):
+        rows, cm = [], 1
+        while exact(cm, 0, c):
+            rows.append((cm,) + tuple(
+                widest(lambda w: fits(cm, w - 1, c)) - 1 for fits in (
+                    exact,
+                    lambda m, a, cc: 0 < fwd(m, a, cc, wn) <= fe.MAX_SMEM,
+                    lambda m, a, cc: 0 < bwd(m, a, cc, wn) <= fe.MAX_SMEM)))
+            cm += 1
+        if rows:
+            caps[c] = rows
+    return caps
+
+
+def print_pair_fused_widths():
+    """Both modes' widest inputs of K4p and K5p at Cl(5) and Cl(4) at
+    every (Cm, C) the exact mode takes; raises where a fast direction
+    takes a narrower input than the exact mode at some (Cm, C)."""
+    from csmpn_torch.ops import fused_egcl as fe
+
+    for dim, kf in ((5, fe.PAIR), (4, fe.PAIR_CL4)):
+        caps = pair_fused_caps(kf)
+        print(f"  K4p/K5p at Cl({dim}) widest Cm + Ca exact/fast forward/"
+              f"fast backward at C = 1..{max(caps)}: "
+              + ", ".join(f"{c}:" + "/".join(
+                  str(max(r[0] + r[k] for r in rows)) for k in (1, 2, 3))
+                  for c, rows in caps.items()))
+        narrower = [(c, cm) for c, rows in caps.items()
+                    for cm, e, f, b in rows if min(f, b) < e]
+        if narrower:
+            raise AssertionError(f"K4p/K5p at Cl({dim}): a fast-mode "
+                                 f"direction takes narrower inputs than the "
+                                 f"exact mode at (C, Cm) = {narrower[:8]}")
+        print(f"  Cl({dim}): at every (Cm, C) the fast-mode K4p and K5p take "
+              f"every attribute width their exact modes take")
+
+
+# the narrowest output width at which the fused pair instance checks hold
+# the fast K4p/K5p to the plain version: at C = 4 and wide inputs block
+# 1's bias gradient, summed over 5,003 rows, can part from it by more than
+# the fast limit; where both are read, the composed route (K2p/K3p) parts
+# from it as much as the kernel does (PERF.md §7.7; phase_pair_fused_
+# instances prints both readings); below it the kernels are held to the
+# composed route (TOL["k5p_route"])
+FUSED_C_MIN = 8
+
+
+def pair_fused_instance_shapes(kf, c_min=FUSED_C_MIN):
+    """(Cm, Ca, C, sweep 1's tiles a warp, sweep 2's) at which the fast
+    K4p/K5p are held to their plain versions: for each instance of the
+    backward's sweeps (16, 24, 32 tiles a warp) that a width the exact
+    mode takes reaches, the narrowest C >= c_min that reaches it (or
+    below, where only that does) at its widest Cm there (Ca 0); then the
+    widest input the exact mode takes at the widest C (the largest Cm +
+    Ca, then the largest Cm); each shape once."""
+    import ctypes
+    from csmpn_torch.ops import fused_egcl as fe
+
+    maxt = fe._lib_fn(kf, "tile_maxt", [ctypes.c_int] * 5, ctypes.c_int)
+    caps = pair_fused_caps(kf)
+
+    def shape(cm, ca, c):
+        return (cm, ca, c, maxt(cm, ca, c, kf.wn, 1),
+                maxt(cm, ca, c, kf.wn, 2))
+
+    by_m = {}
+    for c, rows in caps.items():
+        for cm, _, _, _ in rows:
+            for sweep in (1, 2):
+                by_m.setdefault((sweep, maxt(cm, 0, c, kf.wn, sweep)),
+                                {})[c] = cm
+    out = []
+    for _, by_c in sorted(by_m.items()):
+        c = (min(c for c in by_c if c >= c_min) if max(by_c) >= c_min
+             else min(by_c))
+        if shape(by_c[c], 0, c) not in out:
+            out.append(shape(by_c[c], 0, c))
+    widest_c = max(caps)
+    cm, ca = max(((cm, e) for cm, e, _, _ in caps[widest_c]),
+                 key=lambda r: (r[0] + r[1], r[0]))
+    if shape(cm, ca, widest_c) not in out:
+        out.append(shape(cm, ca, widest_c))
+    return out
 
 
 def print_pair_smem(shapes):
@@ -709,6 +824,115 @@ def phase_pair_tile_instances(dev, gen, results):
                   f"launches bitwise equal (exact and fast)")
             del x, params, dout
             torch.cuda.empty_cache()
+
+
+def fused_route(params, alg, h, hj, attr, dst, mask, dagg):
+    """The fast edge side on the composed route: the message rows through
+    two CEMLP blocks on K2p/K3p (fast mode), rounded to bf16, summed over
+    the unmasked edges; returns (the sum, dh, dhj, dattr or None, the 20
+    parameter gradients) by autograd with cotangent dagg."""
+    from csmpn_torch.ops.cemlp_kernel import _Block
+
+    ps = [p.detach().requires_grad_(True) for p in params]
+    ins = [t.detach().float().requires_grad_(True)
+           for t in (h, hj) + ((attr,) if attr is not None else ())]
+    x = ins[0][dst] - ins[1]
+    if attr is not None:
+        x = torch.cat([x, ins[2]], dim=1)
+    y = _Block.apply(_Block.apply(x, alg, False, *ps[:10]), alg, False,
+                     *ps[10:])
+    y = y.to(torch.bfloat16).to(torch.float32)
+    if mask is not None:
+        y = y * mask.to(torch.float32)[:, None, None]
+    out = torch.zeros((h.shape[0],) + tuple(y.shape[1:]), device=y.device)
+    out = out.index_add(0, dst, y)
+    grads = torch.autograd.grad(out, ins + ps, dagg)
+    n_in = len(ins)
+    return (out.detach(), grads[0], grads[1],
+            grads[2] if attr is not None else None, list(grads[n_in:]))
+
+
+def phase_pair_fused_instances(dev, gen, results):
+    """The fast K4p and K5p at Cl(5) and Cl(4) (exact beside them) against
+    their plain versions at the shapes of pair_fused_instance_shapes (one
+    for each instance of the backward's sweeps, and the widest input),
+    over a ragged masked layout (E = 5,003, N = 1,001): outputs, dh, dhj,
+    dattr and the 20 gradients, two launches bitwise equal, masked rows of
+    dhj/dattr exactly 0.  Then the fast ones against the composed route
+    (fused_route) at those shapes and at each instance's shape at C_MIN,
+    the narrowest C held to the route only (FUSED_C_MIN)."""
+    import numpy as np
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.ops import fused_egcl as fe
+    from csmpn_torch.ops.segment import set_aggregation_mode
+
+    print("K4p/K5p vs plain at one shape of each tile sweep instance and "
+          "the widest input; fast vs the composed route there and at C = "
+          f"{C_MIN}")
+    dst_np = np.sort(np.random.RandomState(5).randint(0, 1001, size=5003))
+    for dim, kf, keys in ((5, fe.PAIR, ("k4p", "k5p")),
+                          (4, fe.PAIR_CL4, ("k4p_cl4", "k5p_cl4"))):
+        alg = get_algebra((1.0,) * dim)
+        shapes = pair_fused_instance_shapes(kf)
+        layouts = [(f"Cl({dim}) sweeps' tiles a warp {m1}/{m2}, ragged "
+                    f"E=5003 N=1001", dst_np, 1001, cm, ca, c, True)
+                   for cm, ca, c, m1, m2 in shapes]
+        errs = check_fused_form(dev, gen, alg, layouts, keys)
+        for k in keys:
+            results[k]["max_abs_err"] = max(results[k]["max_abs_err"],
+                                            errs[k]["exact"])
+            results[k]["max_abs_err_fast"] = max(
+                results[k]["max_abs_err_fast"], errs[k]["fast"])
+        narrow = [s for s in pair_fused_instance_shapes(kf, C_MIN)
+                  if s not in shapes]
+        dst = torch.from_numpy(dst_np.astype("int64")).to(dev)
+        mask = (torch.rand(5003, generator=gen) > 0.2).to(dev)
+        worst = [0.0, 0.0]
+        for cm, ca, c, m1, m2 in shapes + narrow:
+            nb = alg.n_blades
+            h = torch.randn(1001, cm, nb, generator=gen).to(dev).bfloat16()
+            hj = torch.randn(5003, cm, nb, generator=gen).to(dev).bfloat16()
+            attr = (torch.randn(5003, ca, nb, generator=gen).to(dev)
+                    .bfloat16() if ca else None)
+            params = edge_params(cm + ca, c, gen, dev, nb)
+            dagg = torch.randn(1001, c, nb, generator=gen).to(dev)
+            tag = (f"Cl({dim}) Cm={cm} Ca={ca} C={c} (tiles a warp "
+                   f"{m1}/{m2}) fast vs the composed route")
+            set_aggregation_mode("fast")
+            try:
+                want = fused_route(params, alg, h, hj, attr, dst, mask, dagg)
+            finally:
+                set_aggregation_mode("exact")
+            out = fe.mp_forward(params, alg, h, hj, attr, dst, mask, False)
+            worst[0] = max(worst[0], check(f"{LABEL[keys[0]]} {tag}", out,
+                                           want[0], TOL["k4p_fast"]))
+            got = fe.mp_backward(params, alg, h, hj, attr, dst, mask, dagg,
+                                 False)
+            for pn, g, w in zip(
+                    ["dh", "dhj", "dattr"] + [f"block{i} d{b}" for i in (1, 2)
+                                              for b in BLOCK_NAMES],
+                    list(got[:3]) + got[3], list(want[1:4]) + want[4]):
+                if g is not None:
+                    worst[1] = max(worst[1], check(
+                        f"{LABEL[keys[1]]} {tag} {pn}", g.float(), w,
+                        TOL["k5p_fast" if pn in ("dh", "dhj", "dattr")
+                            else "k5p_route"]))
+            if (cm, ca, c, m1, m2) in narrow:   # read, not held (FUSED_C_MIN)
+                plain = fe.message_aggregate_grad_plain(
+                    params, alg, h, hj, attr, dst, mask, dagg, False)
+                flat = [(g.float(), w, p) for g, w, p in zip(
+                    list(got[:3]) + got[3], list(want[1:4]) + want[4],
+                    list(plain[:3]) + plain[3]) if g is not None]
+                kp = max(rel_err(g, p)[1] for g, _, p in flat)
+                rp = max(rel_err(w, p)[1] for _, w, p in flat)
+                print(f"  {tag}: K5p vs plain {kp:.3e}, the composed route "
+                      f"vs plain {rp:.3e} (relative, worst tensor)")
+                del plain, flat
+            del h, hj, attr, params, dagg, out, got, want
+        torch.cuda.empty_cache()
+        print(f"  Cl({dim}): fast K4p / K5p vs the composed route at "
+              f"{len(shapes) + len(narrow)} shapes, worst max abs "
+              f"{worst[0]:.3e} / {worst[1]:.3e}")
 
 
 def kernel_name(ptxas_line: str) -> str:
@@ -2248,6 +2472,7 @@ def main() -> int:
     print_pair_smem(PAIR_SMEM_SHAPES)
     print_pair_fwd_widths()
     print_k4_widths()
+    print_pair_fused_widths()
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
     results = {}
@@ -2291,6 +2516,7 @@ def main() -> int:
                                   motion_counters)[:2]
         phase_tile_instances(dev, gen, results)
         phase_pair_tile_instances(dev, gen, results)
+        phase_pair_fused_instances(dev, gen, results)
     runs["bench"] = phase_bench(counters)[:2]
     runs["bench_cl2"] = phase_bench(cl2_counters, 2, BENCH_CL2_PER_STEP)[:2]
     runs["bench_cl5"] = phase_bench(cl5_counters, 5, BENCH_CL5_PER_STEP)[:2]

@@ -1,7 +1,10 @@
 // K2p in fast mode: the pair-form CEMLP block forward in row tiles, with
 // the channel-mixing linears on the tensor cores.  cemlp_pair_kernels.cuh
 // launches it for a fast-mode forward at Cl(5,0) and Cl(4,0); exact mode
-// keeps that file's row kernel (fp32 throughout).
+// keeps that file's row kernel (fp32 throughout).  Its step after the x
+// tile is the device function pair_tile_block_forward, whose sink takes
+// each row's output; the fast K4p/K5p's forward sweeps
+// (fused_egcl_pair_tile.cuh) run the same step.
 //
 // Replaces (with the row kernel): csmpn_tpu/ops/cemlp_kernel.py,
 // `_fwd_kernel` in its pair form (`_pair_form`, `_gp_pair_fwd`): one
@@ -152,6 +155,40 @@ __device__ __forceinline__ float pair_fwd_channel(const PBufs<A>& b,
   return sqrtf(sqrtf(qc * qc + 1e-16f));
 }
 
+// The forward of a block for one step of nrow rows, a warp a row (P's),
+// after the caller's barrier behind the step's x tile: F1, S1, F2, then
+// before_rows() (a hook run by every thread while no tile is written), then
+// the row phase: row `warp`'s o over fa (tile row warp (NB + 1) + j,
+// column n) and its layer-norm divisor mden, handed to sink(r, mden), which
+// writes y[j][n] = aln[n] / mden * o where the caller wants it (the row's
+// warp calls it).  Ends after the sink, before a barrier.
+template <class A, class P, class Before, class Sink>
+__device__ __forceinline__ void pair_tile_block_forward(
+    const PBufs<A>& b, const PLayout& L, const Tabs<A>& tb, int c, int nrow,
+    int warp, int lane, Before before_rows, Sink sink) {
+  static_assert(P::WARPS == P::R, "a warp a row");
+  pt_f1<A, P>(b, L, c, warp, lane);  // Y = X W1 -> fa
+  __syncthreads();
+  pt_s1<A, P>(b, L, tb, c, nrow);  // MVSiLU -> z
+  __syncthreads();
+  pt_f2<A, P>(b, L, c, warp, lane);  // YR = z Wr -> fb, FI = z WL -> fa
+  __syncthreads();
+  before_rows();
+  // ---- row `warp`: the pair product and o, a lane a channel; the layer
+  // norm's divisor, channels in lane order
+  if (warp < nrow) {
+    float tot = 0.f;
+    for (int n = lane; n < c; n += 32)
+      tot += pair_fwd_channel<A>(b, L, tb, warp, n);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      tot += __shfl_xor_sync(0xffffffffu, tot, off);
+    const float mden = tot / (float)c + EPS;
+    __syncwarp();
+    sink(warp, mden);
+  }
+}
+
 template <class A>
 __global__ void __launch_bounds__(PFwd<A>::THREADS, 1)
 cemlp_pair_fwd_tile_kernel(const float* __restrict__ x, Params p,
@@ -159,7 +196,6 @@ cemlp_pair_fwd_tile_kernel(const float* __restrict__ x, Params p,
                            int cin, int c) {
   using P = PFwd<A>;
   constexpr int NB = A::NB, R = P::R;
-  static_assert(P::WARPS == R, "a warp a row");
   extern __shared__ float4 smem4[];
   char* base = reinterpret_cast<char*>(smem4);
   const PLayout L = pair_tile_layout<A, P>(cin, c, true);
@@ -175,42 +211,29 @@ cemlp_pair_fwd_tile_kernel(const float* __restrict__ x, Params p,
     __syncthreads();   // the previous step's rows are written
     load_pair_x<A, P>(x, b, L, row0, nrow);
     __syncthreads();
-    pt_f1<A, P>(b, L, c, warp, lane);  // Y = X W1 -> fa
-    __syncthreads();
-    pt_s1<A, P>(b, L, tb, c, nrow);  // MVSiLU -> z
-    __syncthreads();
-    pt_f2<A, P>(b, L, c, warp, lane);  // YR = z Wr -> fb, FI = z WL -> fa
-    __syncthreads();
-    {   // the CTA's next step's rows of x into L2 while the rows compute
-      const int64_t nx = (int64_t)(step + gridDim.x) * R;
-      if (nx < rows) {
-        const int nr = rows - nx < R ? (int)(rows - nx) : R;
-        const char* xn = reinterpret_cast<const char*>(x + nx * cin * NB);
-        const int lines = (nr * cin * NB * 4 + 127) / 128;
-        for (int q = threadIdx.x + 32 * warp; q < lines; q += P::THREADS)
-          asm volatile("prefetch.global.L2 [%0];" ::"l"(xn + 128 * q));
-      }
-    }
-    // ---- row `warp`: the pair product and o, a lane a channel; the layer
-    // norm's divisor, channels in lane order; y = aln / m * o
-    if (warp < nrow) {
-      float tot = 0.f;
-      for (int n = lane; n < c; n += 32)
-        tot += pair_fwd_channel<A>(b, L, tb, warp, n);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        tot += __shfl_xor_sync(0xffffffffu, tot, off);
-      const float mden = tot / (float)c + EPS;
-      __syncwarp();
-      float4* dst = reinterpret_cast<float4*>(out + (row0 + warp) * per);
-      for (int e4 = lane; e4 < per / 4; e4 += 32) {
-        const int n = 4 * e4 / NB, j = 4 * e4 % NB;
-        const float s = b.aln[n] / mden;
-        const float* f = b.fa + (warp * (NB + 1) + j) * L.fp + n;
-        dst[e4] = make_float4(s * f[0], s * f[L.fp], s * f[2 * L.fp],
-                              s * f[3 * L.fp]);
-      }
-    }
+    pair_tile_block_forward<A, P>(
+        b, L, tb, c, nrow, warp, lane,
+        [&] {   // the CTA's next step's rows of x into L2
+          const int64_t nx = (int64_t)(step + gridDim.x) * R;
+          if (nx < rows) {
+            const int nr = rows - nx < R ? (int)(rows - nx) : R;
+            const char* xn =
+                reinterpret_cast<const char*>(x + nx * cin * NB);
+            const int lines = (nr * cin * NB * 4 + 127) / 128;
+            for (int q = threadIdx.x + 32 * warp; q < lines; q += P::THREADS)
+              asm volatile("prefetch.global.L2 [%0];" ::"l"(xn + 128 * q));
+          }
+        },
+        [&](int r, float mden) {   // y, coalesced as float4s
+          float4* dst = reinterpret_cast<float4*>(out + (row0 + r) * per);
+          for (int e4 = lane; e4 < per / 4; e4 += 32) {
+            const int n = 4 * e4 / NB, j = 4 * e4 % NB;
+            const float s = b.aln[n] / mden;
+            const float* f = b.fa + (r * (NB + 1) + j) * L.fp + n;
+            dst[e4] = make_float4(s * f[0], s * f[L.fp], s * f[2 * L.fp],
+                                  s * f[3 * L.fp]);
+          }
+        });
   }
 }
 

@@ -1,7 +1,10 @@
 // K3p in fast mode: the pair-form CEMLP block backward in row tiles, with
 // the channel-mixing linears on the tensor cores.  cemlp_pair_kernels.cuh
 // launches it for a fast-mode backward at Cl(5,0) and Cl(4,0); exact mode
-// keeps that file's row kernel (fp32 throughout).
+// keeps that file's row kernel (fp32 throughout).  Its step is the device
+// function pair_tile_block_backward, whose hooks load the x tile, give each
+// row's output cotangent and take dx; the fast K5p's backward sweeps
+// (fused_egcl_pair_tile.cuh) run the same step with hooks of their own.
 //
 // Replaces (with the row kernel): csmpn_tpu/ops/cemlp_kernel.py,
 // `_bwd_kernel` in its pair form (`_post_linear_bwd` over `_gp_pair_fwd`):
@@ -123,7 +126,9 @@ struct PTile {
 
 // A launch's geometry and the byte offsets of its shared regions, for the
 // step P.  The forward (cemlp_pair_fwd_tile.cuh, K2p; fwd = true) takes
-// the weights, parameters, row lists, x, z, fa and fb, and no others.
+// the weights, parameters, row lists, x, z, fa and fb, and no others.  The
+// bf16 tiles' and weights' rows are padded by xpad columns (8: their
+// ldmatrix rows fall in different banks).
 struct PLayout {
   int cin, c, c2, kin, kc, nt, ntm, ldx, ldc, fp, mt;
   size_t w1, wr, wl, prm, tab, ml, x, z, df, dr, yd, fa, fb, loc, gacc,
@@ -132,7 +137,8 @@ struct PLayout {
 
 template <class A, class P = PTile<A>>
 __host__ __device__ inline PLayout pair_tile_layout(int cin, int c,
-                                                    bool fwd = false) {
+                                                    bool fwd = false,
+                                                    int xpad = 8) {
   constexpr int NG = A::NG, NP = A::NP;
   PLayout L;
   L.cin = cin;
@@ -142,8 +148,8 @@ __host__ __device__ inline PLayout pair_tile_layout(int cin, int c,
   L.kc = pt_up16(c);
   L.nt = (c + 7) / 8;
   L.ntm = (cin + 7) / 8;
-  L.ldx = L.kin + 8;
-  L.ldc = L.kc + 8;
+  L.ldx = L.kin + xpad;
+  L.ldc = L.kc + xpad;
   L.fp = c | 1;
   L.mt = P::mtiles();
   size_t o = 0;
@@ -186,10 +192,10 @@ __host__ __device__ inline int pair_wgrad_tiles(const PLayout& L) {
 
 // The register tiles a warp needs, rounded up to an instance (16, 24 or
 // 32); 0 if more.
-template <class A>
+template <class A, class P = PTile<A>>
 __host__ __device__ inline int pair_tile_maxt(int cin, int c) {
-  const PLayout L = pair_tile_layout<A>(cin, c);
-  constexpr int W = PTile<A>::WARPS;
+  const PLayout L = pair_tile_layout<A, P>(cin, c);
+  constexpr int W = P::WARPS;
   const int per = (pair_wgrad_tiles<A>(L) + W - 1) / W;
   return per <= 16 ? 16 : per <= 24 ? 24 : per <= 32 ? 32 : 0;
 }
@@ -507,10 +513,12 @@ __device__ __forceinline__ void get_pairs(const uint32_t* ps, int i,
 
 // The row phase for row r of the step (every lane of its team calls it):
 // the forward after the linears and the backward up to them, as
-// cemlp_pair.cuh's row_backward computes it, from fa (first), fb (yr) and
-// z; leaves yn, d(first) and d(yr) in their bf16 tiles, d(z) of the pair
-// product over fb, and adds the row's per-channel gradients (layer-norm
-// gain, bL, d sigmoid(normalization.a)) to the row's sums in loc.
+// cemlp_pair.cuh's row_backward computes it, from fa (first), fb (yr), z
+// and the row's output cotangent go ((C, NB) fp32, read rounded to bf16
+// where GO_RND); leaves yn, d(first) and d(yr) in their bf16 tiles, d(z)
+// of the pair product over fb, and adds the row's per-channel gradients
+// (layer-norm gain, bL, d sigmoid(normalization.a)) to the row's sums in
+// loc.
 //
 // The pair loops are bound by the shared-memory and shuffle pipe, not by
 // arithmetic, so a member takes groups of four channels (every nh-th) side
@@ -522,7 +530,7 @@ __device__ __forceinline__ void get_pairs(const uint32_t* ps, int i,
 // too.  The pair sign multiplies the rounded product (rounding commutes
 // with it).  Channels past c compute on the zero padding (and on the next
 // path weights) and are dropped.
-template <class A>
+template <class A, bool GO_RND = false>
 __device__ __forceinline__ void pair_row_phase(const PBufs<A>& b,
                                                const PLayout& L,
                                                const Lane& l, const Team& tm,
@@ -600,7 +608,7 @@ __device__ __forceinline__ void pair_row_phase(const PBufs<A>& b,
     float ta[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const float g = go[n[u] * NB + lane], o = fa[n[u]];
+      const float g = rnd<GO_RND>(go[n[u] * NB + lane]), o = fa[n[u]];
       if (n0 + u < c) t += g * b.aln[n[u]] * o;
       ta[u] = g * o;
     }
@@ -617,7 +625,7 @@ __device__ __forceinline__ void pair_row_phase(const PBufs<A>& b,
     float g[U], o[U], qc[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      g[u] = go[n[u] * NB + lane];
+      g[u] = rnd<GO_RND>(go[n[u] * NB + lane]);
       o[u] = fa[n[u]];
       qc[u] = rnd<true>(o[u] * o[u] * l.bc);
     }
@@ -815,6 +823,214 @@ __device__ __forceinline__ void pt_f2(const PBufs<A>& b, const PLayout& L,
   }
 }
 
+// What a warp of the backward's step needs besides the tiles: its row (in
+// the row phase), its team and lane, its scratch rows.
+template <class A>
+struct PWarp {
+  Lane l;
+  Team tm;
+  int warp, lane, tid, r_team;
+  float* scw;      // the member's grade-sum scratch
+  uint32_t* psw;   // the member's scratch rows of bf16 pairs
+};
+
+template <class A, class P = PTile<A>>
+__device__ __forceinline__ PWarp<A> make_pwarp(const PBufs<A>& b,
+                                               const Tabs<A>& tb) {
+  PWarp<A> w;
+  w.warp = threadIdx.y;
+  w.lane = threadIdx.x;
+  w.tid = w.lane + 32 * w.warp;
+  w.l = make_lane<A>(tb);
+  w.r_team = w.warp / P::WPR;
+  w.tm = make_team<A>(w.warp, P::WPR, b.xch);
+  w.scw = b.sc + (w.warp * 32 + half_of_warp<A>() * A::NB) * PT_GROUP;
+  // a member's scratch rows: its lanes' words of each of the warp's four
+  // 32-word rows (a half-warp member at Cl(4) takes half of each)
+  w.psw = b.ps + w.warp * 4 * 32 + half_of_warp<A>() * A::NB;
+  return w;
+}
+
+// The whole backward of a block for one step of nrow rows; every thread of
+// the CTA calls it behind a barrier that ends the previous step's use of
+// the tiles.  Hooks:
+//   load()     brings the step's rows of x into the x tile (rows past nrow
+//              may keep older finite values: their cotangents are zero);
+//   go_of(r)   row r's output cotangent ((C, NB) fp32, read rounded to
+//              bf16 where GO_RND), or nullptr for a zero cotangent;
+//   sink(r, i, m, v)  dx of row r, blade i, input channel m (B4).
+// The weight gradients go into the warp's register tiles wacc, the
+// per-channel ones into b.loc, b.sacc and b.gacc.  Ends after B4, before
+// a barrier.
+template <class A, int MAXT, bool GO_RND, class P = PTile<A>, class Load,
+          class Go, class Sink>
+__device__ __forceinline__ void pair_tile_block_backward(
+    const PBufs<A>& b, const PLayout& L, const Tabs<A>& tb, const PWarp<A>& w,
+    int c, int nrow, Load load, Go go_of, Sink sink, float (&wacc)[MAXT][4]) {
+  constexpr int NB = A::NB, NG = A::NG, NP = A::NP, R = P::R;
+  const int tid = w.tid, warp = w.warp, lane = w.lane;
+  const int zw1 = NG * c;   // the weights' zero row
+  load();
+  __syncthreads();
+  pt_f1<A, P>(b, L, c, warp, lane);  // Y = X W1 -> fa
+  __syncthreads();
+  pt_s1<A, P>(b, L, tb, c, nrow);  // MVSiLU -> z
+  __syncthreads();
+  pt_f2<A, P>(b, L, c, warp, lane);  // YR = z Wr -> fb, FI = z WL -> fa
+  __syncthreads();
+  // ---- the row phase (rows past nrow and rows without a cotangent: zero
+  // cotangents, and no d(z) from the pair product)
+  {
+    const float* go = w.r_team < nrow ? go_of(w.r_team) : nullptr;
+    if (go != nullptr) {
+      pair_row_phase<A, GO_RND>(b, L, w.l, w.tm, w.scw, w.psw, go, w.r_team);
+    } else {
+      const int trow = w.r_team * (NB + 1) + w.l.id;
+      for (int n = w.tm.h; n < c; n += w.tm.nh) {
+        b.df[trow * L.ldc + n] = __float2bfloat16_rn(0.f);
+        b.dr[trow * L.ldc + n] = __float2bfloat16_rn(0.f);
+        b.fb[trow * L.fp + n] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+  // ---- path-weight gradients: a thread per (path, two channels), its
+  // pairs (j, k, i) over the step's rows side by side: sum of (z_i *
+  // yn_k) * (sign d_j), each row's sum in pair order, then the rows in
+  // order (bf16 pairs: a channel past c reads the zero padding)
+  for (int it = tid; it < NP * L.c2; it += P::THREADS) {
+    const int q = it / L.c2, n = 2 * (it % L.c2);
+    float acc[R][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
+    for (int k = b.off[q]; k < b.off[q + 1]; ++k) {
+      const int e = b.list[k];
+      const int j = e & FIELD, kk = (e >> 5) & FIELD, i = (e >> 10) & FIELD;
+      const float sg = (e >> 15) ? -1.f : 1.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int t0 = r * (NB + 1);
+        const float2 dj = bf2(b.df + (t0 + j) * L.ldc + n);
+        const float2 zi = bf2(b.z + (t0 + i) * L.ldc + n);
+        const float2 yk = bf2(b.yd + (t0 + kk) * L.ldc + n);
+        acc[r][0] += (zi.x * yk.x) * (sg * dj.x);
+        acc[r][1] += (zi.y * yk.y) * (sg * dj.y);
+      }
+    }
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s0 += acc[r][0];
+      s1 += acc[r][1];
+    }
+    b.gacc[q * c + n] += s0;
+    if (n + 1 < c) b.gacc[q * c + n + 1] += s1;
+  }
+  // ---- B2: Y -> fa, d(z) = fb + d(first) WL^T + d(yr) Wr^T -> fb
+  for (int task = warp; task < L.mt * L.nt; task += P::WARPS) {
+    const int t = task / L.nt, n0 = 8 * (task % L.nt), g = b.mtg[t];
+    const short* mr = b.mrow + 16 * t;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    p_linear(acc, b.x, L.ldx, L.kin, b.w1, L.ldx, g, c, zw1, mr, n0, lane);
+    float dz[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = mr[pfrag_row(lane, q)], n = n0 + pfrag_col(lane, q);
+      dz[q] = (row != P::ZROW && n < c) ? b.fb[row * L.fp + n] : 0.f;
+    }
+    p_linear_t(dz, b.df, L.ldc, L.kc, b.wl, L.ldc, g, c, zw1, mr, n0,
+               lane);
+    p_linear_t(dz, b.dr, L.ldc, L.kc, b.wr, L.ldc, g, c, zw1, mr, n0,
+               lane);
+    p_store(acc, b.fa, L.fp, c, mr, n0, P::ZROW, lane);
+    p_store(dz, b.fb, L.fp, c, mr, n0, P::ZROW, lane);
+  }
+  __syncthreads();
+  // ---- S2: MVSiLU backward -> d(y) over yn's tile (zero past the rows)
+  for (int it = tid; it < R * c; it += P::THREADS) {
+    const int r = it / c, n = it % c, t0 = r * (NB + 1);
+    if (r >= nrow) {
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+        b.yd[(t0 + i) * L.ldc + n] = __float2bfloat16_rn(0.f);
+      continue;
+    }
+    float y[NB], inv[NG], sg[NG], dgs[NG], dgr[NG];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) y[i] = b.fa[(t0 + i) * L.fp + n];
+    pair_gates<A>(y, b, tb, n, c, inv, sg);
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      dgs[g] = 0.f;
+      dgr[g] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float sv = sg[A::grade(i)];
+      const float dgate = b.fb[(t0 + i) * L.fp + n] * y[i] * sv * (1.f - sv);
+      dgs[A::grade(i)] += dgate;
+      dgr[A::grade(i)] += rnd<true>(dgate);
+    }
+    float* sa = b.sacc + it;   // [NSIL][R * C]
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      sa[(1 + NG + g) * R * c] += dgs[g];
+      sa[(1 + g) * R * c] += inv[g] * dgr[g];
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int g = A::grade(i);
+      const float dv = b.ra[g * c + n] * dgr[g];
+      const float dz = b.fb[(t0 + i) * L.fp + n];
+      const float dy = dz * sg[g] + (i == 0 ? dv : 2.f * tb.bc[i] * y[i] * dv);
+      if (i == 0) sa[0] += dy;
+      b.yd[(t0 + i) * L.ldc + n] = __float2bfloat16_rn(dy);
+    }
+  }
+  __syncthreads();
+  // ---- B3: weight gradients into the warp's register tiles; K runs over
+  // the grade's M tiles
+  {
+    const int arow = (lane & 7) + ((lane >> 4) & 1) * 8;
+    const int acol = ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int j = 0; j < MAXT; ++j) {
+      const int d = b.wd[warp * 32 + j];
+      if (d < 0) continue;
+      const int which = d & 3, g = (d >> 2) & 7;
+      const int m0 = 16 * ((d >> 5) & 1023), n0 = 8 * (d >> 15);
+      const bf16* as = which == 0 ? b.x : b.z;
+      const int lda = which == 0 ? L.ldx : L.ldc;
+      const bf16* bs = which == 0 ? b.yd : which == 1 ? b.dr : b.df;
+      const int t0 = b.tfirst[g], tn = b.tfirst[g + 1] - t0;
+#pragma unroll
+      for (int tt = 0; tt < P::GTMAX; ++tt) {
+        if (tt >= tn) break;
+        const short* mr = b.mrow + 16 * (t0 + tt);
+        uint32_t af[4], bfr[2];
+        ldsm4_t_s(af, (unsigned)__cvta_generic_to_shared(
+                          as + (size_t)mr[arow] * lda + m0 + acol));
+        ldsm2_t_s(bfr, (unsigned)__cvta_generic_to_shared(
+                           bs + (size_t)mr[lane & 15] * L.ldc + n0));
+        mma_bf16_s(wacc[j], af, bfr);
+      }
+    }
+  }
+  // ---- B4: dx = d(y) W1^T, to the sink
+  for (int task = warp; task < L.mt * L.ntm; task += P::WARPS) {
+    const int t = task / L.ntm, m0 = 8 * (task % L.ntm), g = b.mtg[t];
+    const short* mr = b.mrow + 16 * t;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    p_linear_t(acc, b.yd, L.ldc, L.kc, b.w1, L.ldx, g, c, zw1, mr, m0, lane);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = mr[pfrag_row(lane, q)], m = m0 + pfrag_col(lane, q);
+      const int r = row / (NB + 1), i = row % (NB + 1);
+      if (row != P::ZROW && r < nrow && m < L.cin) sink(r, i, m, acc[q]);
+    }
+  }
+}
+
 template <class A, int MAXT>
 __global__ void __launch_bounds__(PTile<A>::THREADS, 1)
 cemlp_pair_bwd_tile_kernel(const float* __restrict__ x,
@@ -830,16 +1046,8 @@ cemlp_pair_bwd_tile_kernel(const float* __restrict__ x,
   const PLayout L = pair_tile_layout<A>(cin, c);
   const PBufs<A> b = carve_pbufs<A>(base, L);
   stage_pair_tile<A>(p, tabs, b, L, base);
-  const int tid = threadIdx.x + 32 * threadIdx.y;
-  const int warp = threadIdx.y, lane = threadIdx.x;
-  const int zw1 = NG * c;   // the weights' zero row
-  const Lane l = make_lane<A>(tb);
-  const int r_team = warp / P::WPR;
-  const Team tm = make_team<A>(warp, P::WPR, b.xch);
-  float* scw = b.sc + (warp * 32 + half_of_warp<A>() * NB) * PT_GROUP;
-  // a member's scratch rows: its lanes' words of each of the warp's four
-  // 32-word rows (a half-warp member at Cl(4) takes half of each)
-  uint32_t* psw = b.ps + warp * 4 * 32 + half_of_warp<A>() * NB;
+  const PWarp<A> w = make_pwarp<A>(b, tb);
+  const int tid = w.tid, warp = w.warp, lane = w.lane;
   float wacc[MAXT][4];
 #pragma unroll
   for (int j = 0; j < MAXT; ++j)
@@ -851,164 +1059,13 @@ cemlp_pair_bwd_tile_kernel(const float* __restrict__ x,
     const int64_t row0 = (int64_t)step * R;
     const int nrow = rows - row0 < R ? (int)(rows - row0) : R;
     __syncthreads();   // the previous step's tiles are consumed
-    load_pair_x<A>(x, b, L, row0, nrow);
-    __syncthreads();
-    pt_f1<A>(b, L, c, warp, lane);  // Y = X W1 -> fa
-    __syncthreads();
-    pt_s1<A>(b, L, tb, c, nrow);  // MVSiLU -> z
-    __syncthreads();
-    pt_f2<A>(b, L, c, warp, lane);  // YR = z Wr -> fb, FI = z WL -> fa
-    __syncthreads();
-    // ---- the row phase (rows past nrow: zero cotangents)
-    if (r_team < nrow) {
-      pair_row_phase<A>(b, L, l, tm, scw, psw,
-                        dout + (row0 + r_team) * c * NB,
-                        r_team);
-    } else {
-      const int trow = r_team * (NB + 1) + l.id;
-      for (int n = tm.h; n < c; n += tm.nh) {
-        b.df[trow * L.ldc + n] = __float2bfloat16_rn(0.f);
-        b.dr[trow * L.ldc + n] = __float2bfloat16_rn(0.f);
-      }
-    }
-    __syncthreads();
-    // ---- path-weight gradients: a thread per (path, two channels), its
-    // pairs (j, k, i) over the step's rows side by side: sum of (z_i *
-    // yn_k) * (sign d_j), each row's sum in pair order, then the rows in
-    // order (bf16 pairs: a channel past c reads the zero padding)
-    for (int it = tid; it < NP * L.c2; it += P::THREADS) {
-      const int q = it / L.c2, n = 2 * (it % L.c2);
-      float acc[R][2];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
-      for (int k = b.off[q]; k < b.off[q + 1]; ++k) {
-        const int e = b.list[k];
-        const int j = e & FIELD, kk = (e >> 5) & FIELD, i = (e >> 10) & FIELD;
-        const float sg = (e >> 15) ? -1.f : 1.f;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int t0 = r * (NB + 1);
-          const float2 dj = bf2(b.df + (t0 + j) * L.ldc + n);
-          const float2 zi = bf2(b.z + (t0 + i) * L.ldc + n);
-          const float2 yk = bf2(b.yd + (t0 + kk) * L.ldc + n);
-          acc[r][0] += (zi.x * yk.x) * (sg * dj.x);
-          acc[r][1] += (zi.y * yk.y) * (sg * dj.y);
-        }
-      }
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        s0 += acc[r][0];
-        s1 += acc[r][1];
-      }
-      b.gacc[q * c + n] += s0;
-      if (n + 1 < c) b.gacc[q * c + n + 1] += s1;
-    }
-    // ---- B2: Y -> fa, d(z) = fb + d(first) WL^T + d(yr) Wr^T -> fb
-    for (int task = warp; task < L.mt * L.nt; task += P::WARPS) {
-      const int t = task / L.nt, n0 = 8 * (task % L.nt), g = b.mtg[t];
-      const short* mr = b.mrow + 16 * t;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      p_linear(acc, b.x, L.ldx, L.kin, b.w1, L.ldx, g, c, zw1, mr, n0, lane);
-      float dz[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = mr[pfrag_row(lane, q)], n = n0 + pfrag_col(lane, q);
-        dz[q] = (row != P::ZROW && n < c) ? b.fb[row * L.fp + n] : 0.f;
-      }
-      p_linear_t(dz, b.df, L.ldc, L.kc, b.wl, L.ldc, g, c, zw1, mr, n0,
-                 lane);
-      p_linear_t(dz, b.dr, L.ldc, L.kc, b.wr, L.ldc, g, c, zw1, mr, n0,
-                 lane);
-      p_store(acc, b.fa, L.fp, c, mr, n0, P::ZROW, lane);
-      p_store(dz, b.fb, L.fp, c, mr, n0, P::ZROW, lane);
-    }
-    __syncthreads();
-    // ---- S2: MVSiLU backward -> d(y) over yn's tile (zero past the rows)
-    for (int it = tid; it < R * c; it += P::THREADS) {
-      const int r = it / c, n = it % c, t0 = r * (NB + 1);
-      if (r >= nrow) {
-#pragma unroll
-        for (int i = 0; i < NB; ++i)
-          b.yd[(t0 + i) * L.ldc + n] = __float2bfloat16_rn(0.f);
-        continue;
-      }
-      float y[NB], inv[NG], sg[NG], dgs[NG], dgr[NG];
-#pragma unroll
-      for (int i = 0; i < NB; ++i) y[i] = b.fa[(t0 + i) * L.fp + n];
-      pair_gates<A>(y, b, tb, n, c, inv, sg);
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        dgs[g] = 0.f;
-        dgr[g] = 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const float sv = sg[A::grade(i)];
-        const float dgate = b.fb[(t0 + i) * L.fp + n] * y[i] * sv * (1.f - sv);
-        dgs[A::grade(i)] += dgate;
-        dgr[A::grade(i)] += rnd<true>(dgate);
-      }
-      float* sa = b.sacc + it;   // [NSIL][R * C]
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        sa[(1 + NG + g) * R * c] += dgs[g];
-        sa[(1 + g) * R * c] += inv[g] * dgr[g];
-      }
-#pragma unroll
-      for (int i = 0; i < NB; ++i) {
-        const int g = A::grade(i);
-        const float dv = b.ra[g * c + n] * dgr[g];
-        const float dz = b.fb[(t0 + i) * L.fp + n];
-        const float dy = dz * sg[g] + (i == 0 ? dv : 2.f * tb.bc[i] * y[i] * dv);
-        if (i == 0) sa[0] += dy;
-        b.yd[(t0 + i) * L.ldc + n] = __float2bfloat16_rn(dy);
-      }
-    }
-    __syncthreads();
-    // ---- B3: weight gradients into the warp's register tiles; K runs over
-    // the grade's M tiles
-    {
-      const int arow = (lane & 7) + ((lane >> 4) & 1) * 8;
-      const int acol = ((lane >> 3) & 1) * 8;
-#pragma unroll
-      for (int j = 0; j < MAXT; ++j) {
-        const int d = b.wd[warp * 32 + j];
-        if (d < 0) continue;
-        const int which = d & 3, g = (d >> 2) & 7;
-        const int m0 = 16 * ((d >> 5) & 1023), n0 = 8 * (d >> 15);
-        const bf16* as = which == 0 ? b.x : b.z;
-        const int lda = which == 0 ? L.ldx : L.ldc;
-        const bf16* bs = which == 0 ? b.yd : which == 1 ? b.dr : b.df;
-        const int t0 = b.tfirst[g], tn = b.tfirst[g + 1] - t0;
-#pragma unroll
-        for (int tt = 0; tt < P::GTMAX; ++tt) {
-          if (tt >= tn) break;
-          const short* mr = b.mrow + 16 * (t0 + tt);
-          uint32_t af[4], bfr[2];
-          ldsm4_t_s(af, (unsigned)__cvta_generic_to_shared(
-                            as + (size_t)mr[arow] * lda + m0 + acol));
-          ldsm2_t_s(bfr, (unsigned)__cvta_generic_to_shared(
-                             bs + (size_t)mr[lane & 15] * L.ldc + n0));
-          mma_bf16_s(wacc[j], af, bfr);
-        }
-      }
-    }
-    // ---- B4: dx = d(y) W1^T, straight to global memory
-    for (int task = warp; task < L.mt * L.ntm; task += P::WARPS) {
-      const int t = task / L.ntm, m0 = 8 * (task % L.ntm), g = b.mtg[t];
-      const short* mr = b.mrow + 16 * t;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      p_linear_t(acc, b.yd, L.ldc, L.kc, b.w1, L.ldx, g, c, zw1, mr, m0,
-                 lane);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = mr[pfrag_row(lane, q)], m = m0 + pfrag_col(lane, q);
-        const int r = row / (NB + 1), i = row % (NB + 1);
-        if (row != P::ZROW && r < nrow && m < cin)
-          dx[((row0 + r) * cin + m) * NB + i] = acc[q];
-      }
-    }
+    pair_tile_block_backward<A, MAXT, false>(
+        b, L, tb, w, c, nrow, [&] { load_pair_x<A>(x, b, L, row0, nrow); },
+        [&](int r) { return dout + (row0 + r) * c * NB; },
+        [&](int r, int i, int m, float v) {
+          dx[((row0 + r) * cin + m) * NB + i] = v;
+        },
+        wacc);
   }
   __syncthreads();
   // ---- this CTA's partial gradient vector, in flax layout; per-row sums

@@ -11,8 +11,13 @@
 // bytes bound it, as for K4.  K5p moves about twice the bytes and does
 // three times the operations, so operations bound it.
 //
-// Row tile and window.  A row's 32 blades are a warp.  Both blocks' fp32
-// parameters take ~130 KB at 28 channels, which leaves:
+// Fast mode (fused_egcl_pair_tile.cuh): K2p's and K3p's row tiles, 8 rows
+// a step on 8 warps for the forward sweeps and 4 rows on 12 warps for the
+// backward ones (~171 KB of shared memory at 28 -> 28); the window sums
+// take a CTA a window of wn = 4 targets.
+//
+// Exact mode, the row tile and window.  A row's 32 blades are a warp.  Both
+// blocks' fp32 parameters take ~130 KB at 28 channels, which leaves:
 //   * K4p: 4 row slots of 4 warps (16 warps), windows of wn = 4 targets
 //     (3.5 KB each): 195,760 B at 28 -> 28;
 //   * K5p: 2 row slots of 4 warps (8 warps): 219,080 B.

@@ -17,17 +17,20 @@
 // Design.  The ownership of K4/K5 (fused_egcl.cu): the wrapper cuts the
 // target nodes into windows of wn nodes, a CTA walks over whole windows,
 // so every edge row and every node row has one owner: no atomics, results
-// bitwise equal from run to run.  The row layout of K2p/K3p: a row's
-// blades are a member's lanes (a warp at Cl(5), a half-warp at Cl(4)) and
-// a team of members shares a row.  Both blocks' fp32 parameters are staged
-// once per CTA, which leaves room for few rows in flight and a small
-// window:
+// bitwise equal from run to run.  In fast mode both kernels are sweeps of
+// K2p's and K3p's row tiles over all edge rows and a window-sum kernel
+// (fused_egcl_pair_tile.cuh: three launches for K4p, five for K5p with
+// the reduce of the partials).  The exact kernels here keep the
+// row layout of the exact K2p/K3p: a row's blades are a member's lanes (a
+// warp at Cl(5), a half-warp at Cl(4)) and a team of members shares a row.
+// Both blocks' fp32 parameters are staged once per CTA, which leaves room
+// for few rows in flight and a small window:
 //   * K4p: ROWS_F row slots; each team builds its row x = [h[dst] - hj,
-//     attr] in shared memory, runs block 1, writes block 2's input rounded
-//     over x, runs block 2, and leaves the rounded message in its slot; the
-//     CTA then adds the tile's messages into the window's fp32 sum in row
-//     order (masked rows are skipped), and writes the window once (an
-//     empty window writes 0);
+//     attr] in shared memory, runs block 1, writes block 2's input over x,
+//     runs block 2, and leaves the message in its slot; the CTA then adds
+//     the tile's messages into the window's fp32 sum in row order (masked
+//     rows are skipped), and writes the window once (an empty window
+//     writes 0);
 //   * K5p: ROWS_B row slots (the backward's row buffers are 2.5x the
 //     forward's).  Holding both blocks' cotangent rows at once does not
 //     fit, so a CTA sweeps its windows twice in one launch, as K5 does:
@@ -43,64 +46,53 @@
 //     partial vector in K5's layout, and a second kernel sums the CTAs'
 //     vectors in a fixed order.
 //
-// Precision: FAST = false is fp32 throughout.  FAST = true streams h, hj
-// and attr as bf16, rounds block 1's input, block 2's input, each message
-// row and d(agg) as K4/K5 do, rounds each pair product z_i * yn_k * w as
-// K2p does (the path weight stays fp32), writes dhj and dattr as bf16, and
-// accumulates in fp32.
+// Precision: the row kernels are exact mode, fp32 throughout.  Fast mode
+// (the tile sweeps) streams h, hj and attr as bf16, rounds block 1's
+// input, block 2's input, each message row and d(agg) as K4/K5 do, rounds
+// each pair product z_i * yn_k * w as K2p does (the path weight stays
+// fp32), writes dhj and dattr as bf16, and accumulates in fp32.
 #pragma once
 
 #include "cemlp_pair.cuh"
+#include "fused_egcl_pair_tile.cuh"
 #include "fused_mp.cuh"
 
 namespace {
 
-// rows of the per-channel gradient block of K5's partial layout: b1,
-// silu.a (NG), silu.b (NG), gp.weight (NP), d sigmoid(normalization.a)
-// (NG), bL, ln.a
-template <class A>
-__host__ __device__ constexpr int loc_out() {
-  return 1 + 3 * A::NG + A::NP + 2;
-}
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-
 // The row's block-1 input x = [h[dst] - hj, attr] at this lane's blade
-// into xs ([m][RP]), rounded in fast mode; the team splits the channels.
-template <class A, typename T, bool FAST>
+// into xs ([m][RP]); the team splits the channels.
+template <class A>
 __device__ __forceinline__ void load_msg_row(
-    const T* __restrict__ h, const T* __restrict__ hj,
-    const T* __restrict__ attr, int64_t t, int64_t row, int cm, int ca,
+    const float* __restrict__ h, const float* __restrict__ hj,
+    const float* __restrict__ attr, int64_t t, int64_t row, int cm, int ca,
     const Team& tm, int lane, float* xs) {
   constexpr int NB = A::NB;
-  for (int m = tm.h; m < cm + ca; m += tm.nh) {
-    const float v =
-        m < cm ? ldf(h + (t * cm + m) * NB + lane) -
-                     ldf(hj + (row * cm + m) * NB + lane)
-               : ldf(attr + (row * ca + (m - cm)) * NB + lane);
-    xs[m * A::RP + lane] = rnd<FAST>(v);
-  }
+  for (int m = tm.h; m < cm + ca; m += tm.nh)
+    xs[m * A::RP + lane] =
+        m < cm ? h[(t * cm + m) * NB + lane] - hj[(row * cm + m) * NB + lane]
+               : attr[(row * ca + (m - cm)) * NB + lane];
 }
 
 // A block's output for the team member's own channel groups (those it
 // wrote in row_forward), out[n * RP + lane] = rnd(aln[n] / m * os[n * RP +
 // lane]); out may be os itself.
-template <class A, bool FAST>
+template <class A>
 __device__ __forceinline__ void scale_row(const Smem& s, const Team& tm,
                                           int lane, float mden,
                                           const float* os, float* out,
                                           int c) {
   for (int n0 = 4 * tm.h; n0 < c; n0 += 4 * tm.nh)
     for (int n = n0; n < n0 + 4 && n < c; ++n)
-      out[n * A::RP + lane] =
-          rnd<FAST>(s.aln[n] / mden * os[n * A::RP + lane]);
+      out[n * A::RP + lane] = s.aln[n] / mden * os[n * A::RP + lane];
 }
 
-template <class A, class K, bool FAST>
+// K4p in exact mode (fp32 throughout); the fast one is sweeps 0 and 3 and
+// the message sum of fused_egcl_pair_tile.cuh.
+template <class A, class K>
 __global__ void __launch_bounds__(K::THREADS_F, 1)
-fused_mp_pair_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
-                         const typename Stream<FAST>::T* __restrict__ hj,
-                         const typename Stream<FAST>::T* __restrict__ attr,
+fused_mp_pair_fwd_kernel(const float* __restrict__ h,
+                         const float* __restrict__ hj,
+                         const float* __restrict__ attr,
                          const int* __restrict__ dst,
                          const uint8_t* __restrict__ mask,
                          const int64_t* __restrict__ bounds, Params p1,
@@ -125,8 +117,8 @@ fused_mp_pair_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   int* dloc = reinterpret_cast<int*>(xch + ROWS_F * A::XCH);   // [ROWS_F]
   float* acc = xch + ROWS_F * A::XCH + ROWS_F;         // [wn][c][NB]
   float* rowbuf = acc + gm.wn * per_node;              // [ROWS_F][slot]
-  stage_params<A, FAST>(p1, s1, cin1, c, THREADS_F);
-  stage_params<A, FAST>(p2, s2, c, c, THREADS_F);
+  stage_params<A, false>(p1, s1, cin1, c, THREADS_F);
+  stage_params<A, false>(p2, s2, c, c, THREADS_F);
   const int tid = threadIdx.x + 32 * threadIdx.y;
   for (int e = tid; e < NB * NB; e += THREADS_F) t1[e] = tabs[e];
 
@@ -149,18 +141,16 @@ fused_mp_pair_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
       const bool keep = row < e1 && (mask == nullptr || mask[row]);
       if (tm.h == 0 && lane == 0) dloc[r] = keep ? dst[row] - base : -1;
       if (keep) {        // the whole team
-        load_msg_row<A, typename Stream<FAST>::T, FAST>(
-            h, hj, attr, dst[row], row, cm, ca, tm, lane, xs);
+        load_msg_row<A>(h, hj, attr, dst[row], row, cm, ca, tm, lane, xs);
         team_sync<A>(tm);
-        const float m1 = row_forward<A, FAST>(s1, l, tm, t1, xs, zs, nullptr,
-                                              os, scw, cin1, c);
-        // block 2 reads its input rounded, as K2p does; the team is past
-        // every read of block 1's input
-        scale_row<A, FAST>(s1, tm, lane, m1, os, xs, c);
+        const float m1 = row_forward<A, false>(s1, l, tm, t1, xs, zs, nullptr,
+                                               os, scw, cin1, c);
+        // block 2's input over x: the team is past every read of block 1's
+        scale_row<A>(s1, tm, lane, m1, os, xs, c);
         team_sync<A>(tm);
-        const float m2 = row_forward<A, FAST>(s2, l, tm, t1, xs, zs, nullptr,
-                                              os, scw, c, c);
-        scale_row<A, FAST>(s2, tm, lane, m2, os, os, c);
+        const float m2 = row_forward<A, false>(s2, l, tm, t1, xs, zs, nullptr,
+                                               os, scw, c, c);
+        scale_row<A>(s2, tm, lane, m2, os, os, c);
       }
       __syncthreads();
       const int nrow = (int)(e1 - row0 < ROWS_F ? e1 - row0 : ROWS_F);
@@ -178,23 +168,6 @@ fused_mp_pair_fwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
       out[(int64_t)base * per_node + e] = acc[e];
     __syncthreads();   // window written before the next one zeroes acc
   }
-}
-
-// One block's part of a CTA's partial gradient vector, K5's layout:
-//   aw1 [(m*NG+g)*C + n] (Cin) | awr (C) | awl (C) | loc [LOC_OUT][C]
-// with loc rows b1, silu.a, silu.b, gp.weight, d sigmoid(norm.a), bL,
-// ln.a.  The host maps the summed vector onto the flax shapes.
-template <class A>
-__host__ __device__ inline int64_t block_part_floats(int cin, int c) {
-  return (int64_t)(cin + 2 * c) * A::NG * c + (int64_t)loc_out<A>() * c;
-}
-
-// One CTA's slice of the backward's scratch: block 1's part, block 2's,
-// then the channel-mixing accumulators of the sweep's block, padded to C4.
-template <class A>
-__host__ __device__ inline int64_t slice_floats(int cin1, int c) {
-  return block_part_floats<A>(cin1, c) + block_part_floats<A>(c, c) +
-         (int64_t)(imax(cin1, c) + 2 * c) * A::NG * pad4(c);
 }
 
 // Writes one block's part from the sweep's accumulators: mix (the padded
@@ -232,11 +205,13 @@ __device__ void write_block_part(float* part, const float* mix,
   }
 }
 
-template <class A, class K, bool FAST>
+// K5p in exact mode (fp32 throughout); the fast one is sweeps 0, 1 and 2
+// and the dmsg sum of fused_egcl_pair_tile.cuh.
+template <class A, class K>
 __global__ void __launch_bounds__(K::THREADS_B, 1)
-fused_mp_pair_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
-                         const typename Stream<FAST>::T* __restrict__ hj,
-                         const typename Stream<FAST>::T* __restrict__ attr,
+fused_mp_pair_bwd_kernel(const float* __restrict__ h,
+                         const float* __restrict__ hj,
+                         const float* __restrict__ attr,
                          const int* __restrict__ dst,
                          const uint8_t* __restrict__ mask,
                          const int64_t* __restrict__ bounds,
@@ -244,8 +219,8 @@ fused_mp_pair_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
                          Params p2, Tabs<A> tb,
                          const uint16_t* __restrict__ tabs,
                          float* __restrict__ dh,
-                         typename Stream<FAST>::T* __restrict__ dhj,
-                         typename Stream<FAST>::T* __restrict__ dattr,
+                         float* __restrict__ dhj,
+                         float* __restrict__ dattr,
                          float* __restrict__ dx2,
                          float* __restrict__ partials, Geom gm) {
   constexpr int NB = A::NB, NG = A::NG, NP = A::NP, NLOC = A::NLOC;
@@ -279,8 +254,8 @@ fused_mp_pair_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
   const int64_t n_mix = (int64_t)(mx + 2 * c) * NG * c4;
 
   const int tid = threadIdx.x + 32 * threadIdx.y;
-  stage_params<A, FAST>(p1, s1, cin1, c, THREADS_B);
-  stage_params<A, FAST>(p2, s2, c, c, THREADS_B);
+  stage_params<A, false>(p1, s1, cin1, c, THREADS_B);
+  stage_params<A, false>(p2, s2, c, c, THREADS_B);
   for (int e = tid; e < A::TAB_LEN; e += THREADS_B) tab[e] = tabs[e];
   for (int e = tid; e < ROWS_B * NLOC * c4; e += THREADS_B) locs[e] = 0.f;
   for (int e = tid; e < NP * c4; e += THREADS_B) gacc[e] = 0.f;
@@ -310,18 +285,16 @@ fused_mp_pair_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
         if (row < e1) {    // the whole team
           const int64_t t = dst[row];
           const bool keep = mask == nullptr || mask[row];
-          load_msg_row<A, typename Stream<FAST>::T, FAST>(
-              h, hj, attr, t, row, cm, ca, tm, lane, x1);
+          load_msg_row<A>(h, hj, attr, t, row, cm, ca, tm, lane, x1);
           for (int n = tm.h; n < c; n += tm.nh)
-            gb[n * NB + lane] =
-                keep ? rnd<FAST>(dagg[(t * c + n) * NB + lane]) : 0.f;
+            gb[n * NB + lane] = keep ? dagg[(t * c + n) * NB + lane] : 0.f;
           team_sync<A>(tm);
-          const float m1 = row_forward<A, FAST>(s1, l, tm, t1, x1, b2.zs,
-                                                nullptr, b2.fs, scw, cin1, c);
-          scale_row<A, FAST>(s1, tm, lane, m1, b2.fs, b2.xs, c);
+          const float m1 = row_forward<A, false>(s1, l, tm, t1, x1, b2.zs,
+                                                 nullptr, b2.fs, scw, cin1, c);
+          scale_row<A>(s1, tm, lane, m1, b2.fs, b2.xs, c);
           team_sync<A>(tm);
-          row_backward<A, FAST>(s2, l, tm, t1, t2, t3, b2, scw, loc, gb,
-                                dx2 + row * c * NB, c, c);
+          row_backward<A, false>(s2, l, tm, t1, t2, t3, b2, scw, loc, gb,
+                                 dx2 + row * c * NB, c, c);
         }
         __syncthreads();
         const int nrow = (int)(e1 - row0 < ROWS_B ? e1 - row0 : ROWS_B);
@@ -358,11 +331,10 @@ fused_mp_pair_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
           const int64_t t = dst[row];
           if (tm.h == 0 && lane == 0)
             dloc[r] = (mask == nullptr || mask[row]) ? (int)(t - base) : -1;
-          load_msg_row<A, typename Stream<FAST>::T, FAST>(
-              h, hj, attr, t, row, cm, ca, tm, lane, b1.xs);
+          load_msg_row<A>(h, hj, attr, t, row, cm, ca, tm, lane, b1.xs);
           team_sync<A>(tm);
-          row_backward<A, FAST>(s1, l, tm, t1, t2, t3, b1, scw, loc,
-                                dx2 + row * c * NB, gb, cin1, c);
+          row_backward<A, false>(s1, l, tm, t1, t2, t3, b1, scw, loc,
+                                 dx2 + row * c * NB, gb, cin1, c);
         }
         __syncthreads();
         const int nrow = (int)(e1 - row0 < ROWS_B ? e1 - row0 : ROWS_B);
@@ -381,16 +353,15 @@ fused_mp_pair_bwd_kernel(const typename Stream<FAST>::T* __restrict__ h,
           }
         for (int e = tid; e < nrow * msg_w; e += THREADS_B) {
           const int rr = e / msg_w, k = e % msg_w;
-          const float v = dloc[rr] >= 0 ? -gbuf[rr * gstride + k] : 0.f;
-          stf(dhj + (row0 + rr) * msg_w + k, v);
+          dhj[(row0 + rr) * msg_w + k] =
+              dloc[rr] >= 0 ? -gbuf[rr * gstride + k] : 0.f;
         }
         if (ca > 0) {
           const int aw_w = ca * NB;
           for (int e = tid; e < nrow * aw_w; e += THREADS_B) {
             const int rr = e / aw_w, k = e % aw_w;
-            const float v =
+            dattr[(row0 + rr) * aw_w + k] =
                 dloc[rr] >= 0 ? gbuf[rr * gstride + msg_w + k] : 0.f;
-            stf(dattr + (row0 + rr) * aw_w + k, v);
           }
         }
       }
@@ -439,81 +410,83 @@ inline Params params_at(const float* const* pp) {
 // (n_win + 1,) int64 window edge offsets; params: host array of the 20
 // device pointers of the two blocks (flax order, 10 each); bc: host
 // quadratic-form coefficients; tabs: the packed tables on the device.  out
-// (N, C, NB) fp32: the sum over unmasked edges.
+// (N, C, NB) fp32: the sum over unmasked edges.  Scratch (fast mode): x2s
+// (E, NB, C) bf16, block 2's input rows, then the messages.  Fast mode: the
+// tile sweeps 0 and 3 and the message sum; exact mode: the row kernel.
 template <class A, class K>
 int launch_fwd(const void* h, const void* hj, const void* attr,
                const int* dst, const uint8_t* mask, const int64_t* bounds,
                const float* const* params, const float* bc,
-               const uint16_t* tabs, float* out, int n_nodes, int cm, int ca,
-               int c, int wn, int n_win, int fast, int grid, void* stream) {
-  const size_t bytes = fwd_smem_bytes<A, K>(cm, ca, c, wn);
-  if (!widths_ok(cm, ca, c, wn) || bytes > kMaxSmem || grid < 1)
+               const uint16_t* tabs, float* out, void* x2s, int n_nodes,
+               int cm, int ca, int c, int wn, int n_win, int fast, int grid,
+               void* stream) {
+  const size_t bytes = fast ? pair_tile_fwd_bytes<A>(cm, ca, c, wn)
+                            : fwd_smem_bytes<A, K>(cm, ca, c, wn);
+  if (!widths_ok(cm, ca, c, wn) || bytes == 0 || bytes > kMaxSmem ||
+      grid < 1 || (fast && x2s == nullptr))
     return (int)cudaErrorInvalidValue;
   Geom gm{n_nodes, cm, ca, c, wn, n_win};
   Tabs<A> tb = make_tabs<A>(bc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 block(32, K::WARPS_F);
   if (fast) {
-    using T = typename Stream<true>::T;
-    cudaFuncSetAttribute(fused_mp_pair_fwd_kernel<A, K, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    fused_mp_pair_fwd_kernel<A, K, true><<<grid, block, bytes, st>>>(
-        static_cast<const T*>(h), static_cast<const T*>(hj),
-        static_cast<const T*>(attr), dst, mask, bounds, params_at(params),
-        params_at(params + 10), tb, tabs, out, gm);
-  } else {
-    using T = typename Stream<false>::T;
-    cudaFuncSetAttribute(fused_mp_pair_fwd_kernel<A, K, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    fused_mp_pair_fwd_kernel<A, K, false><<<grid, block, bytes, st>>>(
-        static_cast<const T*>(h), static_cast<const T*>(hj),
-        static_cast<const T*>(attr), dst, mask, bounds, params_at(params),
-        params_at(params + 10), tb, tabs, out, gm);
+    const PSweepArgs a{h, hj, attr, dst, mask, bounds, nullptr,
+                       params_at(params), params_at(params + 10), tabs, out,
+                       nullptr, nullptr, nullptr, x2s, nullptr, gm, grid, st};
+    return launch_pair_tile_mp_fwd<A>(a, tb);
   }
+  cudaFuncSetAttribute(fused_mp_pair_fwd_kernel<A, K>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  fused_mp_pair_fwd_kernel<A, K><<<grid, dim3(32, K::WARPS_F), bytes, st>>>(
+      static_cast<const float*>(h), static_cast<const float*>(hj),
+      static_cast<const float*>(attr), dst, mask, bounds, params_at(params),
+      params_at(params + 10), tb, tabs, out, gm);
   return (int)cudaGetLastError();
 }
 
 // dagg (N, C, NB) fp32, the cotangent of the sum.  Outputs: dh (N, cm, NB)
 // fp32; dhj (E, cm, NB) and dattr (E, ca, NB) in the stream type; grads
 // (block_part_floats(cm + ca, c) + block_part_floats(c, c),) the summed
-// vector.  Scratch: dx2 (E, C, NB) fp32, block 2's dx rows; partials
-// (grid, slice_floats).
+// vector.  Scratch: dx2 fp32, block 2's dx rows, (E, C, NB) in exact
+// mode, rows of dx2_pitch floats in fast mode (block 1's dx rows go over
+// them); x2s (E, NB, C) bf16, block 2's input rows (fast mode; null in
+// exact); partials (grid, slice_floats).  Fast mode: the tile sweeps 0, 1
+// and 2 and the dmsg sum; exact mode: the row kernel.
 template <class A, class K>
 int launch_bwd(const void* h, const void* hj, const void* attr,
                const int* dst, const uint8_t* mask, const int64_t* bounds,
                const float* dagg, const float* const* params,
                const float* bc, const uint16_t* tabs, float* dh, void* dhj,
-               void* dattr, float* dx2, float* partials, float* grads,
-               int n_nodes, int cm, int ca, int c, int wn, int n_win,
-               int fast, int grid, void* stream) {
-  const size_t bytes = bwd_smem_bytes<A, K>(cm, ca, c, wn);
-  if (!widths_ok(cm, ca, c, wn) || bytes > kMaxSmem || grid < 1)
+               void* dattr, float* dx2, void* x2s, float* partials,
+               float* grads, int n_nodes, int cm, int ca, int c, int wn,
+               int n_win, int fast, int grid, void* stream) {
+  const size_t bytes = fast ? pair_tile_bwd_bytes<A>(cm, ca, c, wn)
+                            : bwd_smem_bytes<A, K>(cm, ca, c, wn);
+  if (!widths_ok(cm, ca, c, wn) || bytes == 0 || bytes > kMaxSmem ||
+      grid < 1 || (fast && x2s == nullptr))
     return (int)cudaErrorInvalidValue;
   Geom gm{n_nodes, cm, ca, c, wn, n_win};
   Tabs<A> tb = make_tabs<A>(bc);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 block(32, K::WARPS_B);
+  int err;
   if (fast) {
-    using T = typename Stream<true>::T;
-    cudaFuncSetAttribute(fused_mp_pair_bwd_kernel<A, K, true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    fused_mp_pair_bwd_kernel<A, K, true><<<grid, block, bytes, st>>>(
-        static_cast<const T*>(h), static_cast<const T*>(hj),
-        static_cast<const T*>(attr), dst, mask, bounds, dagg,
-        params_at(params), params_at(params + 10), tb, tabs, dh,
-        static_cast<T*>(dhj), static_cast<T*>(dattr), dx2, partials, gm);
+    const PSweepArgs a{h, hj, attr, dst, mask, bounds, dagg,
+                       params_at(params), params_at(params + 10), tabs, dh,
+                       dhj, dattr, dx2, x2s, partials, gm, grid, st};
+    err = launch_pair_tile_mp_bwd<A>(a, tb);
   } else {
-    using T = typename Stream<false>::T;
-    cudaFuncSetAttribute(fused_mp_pair_bwd_kernel<A, K, false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    fused_mp_pair_bwd_kernel<A, K, false><<<grid, block, bytes, st>>>(
-        static_cast<const T*>(h), static_cast<const T*>(hj),
-        static_cast<const T*>(attr), dst, mask, bounds, dagg,
+    cudaFuncSetAttribute(fused_mp_pair_bwd_kernel<A, K>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)bytes);
+    fused_mp_pair_bwd_kernel<A, K><<<grid, dim3(32, K::WARPS_B), bytes,
+                                     st>>>(
+        static_cast<const float*>(h), static_cast<const float*>(hj),
+        static_cast<const float*>(attr), dst, mask, bounds, dagg,
         params_at(params), params_at(params + 10), tb, tabs, dh,
-        static_cast<T*>(dhj), static_cast<T*>(dattr), dx2, partials, gm);
+        static_cast<float*>(dhj), static_cast<float*>(dattr), dx2, partials,
+        gm);
+    err = (int)cudaGetLastError();
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
   const int64_t n =
       block_part_floats<A>(cm + ca, c) + block_part_floats<A>(c, c);
   reduce_partials_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -526,12 +499,31 @@ int launch_bwd(const void* h, const void* hj, const void* attr,
 // One set of C entry points per algebra, prefixed PREFIX, for traits ALG
 // and row tile TILE; the arguments are launch_fwd's and launch_bwd's.
 #define CSMPN_FUSED_PAIR_ENTRIES(PREFIX, ALG, TILE)                           \
-  /* shared-memory bytes a launch needs (0 if the widths are not            \
-     supported) */                                                            \
+  /* shared-memory bytes a launch of the exact row kernels needs (0 if the  \
+     widths are not supported) */                                             \
   size_t PREFIX##_smem_bytes(int cm, int ca, int c, int wn, int backward) {   \
     if (!widths_ok(cm, ca, c, wn)) return 0;                                  \
     return backward ? bwd_smem_bytes<ALG, TILE>(cm, ca, c, wn)                \
                     : fwd_smem_bytes<ALG, TILE>(cm, ca, c, wn);               \
+  }                                                                           \
+  /* those of the fast mode's launches (tile sweeps and window sums), the   \
+     largest of a direction's (0 where a launch does not take the widths) */  \
+  size_t PREFIX##_tile_smem_bytes(int cm, int ca, int c, int wn) {            \
+    return widths_ok(cm, ca, c, wn) ? pair_tile_bwd_bytes<ALG>(cm, ca, c, wn) \
+                                    : 0;                                      \
+  }                                                                           \
+  size_t PREFIX##_fwd_tile_smem_bytes(int cm, int ca, int c, int wn) {        \
+    return widths_ok(cm, ca, c, wn) ? pair_tile_fwd_bytes<ALG>(cm, ca, c, wn) \
+                                    : 0;                                      \
+  }                                                                           \
+  /* the weight-gradient tiles a warp (the kernel instance) of the fast     \
+     backward's sweep 1 or 2; 0 where the backward does not take the widths \
+     (sweep 0 has none: 16) */                                                \
+  int PREFIX##_tile_maxt(int cm, int ca, int c, int wn, int sweep) {          \
+    if (!widths_ok(cm, ca, c, wn) ||                                          \
+        pair_tile_bwd_bytes<ALG>(cm, ca, c, wn) == 0)                         \
+      return 0;                                                               \
+    return sweep == 0 ? 16 : pair_sweep_maxt<ALG>(cm, ca, c, sweep);          \
   }                                                                           \
   /* floats of one CTA's slice of the backward's scratch (the summed        \
      gradient vector is its first two blocks' parts) */                       \
@@ -550,22 +542,22 @@ int launch_bwd(const void* h, const void* hj, const void* attr,
                    const int* dst, const uint8_t* mask,                       \
                    const int64_t* bounds, const float* const* params,         \
                    const float* bc, const uint16_t* tabs, float* out,         \
-                   int n_nodes, int cm, int ca, int c, int wn, int n_win,     \
-                   int fast, int grid, void* stream) {                        \
+                   void* x2s, int n_nodes, int cm, int ca, int c, int wn,     \
+                   int n_win, int fast, int grid, void* stream) {             \
     return launch_fwd<ALG, TILE>(h, hj, attr, dst, mask, bounds, params, bc,  \
-                                 tabs, out, n_nodes, cm, ca, c, wn, n_win,    \
-                                 fast, grid, stream);                         \
+                                 tabs, out, x2s, n_nodes, cm, ca, c, wn,      \
+                                 n_win, fast, grid, stream);                  \
   }                                                                           \
   int PREFIX##_bwd(const void* h, const void* hj, const void* attr,           \
                    const int* dst, const uint8_t* mask,                       \
                    const int64_t* bounds, const float* dagg,                  \
                    const float* const* params, const float* bc,               \
                    const uint16_t* tabs, float* dh, void* dhj, void* dattr,   \
-                   float* dx2, float* partials, float* grads, int n_nodes,    \
-                   int cm, int ca, int c, int wn, int n_win, int fast,        \
-                   int grid, void* stream) {                                  \
+                   float* dx2, void* x2s, float* partials, float* grads,      \
+                   int n_nodes, int cm, int ca, int c, int wn, int n_win,     \
+                   int fast, int grid, void* stream) {                        \
     return launch_bwd<ALG, TILE>(h, hj, attr, dst, mask, bounds, dagg,        \
-                                 params, bc, tabs, dh, dhj, dattr, dx2,       \
+                                 params, bc, tabs, dh, dhj, dattr, dx2, x2s,  \
                                  partials, grads, n_nodes, cm, ca, c, wn,     \
                                  n_win, fast, grid, stream);                  \
   }

@@ -11,9 +11,15 @@
 // bytes bound it.  K5p moves about twice the bytes and does three times
 // the operations, so operations bound it.
 //
-// Row tile and window.  A row's 16 blades are a half-warp, so a warp holds
-// two members of one row.  Both blocks' fp32 parameters take ~109 KB at 28
-// channels (5 grades, 35 paths), and a row slot about half of Cl(5)'s
+// Fast mode (fused_egcl_pair_tile.cuh): K2p's and K3p's row tiles, 16 rows
+// a step on 16 warps for the forward sweeps and 8 rows on 8 warps for the
+// backward ones (~158 KB of shared memory at 28 -> 28); the window sums
+// take a CTA a window of wn = 16 targets.
+//
+// Exact mode, the row tile and window.  A row's 16 blades are a half-warp,
+// so a warp holds two members of one row.  Both blocks' fp32 parameters
+// take ~109 KB at 28 channels (5 grades, 35 paths), and a row slot about
+// half of Cl(5)'s
 // ((Cm + 2 C4) x 17 floats forward, (Cm + 5 C4) x 17 backward), which
 // leaves:
 //   * K4p: 8 row slots of 2 warps (16 warps, four members a row);

@@ -22,14 +22,22 @@ kernels per algebra (``FusedKernel``, ``fused_kernel``):
     channels) and Cl(2,0) (4 blades; a lane holds channels n and n + 32);
     in fast mode both are row tile kernels over ``csrc/cemlp_tile.cuh``:
     K4 runs both blocks' forwards on 16 edge rows a step, K5 is launched
-    once for each of its three sweeps over the windows
-    (``_check_tile_smem`` holds their widths);
+    once for each of its three sweeps over the windows;
   * K4p/K5p, pair form, ``csrc/fused_egcl_pair.cuh`` compiled for Cl(5,0)
     (``csrc/fused_egcl_pair.cu``, 32 blades) and Cl(4,0)
-    (``csrc/fused_egcl_pair_cl4.cu``, 16 blades), each up to 28 channels,
-    which both blocks' fp32 parameters and the row buffers leave in one
-    CTA's shared memory (attribute widths: Cm + Ca up to 39 at Cl(5), 51
-    at Cl(4)).
+    (``csrc/fused_egcl_pair_cl4.cu``, 16 blades), each up to 28 channels.
+    In exact mode they are row kernels that stage both blocks' fp32
+    parameters (attribute widths: Cm + Ca up to 39 at Cl(5), 51 at Cl(4),
+    at 28 channels); in fast mode they are sweeps of K2p's and K3p's row
+    tiles over all edge rows (``csrc/fused_egcl_pair_tile.cuh``), the
+    window sums in kernels of their own: K4p block 1's forward to a bf16
+    scratch ``x2s``, block 2's forward over it, the message sums; K5p
+    block 1's forward to ``x2s``, block 2's backward to the fp32 scratch
+    ``dx2``, block 1's backward over it, the d(h) sums with dhj and
+    dattr.
+In fast mode ``_check_tile_smem`` holds the tile kernels' widths for both
+forms; at every width the exact kernels take, the fast ones take it too
+(chip_smoke.py asserts it).
 
 Cl(1) (2 blades), which the reference's dense form also serves, has no
 kernel yet and raises, as do widths whose kernels do not fit.
@@ -54,7 +62,7 @@ memory, so the switch has no counterpart.  Its window of 128 targets is
 ``wn`` here, per kernel: 32 for K4/K5, 4 for K4p/K5p at Cl(5) (a window
 sum takes 3.5 KB a target at 28 channels) and 16 at Cl(4) (1.75 KB a
 target; 512 windows at the bench's 8,192 targets keep the last round of
-windows short on 132 SMs).
+windows short on 132 SMs); in both modes.
 """
 from __future__ import annotations
 
@@ -212,8 +220,10 @@ def _check_smem(kern: FusedKernel, cm: int, ca: int, c: int) -> None:
 @functools.lru_cache(maxsize=None)
 def _check_tile_smem(kern: FusedKernel, cm: int, ca: int, c: int,
                      backward: bool = True) -> None:
-    """Raise unless the fast-mode backward (or forward) of the dense form
-    (the row tiles of csrc/cemlp_tile.cuh) takes the widths."""
+    """Raise unless the fast-mode backward (or forward) takes the widths:
+    the row tiles of csrc/cemlp_tile.cuh (K4/K5) or the tile sweeps of
+    csrc/fused_egcl_pair_tile.cuh (K4p/K5p), every sweep of the
+    direction."""
     entry = "tile_smem_bytes" if backward else "fwd_tile_smem_bytes"
     fn = _lib_fn(kern, entry, [_I, _I, _I, _I], ctypes.c_size_t)
     if int(fn(cm, ca, c, kern.wn)) == 0:
@@ -320,18 +330,24 @@ def mp_forward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst,
     n, nb = h.shape[0], kern.n_blades
     if plan is None:
         plan = make_plan(dst, mask, n, cm, ca, c, nb)
-    if kern.form == "dense" and not exact:
+    if not exact:
         _check_tile_smem(kern, cm, ca, c, backward=False)
     bc, tabs = _tables(kern, alg, h.device)
     h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
     out = torch.empty((n, c, nb), dtype=torch.float32, device=h.device)
     if n == 0:
         return out
-    fn = _lib_fn(kern, "fwd", [_P] * 10 + [_I] * 8 + [_P])
+    pair = kern.form == "pair"
+    # the pair form's fast forward keeps block 2's input rows (bf16; 235 MB
+    # at the --dim 5 bench's 131,072 edges x 32 blades x 28 channels)
+    x2s = (torch.empty((e, nb, c), dtype=torch.bfloat16, device=h.device)
+           if pair and not exact else None)
+    fn = _lib_fn(kern, "fwd", [_P] * (11 if pair else 10) + [_I] * 8 + [_P])
     err = fn(h_s.data_ptr(), hj_s.data_ptr(), _ptr(attr_s),
              plan.dst.data_ptr(), _ptr(plan.mask), plan.bounds.data_ptr(),
-             _param_ptrs(params), bc.ctypes.data, tabs, out.data_ptr(), n,
-             cm, ca, c, kern.wn, plan.n_win, 0 if exact else 1, plan.grid,
+             _param_ptrs(params), bc.ctypes.data, tabs, out.data_ptr(),
+             *((_ptr(x2s),) if pair else ()), n, cm, ca, c, kern.wn,
+             plan.n_win, 0 if exact else 1, plan.grid,
              torch.cuda.current_stream(h.device).cuda_stream)
     _build.check(err, f"{kern.label} forward kernel")
     kern.fwd.add()
@@ -387,7 +403,7 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
         raise ValueError(f"dagg shape {tuple(dagg.shape)} != {(n, c, nb)}")
     if plan is None:
         plan = make_plan(dst, mask, n, cm, ca, c, nb)
-    if kern.form == "dense" and not exact:
+    if not exact:
         _check_tile_smem(kern, cm, ca, c)
     bc, tabs = _tables(kern, alg, h.device)
     h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
@@ -404,21 +420,25 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
     if n > 0:
         n_slice = int(_lib_fn(kern, "partial_floats", [_I, _I, _I],
                               ctypes.c_int64)(cm, ca, c))
-        dx2 = torch.empty((e, c, nb), dtype=torch.float32, device=dev)
-        # the dense form's fast backward keeps block 2's input rows
+        # scratch: block 2's dx rows (fp32; the pair form's fast sweeps
+        # write block 1's dx rows over them, so a row holds the wider of
+        # the two) and, in fast mode, block 2's input rows (bf16): at the
+        # --dim 5 bench's 131,072 edges x 32 blades x 28 channels 470 MB and
+        # 235 MB, far inside the card
+        wide = kern.form == "pair" and not exact
+        dx2 = torch.empty((e, max(c, cm + ca) if wide else c, nb),
+                          dtype=torch.float32, device=dev)
         x2s = (torch.empty((e, nb, c), dtype=torch.bfloat16, device=dev)
-               if kern.form == "dense" and not exact else None)
+               if not exact else None)
         partials = torch.empty((plan.grid, n_slice), dtype=torch.float32,
                                device=dev)
-        fn = _lib_fn(kern, "bwd", [_P] * (16 if kern.form == "pair" else 17)
-                     + [_I] * 8 + [_P])
+        fn = _lib_fn(kern, "bwd", [_P] * 17 + [_I] * 8 + [_P])
         err = fn(h_s.data_ptr(), hj_s.data_ptr(), _ptr(attr_s),
                  plan.dst.data_ptr(), _ptr(plan.mask),
                  plan.bounds.data_ptr(), dagg.data_ptr(),
                  _param_ptrs(params), bc.ctypes.data, tabs,
                  dh.data_ptr(), dhj.data_ptr(), _ptr(dattr), dx2.data_ptr(),
-                 *(() if kern.form == "pair" else (_ptr(x2s),)),
-                 partials.data_ptr(), flat.data_ptr(), n, cm, ca, c,
+                 _ptr(x2s), partials.data_ptr(), flat.data_ptr(), n, cm, ca, c,
                  kern.wn, plan.n_win, 0 if exact else 1, plan.grid,
                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, f"{kern.label} backward kernel")

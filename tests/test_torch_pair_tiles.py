@@ -459,8 +459,10 @@ def test_pair_fwd_widths_fast_takes_what_exact_takes(monkeypatch, capsys,
 
 def test_tile_phases_marks_every_barrier_of_the_step():
     """tools/tile_phases.py marks each phase of the tile kernel's step at
-    its barriers; the marks fit today's header (a structural change there
-    makes the tool raise instead of mislabelling phases)."""
+    its barriers, in the step function (pair_tile_block_backward,
+    pair_tile_block_forward) and in the kernel's step loop; the marks fit
+    today's header (a structural change there makes the tool raise instead
+    of mislabelling phases)."""
     from csmpn_torch.tools import tile_phases as tp
 
     with open(os.path.join(_build.CSRC, "cemlp_pair_tile.cuh")) as f:
@@ -470,8 +472,14 @@ def test_tile_phases_marks_every_barrier_of_the_step():
     assert marked.count("__syncthreads(); PH_WAIT(") == barriers
     assert marked.count("PH_BUSY(%d);" % barriers) == 1   # the path phase
     assert marked.count("  PH_FLUSH();") == 1
+    # phase 0 ends at the kernel loop's first barrier
+    assert marked.index(tp.LOOP_MARK) < \
+        marked.index("PH_BUSY(0); __syncthreads(); PH_WAIT(0);")
+    step_f1 = "  pt_f1<A, P>(b, L, c, warp, lane);  // Y = X W1 -> fa\n"
+    assert src.count(step_f1 + "  __syncthreads();\n") == 1
     with pytest.raises(RuntimeError, match="barriers"):
-        tp.marked_header(src.replace("    __syncthreads();\n", "", 1))
+        tp.marked_header(src.replace(step_f1 + "  __syncthreads();\n",
+                                     step_f1, 1))
     # the forward's step: a mark at each of its barriers, the flush at the
     # kernel's end, the marks defined by the backward's header only
     with open(os.path.join(_build.CSRC, "cemlp_pair_fwd_tile.cuh")) as f:
