@@ -7,9 +7,11 @@
    kernel's registers and spills; shows that the fast-mode row tile
    kernels take at every C at least the inputs their exact-mode row
    kernels take: the backwards of the dense form (K3 and K5) and of the
-   pair form (K3p at Cl(5) and Cl(4)), the pair form's forward (K2p) and
-   the dense fused forward (K4 at Cl(3) and Cl(2), whose fast mode sums
-   sub-windows where a window's sum does not fit);
+   pair form (K3p at Cl(5) and Cl(4)), the forwards of both forms (K2 at
+   Cl(3) and Cl(2), whose fast mode holds the x tile in chunks where it
+   does not fit whole, and K2p) and the dense fused forward (K4 at Cl(3)
+   and Cl(2), whose fast mode sums sub-windows where a window's sum does
+   not fit);
 2. the envelope probe (P1 copy, P2 resident matrix product in bf16 and
    tf32 on the tensor cores and fp32 FFMA, P3 FMA chain): each kernel
    against its plain version at tools/mxu_probe.py's sizes (P1 bitwise at
@@ -24,7 +26,8 @@
    and 24 and, in the later phases, at every task's and every bench
    algebra's width (160, 256, 896, 448), timed beside
    torch.segment_reduce; K2 and K3 at the
-   motion task's shapes and K2/K3 at the bench widths; K4 and K5 (fused
+   motion task's shapes and K2/K3 at the bench widths (K2 bitwise
+   repeatable); K4 and K5 (fused
    message passing) over the bench graph and the stress layouts (empty
    windows, few edges over many windows, masked edges, ragged E and N,
    with and without edge attributes), bitwise repeatable, masked rows of
@@ -47,7 +50,11 @@
 6. runs the motion task through its entry point (fire -> run_task ->
    Trainer.fit) at the configs/motion.yaml widths for 8 training steps in
    the default fast precision, shows that K1, K2 and K3 ran, counts their
-   launches in one training step and profiles a few steps' device time;
+   launches in one training step (19 K2 and 19 K3) and profiles a few
+   steps' device time, in which K2 is its row tile kernel
+   (``cemlp_fwd_tile_kernel`` after ``pack_tparams_kernel``, never the
+   exact-mode ``cemlp_fwd_kernel``; so at NBA, MD17 and the Cl(3) and
+   Cl(2) benches);
 7. the hulls path (Cl(5,0), configs/hulls.yaml widths: hidden 28, 3 EGCL
    layers, batch 16) on a dataset cut to 512/256/256 samples: K1 at
    D = 896 on a real batch's ids; K2p and K3p (the pair-form block
@@ -73,7 +80,9 @@
    their plain versions at one shape of each instance of their fast-mode
    tile kernels (weight-gradient tiles a warp; K3's x tile whole and in
    chunks) and at K3's widest C, with the checks of 3 and 8, in both
-   modes where the exact mode takes the shape; and K3p at Cl(5) and Cl(4)
+   modes where the exact mode takes the shape; K2 likewise at one shape
+   of each of its two fast-mode instances (x tile whole, in chunks) and
+   at its widest C, and read (not held) at C = 1-3; and K3p at Cl(5) and Cl(4)
    at one shape of each instance of its fast-mode row tiles (16, 24, 32
    weight-gradient tiles a warp) and at its widest C, and K2p at C_MIN and
    its widest C (each at the widest input its exact mode takes), over
@@ -336,6 +345,83 @@ def print_dense_smem():
                                  f"{', '.join(narrower)}")
         print(f"  Cl({dim}): at every C the fast-mode K3 and K5 take every "
               f"input width their exact modes take")
+
+
+def k2_plan(kb, cin, c):
+    """(bytes, chunks of the x tile, input channels a chunk) of the
+    fast-mode K2 at cin -> c; bytes 0 where it does not take the widths."""
+    import ctypes
+    from csmpn_torch.ops import _build
+
+    fn = getattr(_build.load(kb.source), f"{kb.symbol}_fwd_tile_plan")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_size_t
+    info = (ctypes.c_int * 3)()   # chunks, their width, the image's bytes
+    return (int(fn(cin, c, info)),) + tuple(info)[:2]
+
+
+def k2_caps(kb):
+    """{C: (widest Cin of the exact-mode row kernel, of the fast-mode row
+    tiles)} for the dense K2 kb at every C <= kb.max_channels, from their
+    shared-memory entry points (0: none)."""
+    import ctypes
+    from csmpn_torch.ops import _build
+    from csmpn_torch.ops import fused_egcl as fe
+
+    lib = _build.load(kb.source)
+    row = getattr(lib, f"{kb.symbol}_smem_bytes")
+    tile = getattr(lib, f"{kb.symbol}_fwd_tile_smem_bytes")
+    row.argtypes, row.restype = [ctypes.c_int] * 3, ctypes.c_size_t
+    tile.argtypes, tile.restype = [ctypes.c_int] * 2, ctypes.c_size_t
+    return {c: (widest(lambda w: 0 < row(w, c, 0) <= fe.MAX_SMEM),
+                widest(lambda w: 0 < tile(w, c) <= fe.MAX_SMEM))
+            for c in range(1, kb.max_channels + 1)}
+
+
+def print_k2_widths():
+    """K2's shared-memory bytes in both modes at every dense block shape
+    of the main paths and both modes' widest inputs at every C; raises
+    where the fast mode takes the narrower inputs."""
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    for dim, kb in ((3, ck.DENSE), (2, ck.DENSE_CL2)):
+        k2 = [f"{cin}->{c} {ck._smem(kb, cin, c, False, True)}/"
+              f"{ck._smem(kb, cin, c, False, False)}"
+              for cin, c in SMEM_K3[dim]]
+        print(f"  K2 at Cl({dim}) smem bytes exact/fast: {', '.join(k2)}")
+        caps = k2_caps(kb)
+        print(f"  K2 at Cl({dim}) widest Cin exact/fast at C = 1.."
+              f"{max(caps)}: "
+              + ", ".join(f"{c}:{e}/{f}" for c, (e, f) in caps.items()))
+        narrower = [c for c, (e, f) in caps.items() if f < e]
+        if narrower:
+            raise AssertionError(f"K2 at Cl({dim}): the fast-mode forward "
+                                 f"takes narrower inputs than the exact one "
+                                 f"at C = {narrower}")
+        print(f"  Cl({dim}): at every C the fast-mode K2 takes every input "
+              f"width its exact mode takes")
+
+
+def k2_instance_shapes(kb):
+    """(Cin, C, chunks, chunk width) at which the fast K2 is held to its
+    plain version beyond the main paths' shapes: for each of its two
+    instances (x tile whole, in chunks), the narrowest C >= C_MIN at whose
+    widest exact-mode input the fast mode takes that instance, at that
+    input; then the widest C at its widest exact-mode input; each once.
+    Every shape is one the exact mode takes."""
+    caps = k2_caps(kb)
+    out = []
+    for chunked in (False, True):
+        for c in sorted(c for c in caps if c >= C_MIN and caps[c][0]):
+            _, nch, kch = k2_plan(kb, caps[c][0], c)
+            if (nch > 1) == chunked:
+                out.append((caps[c][0], c, nch, kch))
+                break
+    c = max(c for c in caps if caps[c][0])
+    last = (caps[c][0], c) + k2_plan(kb, caps[c][0], c)[1:]
+    if last not in out:
+        out.append(last)
+    return out
 
 
 def pair_caps(kb, backward=True):
@@ -701,7 +787,8 @@ def phase_tile_instances(dev, gen, results):
     from csmpn_torch.ops import cemlp_kernel as ck
     from csmpn_torch.ops import fused_egcl as fe
 
-    print("K3 and K5 vs plain at one shape of each tile kernel instance")
+    print("K2, K3 and K5 vs plain at one shape of each tile kernel "
+          "instance")
     rng = np.random.RandomState(5)
     dst = np.sort(rng.randint(0, 1001, size=5003))
     chunked = False
@@ -710,6 +797,41 @@ def phase_tile_instances(dev, gen, results):
                                ("k4_cl2", "k5_cl2"))):
         alg = get_algebra((1.0,) * dim)
         k3key = "k3" if dim == 3 else "k3_cl2"
+        k2key = "k2" if dim == 3 else "k2_cl2"
+        k2_chunked = False
+        for cin, c, nch, kch in k2_instance_shapes(kb):
+            k2_chunked |= nch > 1
+            x, params, _ = block_inputs(1001, cin, c, gen, dev,
+                                        nb=alg.n_blades)
+            for exact in (True, False):
+                mode = "exact" if exact else "fast"
+                tag = (f"K2 at Cl({dim}) {cin}->{c} (rows 1001; fast: x in "
+                       f"{nch} chunk(s) of {kch}) {mode}")
+                out = ck.block_forward(x, params, alg, exact)
+                again = ck.block_forward(x, params, alg, exact)
+                ref = ck.block_forward_plain(x, params, alg, exact)
+                field = "max_abs_err" if exact else "max_abs_err_fast"
+                results[k2key][field] = max(
+                    results[k2key][field],
+                    check(tag, out, ref, TOL[f"{k2key}_{mode}"]))
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{tag}: two launches differ")
+                del out, again, ref
+            print(f"  K2 at Cl({dim}) {cin}->{c}: x in {nch} chunk(s) of "
+                  f"{kch}; two launches bitwise equal (exact and fast)")
+            del x, params
+        if not k2_chunked:
+            raise AssertionError(f"no K2 shape at Cl({dim}) took the chunked "
+                                 f"x tile")
+        # C = 1-3: read, not held (C_MIN; PERF.md §7.7)
+        for c in (1, 2, 3):
+            x, params, _ = block_inputs(1001, 6, c, gen, dev,
+                                        nb=alg.n_blades)
+            err, rel = rel_err(ck.block_forward(x, params, alg, False),
+                               ck.block_forward_plain(x, params, alg, False))
+            print(f"  K2 at Cl({dim}) 6->{c} fast vs plain (read, not "
+                  f"held): max_abs {err:.3e}  rel {rel:.3e}")
+        torch.cuda.empty_cache()
         shapes3, shapes5 = tile_instance_shapes(kb, kf)
         for cin, c, ex, m, nch, kch in shapes3:
             chunked |= nch > 1
@@ -1308,10 +1430,14 @@ def phase_cemlp(dev, gen, results):
         for exact in (True, False):
             mode = "exact" if exact else "fast"
             out = ck.block_forward(x, params, alg, exact)
+            again = ck.block_forward(x, params, alg, exact)
             ref = ck.block_forward_plain(x, params, alg, exact)
             e2[mode].append(check(f"K2 {name} {mode}", out, ref,
                                   TOL[f"k2_{mode}"]))
-            del out, ref
+            if not torch.equal(out, again):
+                raise AssertionError(f"K2 {name} {mode}: two launches "
+                                     f"differ")
+            del out, again, ref
             dx, grads = ck.block_backward(x, dout, params, alg, exact)
             rdx, rgrads = ck.block_backward_plain(x, dout, params, alg, exact)
             e3[mode].append(check(f"K3 {name} {mode} dx", dx, rdx,
@@ -1362,6 +1488,7 @@ def phase_cemlp(dev, gen, results):
               f"(bound {bb*1e3:5.1f})  x{k} per step")
     for path, (tf, tb) in tot.items():
         print(f"  per {path} training step: K2 {tf:.3f} ms, K3 {tb:.3f} ms")
+    print("  K2 two launches bitwise equal at every shape (exact and fast)")
     results["k2"] = dict(
         name="cemlp_block_fwd", route="cuda", source="csmpn_torch/csrc/cemlp.cu",
         replaces="csmpn_tpu/ops/cemlp_kernel.py:430",
@@ -1817,6 +1944,11 @@ def phase_model(dev, dataroot):
 
 # ------------------------------------------------------- the task itself
 
+# K2/K3 launches a motion training step: 4 EGCL layers of two edge and two
+# node blocks, the 1- and 2-block embedding CEMLPs
+MOTION_PER_STEP = {"k2": 19, "k3": 19}
+
+
 def phase_task(dataroot, counters):
     from csmpn_torch.data.motion import MotionDataset
     from csmpn_torch.tasks.motion import main
@@ -1830,7 +1962,10 @@ def phase_task(dataroot, counters):
     os.environ["DATAROOT"] = dataroot
     with contextlib.redirect_stdout(io.StringIO()):
         ds = MotionDataset(batch_size=100, num_training_samples=200)
-    return run_entry(main, argv, dataroot, counters, ds)
+    res = run_entry(main, argv, dataroot, counters, ds)
+    check_per_step(res[1], MOTION_PER_STEP, "motion")
+    check_k2_profile(res[5], "motion")
+    return res
 
 
 def task_argv(task, model, dataset, extra):
@@ -1857,7 +1992,7 @@ def run_entry(main, argv, dataroot, counters, ds, steps=8):
     its ``steps`` training losses, then counts the launches of one more
     training step on a batch of ``ds`` and profiles a few steps.  Returns
     (launches in the run, launches per step, median step ms, busy ms,
-    profiled wall ms)."""
+    profiled wall ms, the profile's ms a step by kernel)."""
     from csmpn_torch.engineer.fire import fire
 
     os.environ["DATAROOT"] = dataroot
@@ -1906,8 +2041,8 @@ def run_entry(main, argv, dataroot, counters, ds, steps=8):
     torch.cuda.synchronize()
     per_step = {k: c.count for k, c in counters.items()}
     print(f"  launches per training step: {per_step}")
-    busy_ms, wall_ms = phase_profile(step)
-    return launches, per_step, step_ms, busy_ms, wall_ms
+    busy_ms, wall_ms, kernels = phase_profile(step)
+    return launches, per_step, step_ms, busy_ms, wall_ms, kernels
 
 
 def phase_profile(step, steps=3):
@@ -1936,7 +2071,28 @@ def phase_profile(step, steps=3):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}x  {e.key[:70]}")
-    return busy_ms, wall_ms
+    return busy_ms, wall_ms, {e.key: e.self_device_time_total / 1e3 / steps
+                              for e in events}
+
+
+def check_k2_profile(kernels, tag):
+    """The dense K2 of a fast-mode profile (kernel name -> ms a step) is
+    its row tile kernel, after its parameter image's pack, and never the
+    exact-mode row kernel; prints their ms a step."""
+    def ms(pattern):
+        names = [k for k in kernels if re.search(pattern, k)]
+        return names, sum(kernels[k] for k in names)
+
+    (tile, t_ms), (pack, p_ms), (row, _) = (
+        ms(r"\bcemlp_fwd_tile_kernel<"), ms(r"\bpack_tparams_kernel<"),
+        ms(r"\bcemlp_fwd_kernel<"))
+    if not tile or not pack or row:
+        raise AssertionError(f"{tag} profile: K2 kernels {tile + pack + row},"
+                             f" want cemlp_fwd_tile_kernel and "
+                             f"pack_tparams_kernel alone")
+    print(f"  {tag}: K2 {t_ms + p_ms:.3f} ms a profiled step "
+          f"(cemlp_fwd_tile_kernel {t_ms:.3f}, pack_tparams_kernel "
+          f"{p_ms:.3f}); no cemlp_fwd_kernel")
 
 
 # ---------------------------------------------------------- the hulls path
@@ -2276,6 +2432,7 @@ def phase_nba(dev, gen, results, dataroot, counters):
           f"counts_max={tuple(ds.spec.counts_max)} e_max={ds.spec.e_max}")
     res = run_entry(main, argv, dataroot, counters, ds)
     check_per_step(res[1], NBA_PER_STEP, "NBA")
+    check_k2_profile(res[5], "NBA")
     return res
 
 
@@ -2307,6 +2464,7 @@ def phase_md17(dev, gen, results, dataroot, counters):
           f"{M_EVAL}/{M_EVAL} (configs/md17.yaml: 5,000/2,000/2,000)")
     res = run_entry(main, argv, dataroot, counters, ds)
     check_per_step(res[1], MD17_PER_STEP, "MD17")
+    check_k2_profile(res[5], "MD17")
     return res
 
 
@@ -2401,7 +2559,9 @@ def phase_bench(counters, dim=3, per_step_want=BENCH_PER_STEP, idle=None):
     def step():
         return float(bench.train_step(model, opt, h, ei, src_sort))
 
-    busy_ms, wall_ms = phase_profile(step)
+    busy_ms, wall_ms, kernels = phase_profile(step)
+    if dim in (2, 3):
+        check_k2_profile(kernels, f"bench{tag}")
 
     def loss_and_grads(mode, fused=True):
         set_aggregation_mode(mode)
@@ -2469,6 +2629,7 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print(f"  {name}.cu {fn}: {line.split(':', 1)[-1].strip()}")
     print_dense_smem()
+    print_k2_widths()
     print_pair_smem(PAIR_SMEM_SHAPES)
     print_pair_fwd_widths()
     print_k4_widths()

@@ -24,33 +24,53 @@
 //
 // Design: the TPU kernel turns the grade sums and the geometric product into
 // MXU matrix products over lane tables (Bcat, Kcat, G, H), inflating the
-// work nb-fold.  Here the forward (K2, both modes) and the exact-mode
-// backward (K3) give a warp one row and a lane one output channel at
-// Cl(3), two (n and n + 32) at Cl(2), so that a lane holds the same number
-// of floats in both (cemlp_block.cuh).  The block's parameters are staged
-// once per CTA in shared memory, and a CTA walks over row tiles so the
-// staging is amortised.  The exact backward recomputes the forward in the
-// tile (as the TPU kernel does), writes dx per row, and accumulates the
-// parameter gradients: per-channel ones in registers, channel-mixing ones
-// in shared memory, each entry owned by one thread.  The fast-mode
-// backward (`cemlp_bwd_tile_kernel`) takes steps of 16 rows and runs the
-// three channel-mixing linears, their transposes and their weight
-// gradients as bf16 mma.sync products, the weight gradients held in
-// registers over all of the CTA's steps (cemlp_tile.cuh); where a step's
-// x tile does not fit whole, it holds the input channels in chunks.  CUDA blocks run
-// concurrently, so each CTA writes its partial sums to a scratch buffer
-// and a second kernel reduces them in a fixed order: no atomics,
-// deterministic results.
+// work nb-fold.  Here both directions have two kernels, one a mode.
 //
-// Precision: FAST = false is fp32 throughout.  FAST = true rounds to bf16
-// the operands of each product that the TPU kernel feeds its matrix unit
-// (`_cast_pair`/`_dot*`), and accumulates in fp32.
+// Fast mode (the training default) runs the row tiles of cemlp_tile.cuh:
+// a CTA stages the block's parameters once (the channel-mixing weights in
+// bf16) and walks over steps of 16 rows, the three channel-mixing linears
+// (and in the backward their transposes and weight gradients) as bf16
+// mma.sync products, the rest of the block a warp a row and a lane a
+// channel (two at Cl(2)).  The forward (`cemlp_fwd_tile_kernel`) writes
+// the block's output from the row phase straight to global memory in
+// fp32, a lane its channel's NB contiguous floats; it keeps only the
+// forward's tiles (x, z, yr, first; yr and first over x), so that two
+// CTAs share an SM at the task widths at 128 registers, and the wrapper
+// sizes the grid by what an SM holds (`fwd_tile_blocks`).  A first
+// launch (`pack_tparams_kernel`) lays the parameters out once in global
+// memory as the CTAs' shared-memory image, which each CTA then copies in
+// 16-byte pieces: staging them per CTA cost more than a step.  The
+// backward (`cemlp_bwd_tile_kernel`) holds the weight gradients in
+// registers over all of the CTA's steps.  Where a step's x tile does not
+// fit whole, either holds the input channels in chunks (an instance of
+// its own).
+//
+// Exact mode keeps the row kernels of cemlp_block.cuh (fp32 FFMA: neither
+// bf16 nor TF32 products meet its 1e-5): a warp a row and a lane an output
+// channel (two at Cl(2)), the parameters staged once per CTA in shared
+// memory and row tiles walked so that the staging is amortised.  The
+// exact backward recomputes the forward in the tile (as the TPU kernel
+// does), writes dx per row, and accumulates the parameter gradients:
+// per-channel ones in registers, channel-mixing ones in shared memory,
+// each entry owned by one thread.
+//
+// CUDA blocks run concurrently, so each backward CTA writes its partial
+// sums to a scratch buffer and a second kernel reduces them in a fixed
+// order; every output element of the forward has one owner: no atomics,
+// bitwise repeatable results.
+//
+// Precision: exact mode is fp32 throughout.  Fast mode rounds to bf16 the
+// operands of each product that the TPU kernel feeds its matrix unit
+// (`_cast_pair`/`_dot*`: x, the weights and the dense form's path weight,
+// z, yn and the squared terms of the grade norms), accumulates in fp32 and
+// writes the forward's output in fp32, as the TPU kernel does.
 
 #include "cemlp_tile.cuh"
 
 namespace {
 
-template <class A, bool FAST>
+// K2 in exact mode.
+template <class A>
 __global__ void __launch_bounds__(THREADS)
 cemlp_fwd_kernel(const float* __restrict__ x, Params p, Tabs<A> tb,
                  float* __restrict__ out, int rows, int cin, int c) {
@@ -60,20 +80,20 @@ cemlp_fwd_kernel(const float* __restrict__ x, Params p, Tabs<A> tb,
   carve_params<A>(smem, cin, c, s);
   float* xs = smem + params_floats<A>(cin, c);   // [ROWS][NB][cin]
   float* zs = xs + ROWS * NB * cin;              // [ROWS][NB][c]
-  stage_params<A, FAST>(p, s, cin, c);
+  stage_params<A>(p, s, cin, c);
 
   const int lane = threadIdx.x, r = threadIdx.y;
   const int n_tiles = (rows + ROWS - 1) / ROWS;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int64_t row0 = (int64_t)tile * ROWS;
     __syncthreads();   // staging done / previous tile consumed
-    load_x_tile<A, FAST>(x, xs, row0, rows, cin);
+    load_x_tile<A>(x, xs, row0, rows, cin);
     __syncthreads();
     const int64_t row = row0 + r;
     if (row >= rows) continue;   // whole warp: no shuffle partner missing
     Fwd<A> f[S];
-    block_forward<A, FAST>(f, s, tb, xs + r * NB * cin, zs + r * NB * c, cin,
-                           c, lane);
+    block_forward<A>(f, s, tb, xs + r * NB * cin, zs + r * NB * c,
+                            cin, c, lane);
 #pragma unroll
     for (int u = 0; u < S; ++u) {
       const int n = lane + 32 * u;
@@ -115,7 +135,7 @@ cemlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
   float* awr = aw1 + cin * NG * c;
   float* awl = awr + c * NG * c;
   float* loc = awl + c * NG * c;                 // [L::N][C]
-  stage_params<A, false>(p, s, cin, c);
+  stage_params<A>(p, s, cin, c);
   const int tid = threadIdx.x + 32 * threadIdx.y;
   for (int e = tid; e < cin * NG * c; e += THREADS) aw1[e] = 0.f;
   for (int e = tid; e < c * NG * c; e += THREADS) { awr[e] = 0.f; awl[e] = 0.f; }
@@ -129,12 +149,12 @@ cemlp_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dout,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int64_t row0 = (int64_t)tile * ROWS;
     __syncthreads();
-    load_x_tile<A, false>(x, xs, row0, rows, cin);
+    load_x_tile<A>(x, xs, row0, rows, cin);
     __syncthreads();
     const int64_t row = row0 + r;
     if (row < rows) {
       Fwd<A> f[S];
-      block_forward<A, false>(f, s, tb, xs + r * NB * cin, zs + r * NB * c,
+      block_forward<A>(f, s, tb, xs + r * NB * cin, zs + r * NB * c,
                              cin, c, lane);
       float go[S][NB];
 #pragma unroll
@@ -201,19 +221,32 @@ size_t tile_bwd_bytes(const TileGeom& t) {
          tilebufs_bytes<A>(t, wgrad_tiles<A>(t));
 }
 
-// The launch's geometry: the x tile whole where it fits, else cut into the
-// fewest even chunks of input channels that fit.  Returns its shared-
-// memory bytes, 0 where it does not take the widths: more than 64 output
-// channels (8 warps of 8 channels), more weight-gradient tiles than 40 a
-// warp, or more than one CTA's shared memory even at chunks of 16.
+// K2 in fast mode: the forward's tiles alone, carved in this order by
+// cemlp_fwd_tile_kernel: parameters, z, then x and, over it, yr and
+// first (x is read by F1 alone, before F2 writes yr and first; they are
+// read by the row phase alone, before the next step's x comes in).
 template <class A>
+size_t tile_fwd_bytes(const TileGeom& t) {
+  const size_t xb = al16(2 * (size_t)A::NB * TROWS * t.ldb),
+               yf = 2 * al16(4 * (size_t)A::NB * TROWS * t.fp);
+  return tparams_bytes<A>(t) + al16(2 * (size_t)A::NB * TROWS * t.ldc) +
+         (xb > yf ? xb : yf);
+}
+
+// The launch's geometry, backward (K3) or forward (K2): the x tile whole
+// where it fits, else cut into the fewest even chunks of input channels
+// that fit.  Returns its shared-memory bytes, 0 where it does not take the
+// widths: more than 64 output channels (8 warps of 8 channels), for the
+// backward more weight-gradient tiles than 40 a warp, or more than one
+// CTA's shared memory even at chunks of 16.
+template <class A, bool BWD>
 size_t tile_plan(int cin, int c, TileGeom* out) {
   if (cin < 1 || c < 1 || c > 32 * A::SLOTS || c > 64) return 0;
   TileGeom t = tile_geom(cin, c);
-  if (tile_maxt<A>(t) == 0) return 0;
+  if (BWD && tile_maxt<A>(t) == 0) return 0;
   for (int nch = 1; nch <= t.kin / 16; ++nch) {
     t = tile_geom(cin, c, up16((t.kin + nch - 1) / nch));
-    const size_t bytes = tile_bwd_bytes<A>(t);
+    const size_t bytes = BWD ? tile_bwd_bytes<A>(t) : tile_fwd_bytes<A>(t);
     if (bytes <= kMaxSmem) {
       if (out != nullptr) *out = t;
       return bytes;
@@ -360,6 +393,88 @@ cemlp_bwd_tile_kernel(const float* __restrict__ x,
   loc_to_flax<A>(b.loc, part, cin, c);
 }
 
+// K2 in fast mode, first launch: the block's parameter image, the bytes
+// stage_tparams leaves in shared memory (write_tparams over a grid), built
+// in global memory once a launch.  Staging it costs each CTA of the
+// forward 16-byte copies alone, where staging the parameters themselves
+// (write_tparams' index arithmetic, in each of up to 264 CTAs) took longer
+// than a whole step of the small launches.
+template <class A>
+__global__ void __launch_bounds__(256)
+pack_tparams_kernel(Params p, TileGeom t, char* __restrict__ img) {
+  TParams s;
+  carve_tparams<A>(img, t, s);
+  write_tparams<A>(p, s, t, blockIdx.x * blockDim.x + threadIdx.x,
+                   gridDim.x * blockDim.x);
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(smem)),
+               "l"(gmem));
+}
+
+// K2 in fast mode: a CTA copies the parameter image into shared memory
+// (16-byte async copies that overlap its first step's x load) and walks
+// over steps of TROWS rows; a step rounds its x rows into the x tile
+// (load_x_chunk, K3's loader) and runs tile_block_forward, whose row phase
+// hands each (row, channel) of the output to a sink that writes its NB
+// floats to global memory as 16-byte vectors (a warp's row one contiguous
+// run of C * NB floats).  Each output element has one owner.  yr and
+// first lie over the x tile (tile_fwd_bytes), so a whole x tile's padded
+// columns are zeroed at each step.
+template <class A, bool CHUNKED>
+__global__ void __launch_bounds__(THREADS, 2)
+cemlp_fwd_tile_kernel(const float* __restrict__ x,
+                      const char* __restrict__ img, Tabs<A> tb,
+                      float* __restrict__ out, int rows, TileGeom t) {
+  constexpr int NB = A::NB;
+  extern __shared__ float smem[];
+  const int c = t.c;
+  TParams s;   // carved as tile_fwd_bytes counts
+  char* q = carve_tparams<A>(reinterpret_cast<char*>(smem), t, s);
+  TileBufs b{};   // the forward's tiles: z, yr, first
+  b.z = reinterpret_cast<bf16*>(q);
+  q += al16(2 * (size_t)NB * TROWS * t.ldc);
+  bf16* xb = reinterpret_cast<bf16*>(q);   // [NB][TROWS][ldb]
+  b.yr = reinterpret_cast<float*>(q);
+  b.ff = b.yr + al16(4 * (size_t)NB * TROWS * t.fp) / 4;
+  const int warp = threadIdx.y, lane = threadIdx.x;
+  const int tid = lane + 32 * warp, pad = t.kin - t.cin;
+  const int n16 = (int)(tparams_bytes<A>(t) / 16);
+  for (int e = tid; e < n16; e += THREADS)
+    cp_async16(reinterpret_cast<char*>(smem) + 16 * (size_t)e,
+               img + 16 * (size_t)e);
+  asm volatile("cp.async.commit_group;\n" ::);
+  zero_bf16(b.z, NB * TROWS * t.ldc);   // the padded columns stay zero
+
+  const int n_tiles = (rows + TROWS - 1) / TROWS;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int64_t row0 = (int64_t)tile * TROWS;
+    const int nrow = rows - row0 < TROWS ? (int)(rows - row0) : TROWS;
+    // the previous step ended behind a barrier: its tiles are read
+    load_x_chunk<A, CHUNKED>(x, row0, nrow, t, 0, xb);
+    if (!CHUNKED)   // (a chunked tile's loader zeroes its last chunk's)
+      for (int e = tid; e < NB * TROWS * pad; e += THREADS)
+        xb[(size_t)(e / pad) * t.ldb + t.cin + e % pad] =
+            __float2bfloat16_rn(0.f);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");   // the image
+    __syncthreads();
+    auto sink = [&](int r, int n, const float (&v)[NB]) {
+      if (r >= nrow) return;
+      float4* d = reinterpret_cast<float4*>(out + ((row0 + r) * c + n) * NB);
+#pragma unroll
+      for (int k = 0; k < NB / 4; ++k)
+        d[k] = make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    };
+    auto load = [&](int ch) {
+      load_x_chunk<A, CHUNKED>(x, row0, nrow, t, ch, xb);
+    };
+    tile_block_forward<A, CHUNKED>(s, tb, xb, b, t, nrow, sink, load, warp,
+                                   lane);
+  }
+}
+
 template <class A>
 bool widths_ok(int cin, int c) {
   return cin >= 1 && c >= 1 && c <= 32 * A::SLOTS;
@@ -406,27 +521,66 @@ void launch_bwd_tile(const float* x, const float* dout, const Params& p,
                                               rows, t);
 }
 
+template <class A, bool CHUNKED>
+void launch_fwd_tile(const float* x, const Params& p, const Tabs<A>& tb,
+                     float* out, char* img, int rows, const TileGeom& t,
+                     int grid, size_t bytes, cudaStream_t st) {
+  // a thread for each element of the widest of write_tparams' loops
+  const int n = A::NG * t.kc * (t.ldx > t.ldc ? t.ldx : t.ldc);
+  pack_tparams_kernel<A><<<(n + 255) / 256, 256, 0, st>>>(p, t, img);
+  cudaFuncSetAttribute(cemlp_fwd_tile_kernel<A, CHUNKED>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cemlp_fwd_tile_kernel<A, CHUNKED>
+      <<<grid, dim3(32, TWARPS), bytes, st>>>(x, img, tb, out, rows, t);
+}
+
+// CTAs of the fast-mode forward's instance at (cin, c) that one SM holds
+// at once (registers, shared memory and threads), 0 where it does not
+// take the widths.
+template <class A>
+int fwd_tile_blocks(int cin, int c) {
+  TileGeom t;
+  const size_t bytes = tile_plan<A, false>(cin, c, &t);
+  if (bytes == 0) return 0;
+  void (*kernel)(const float*, const char*, Tabs<A>, float*, int,
+                 TileGeom) =
+      t.nch > 1 ? cemlp_fwd_tile_kernel<A, true>
+                : cemlp_fwd_tile_kernel<A, false>;
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, THREADS,
+                                                    bytes) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// Fast mode: the parameter image into img (tparams_bytes of the plan),
+// then the row tiles, with the x tile in chunks where it does not fit
+// whole; exact mode: the row kernel (img unused).
 template <class A>
 int launch_fwd(const float* x, const Params& p, const float* bc,
-               const float* sign, float* out, int rows, int cin, int c,
-               int fast, int grid, void* stream) {
-  const size_t bytes = fwd_smem_bytes<A>(cin, c);
-  if (!widths_ok<A>(cin, c) || bytes > kMaxSmem)
+               const float* sign, float* out, char* img, int rows, int cin,
+               int c, int fast, int grid, void* stream) {
+  TileGeom t;
+  const size_t bytes =
+      fast ? tile_plan<A, false>(cin, c, &t) : fwd_smem_bytes<A>(cin, c);
+  if (!widths_ok<A>(cin, c) || bytes == 0 || bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   Tabs<A> tb = make_tabs<A>(bc, sign);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 block(32, ROWS);
   if (rows > 0) {
-    if (fast) {
-      cudaFuncSetAttribute(cemlp_fwd_kernel<A, true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      cemlp_fwd_kernel<A, true><<<grid, block, bytes, st>>>(x, p, tb, out,
-                                                            rows, cin, c);
+    if (fast && t.nch > 1) {
+      launch_fwd_tile<A, true>(x, p, tb, out, img, rows, t, grid, bytes, st);
+    } else if (fast) {
+      launch_fwd_tile<A, false>(x, p, tb, out, img, rows, t, grid, bytes,
+                                st);
     } else {
-      cudaFuncSetAttribute(cemlp_fwd_kernel<A, false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      cemlp_fwd_kernel<A, false><<<grid, block, bytes, st>>>(x, p, tb, out,
-                                                             rows, cin, c);
+      cudaFuncSetAttribute(cemlp_fwd_kernel<A>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+      cemlp_fwd_kernel<A><<<grid, dim3(32, ROWS), bytes, st>>>(x, p, tb, out,
+                                                              rows, cin, c);
     }
   }
   return (int)cudaGetLastError();
@@ -439,7 +593,7 @@ int launch_bwd(const float* x, const float* dout, const Params& p,
                void* stream) {
   TileGeom t;
   const size_t bytes =
-      fast ? tile_plan<A>(cin, c, &t) : bwd_smem_bytes<A>(cin, c);
+      fast ? tile_plan<A, true>(cin, c, &t) : bwd_smem_bytes<A>(cin, c);
   if (!widths_ok<A>(cin, c) || bytes == 0 || bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   Tabs<A> tb = make_tabs<A>(bc, sign);
@@ -485,13 +639,19 @@ int launch_bwd(const float* x, const float* dout, const Params& p,
 // One set of C entry points per algebra: csmpn_cemlp_* (Cl(3,0)) and
 // csmpn_cemlp_cl2_* (Cl(2,0)).  The 10 block parameters are device
 // pointers in flax order (w1 b1 sa sb gw wr na wl bl aln); x (rows, cin,
-// NB) fp32, out (rows, c, NB).  The backward writes dx (rows, cin, NB) and
-// grads (grad_floats,), with partials (grid, grad_floats) as scratch.  The
+// NB) fp32, out (rows, c, NB); the fast forward's scratch img holds its
+// parameter image (fwd_tile_plan's info[2] bytes).  The backward writes
+// dx (rows, cin, NB) and grads (grad_floats,), with partials (grid,
+// grad_floats) as scratch.  The
 // smem entry gives a launch's shared-memory bytes (0 if the widths are not
 // supported); tile_plan the fast-mode backward's bytes (0 where it does
 // not take the widths) and, into info, its kernel instance (the
 // weight-gradient tiles a warp it holds: 16 to 32 with the x tile whole,
 // 40 with it in chunks), its x tile's chunks and their input channels;
+// fwd_tile_plan the same of the fast-mode forward (info: its x tile's
+// chunks, where more than one its chunked instance, their input channels,
+// and the bytes of its parameter image, the scratch img of the forward
+// entry), fwd_tile_blocks the CTAs of its instance an SM holds;
 // the tables entry the structural tables the kernels assume,
 // for the host to check against the algebra: i_of (NB^2 ints), path ids
 // (NB^2 ints), grades (NB ints).
@@ -505,21 +665,36 @@ int launch_bwd(const float* x, const float* dout, const Params& p,
     return smem_bytes<ALG>(cin, c, backward);                                 \
   }                                                                           \
   size_t PREFIX##_tile_smem_bytes(int cin, int c) {                           \
-    return tile_plan<ALG>(cin, c, nullptr);                                   \
+    return tile_plan<ALG, true>(cin, c, nullptr);                             \
+  }                                                                           \
+  size_t PREFIX##_fwd_tile_smem_bytes(int cin, int c) {                       \
+    return tile_plan<ALG, false>(cin, c, nullptr);                            \
+  }                                                                           \
+  size_t PREFIX##_fwd_tile_plan(int cin, int c, int* info) {                  \
+    TileGeom t;                                                               \
+    const size_t bytes = tile_plan<ALG, false>(cin, c, &t);                   \
+    info[0] = bytes ? t.nch : 0;                                              \
+    info[1] = bytes ? t.kch : 0;                                              \
+    info[2] = bytes ? (int)tparams_bytes<ALG>(t) : 0;                         \
+    return bytes;                                                             \
+  }                                                                           \
+  int PREFIX##_fwd_tile_blocks(int cin, int c) {                              \
+    return fwd_tile_blocks<ALG>(cin, c);                                      \
   }                                                                           \
   size_t PREFIX##_tile_plan(int cin, int c, int* info) {                      \
     TileGeom t;                                                               \
-    const size_t bytes = tile_plan<ALG>(cin, c, &t);                          \
+    const size_t bytes = tile_plan<ALG, true>(cin, c, &t);                    \
     info[0] = bytes ? tile_instance<ALG>(t) : 0;                              \
     info[1] = bytes ? t.nch : 0;                                              \
     info[2] = bytes ? t.kch : 0;                                              \
     return bytes;                                                             \
   }                                                                           \
   int PREFIX##_fwd(const float* x, CSMPN_PARAMS_DECL, const float* bc,        \
-                   const float* sign, float* out, int rows, int cin, int c,   \
-                   int fast, int grid, void* stream) {                        \
-    return launch_fwd<ALG>(x, CSMPN_PARAMS, bc, sign, out, rows, cin, c,      \
-                           fast, grid, stream);                               \
+                   const float* sign, float* out, void* img, int rows,        \
+                   int cin, int c, int fast, int grid, void* stream) {        \
+    return launch_fwd<ALG>(x, CSMPN_PARAMS, bc, sign, out,                    \
+                           static_cast<char*>(img), rows, cin, c, fast, grid, \
+                           stream);                                           \
   }                                                                           \
   int PREFIX##_bwd(const float* x, const float* dout, CSMPN_PARAMS_DECL,      \
                    const float* bc, const float* sign, float* dx,             \

@@ -1,8 +1,8 @@
-// One CEMLP block for one row per warp: the device code shared by the
-// block kernels (cemlp.cu, K2 and K3 at Cl(3,0) and Cl(2,0)) and the fused
-// message-passing kernels (fused_egcl.cu, K4 and K5 at Cl(3,0) and Cl(2,0))
-// for their forwards and their exact-mode backwards; the fast-mode
-// backwards are the row tiles of cemlp_tile.cuh.
+// One CEMLP block for one row per warp: the exact-mode device code shared
+// by the block kernels (cemlp.cu, K2 and K3 at Cl(3,0) and Cl(2,0)) and
+// the fused message-passing kernels (fused_egcl.cu, K4 and K5 at Cl(3,0)
+// and Cl(2,0)); fast mode is the row tiles of cemlp_tile.cuh, which share
+// this file's algebra traits, tables and constants.
 //
 // A block is
 //     MVLinear -> MVSiLU -> SGP (right linear, grade-norm normalisation,
@@ -33,11 +33,8 @@
 // channel-mixing weight gradients are summed over a tile of rows by
 // `weight_grads`, each entry owned by one thread.
 //
-// Precision: FAST = false is fp32 throughout.  FAST = true (the forward)
-// rounds to bf16 the operands of each product that the TPU kernel feeds its
-// matrix unit (`_cast_pair`/`_dot*`), and accumulates in fp32.  In the dense form that
-// includes the path weight (an operand of the Kcat product); the pair
-// product z_i * yn_k is not rounded.
+// Precision: fp32 throughout.  `rnd<true>` is the bf16 rounding of the
+// fast-mode row tiles.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -194,28 +191,28 @@ struct Params {
   const float *w1, *b1, *sa, *sb, *gw, *wr, *na, *wl, *bl, *aln;
 };
 
-template <class A, bool FAST>
+template <class A>
 __device__ void stage_params(const Params& p, const Smem& s, int cin, int c) {
   constexpr int NG = A::NG, NP = A::NP;
   const int tid = threadIdx.x + 32 * threadIdx.y;
   for (int e = tid; e < c * cin * NG; e += THREADS) {   // flax (n, m, g)
     const int g = e % NG, m = (e / NG) % cin, n = e / (NG * cin);
-    s.w1[m * s.pm1 + g * c + n] = rnd<FAST>(p.w1[e]);
+    s.w1[m * s.pm1 + g * c + n] = p.w1[e];
   }
   for (int e = tid; e < c * c * NG; e += THREADS) {
     const int g = e % NG, m = (e / NG) % c, n = e / (NG * c);
-    s.wr[m * s.pm + g * c + n] = rnd<FAST>(p.wr[e]);
-    s.wl[m * s.pm + g * c + n] = rnd<FAST>(p.wl[e]);
+    s.wr[m * s.pm + g * c + n] = p.wr[e];
+    s.wl[m * s.pm + g * c + n] = p.wl[e];
   }
   for (int e = tid; e < c * NG; e += THREADS) {          // (n, g)
     const int g = e % NG, n = e / NG;
-    s.ra[g * c + n] = rnd<FAST>(p.sa[e]);
+    s.ra[g * c + n] = p.sa[e];
     s.sb[g * c + n] = p.sb[e];
     s.nsig[g * c + n] = 1.f / (1.f + expf(-p.na[e]));
   }
   for (int e = tid; e < c * NP; e += THREADS) {          // (n, path)
     const int q = e % NP, n = e / NP;
-    s.gw[q * c + n] = rnd<FAST>(p.gw[e]);
+    s.gw[q * c + n] = p.gw[e];
   }
   for (int e = tid; e < c; e += THREADS) {
     s.b1[e] = p.b1[e];
@@ -225,8 +222,8 @@ __device__ void stage_params(const Params& p, const Smem& s, int cin, int c) {
 }
 
 // Loads a tile of ROWS input rows, (rows, cin, NB) row-major in global
-// memory, into shared memory as [r][i][m], rounded in fast mode.
-template <class A, bool FAST>
+// memory, into shared memory as [r][i][m].
+template <class A>
 __device__ void load_x_tile(const float* __restrict__ x, float* xs,
                             int64_t row0, int rows, int cin) {
   constexpr int NB = A::NB;
@@ -238,7 +235,7 @@ __device__ void load_x_tile(const float* __restrict__ x, float* xs,
     const int r = e / per_row, rem = e % per_row;
     const int m = rem / NB, i = rem % NB;
     xs[(r * NB + i) * cin + m] =
-        r < nrow ? rnd<FAST>(x[row0 * per_row + e]) : 0.f;
+        r < nrow ? x[row0 * per_row + e] : 0.f;
   }
 }
 
@@ -255,7 +252,7 @@ struct Fwd {
 // xr is the row's [i][m] tile, zt the row's [i][n] tile for z.  Every lane
 // of the warp must call it (shuffle reduction).  The block's output for
 // slot u is s.aln[n_u] / f[u].m * f[u].o[i], n_u = slot_channel(lane, u).
-template <class A, bool FAST>
+template <class A>
 __device__ __forceinline__ void block_forward(Fwd<A> (&f)[A::SLOTS],
                                               const Smem& s,
                                               const Tabs<A>& tb,
@@ -295,10 +292,10 @@ __device__ __forceinline__ void block_forward(Fwd<A> (&f)[A::SLOTS],
     // ---- MVSiLU: gate per grade from the scalar blade / squared magnitudes
 #pragma unroll
     for (int g = 0; g < NG; ++g) fu.inv[g] = 0.f;
-    fu.inv[0] = rnd<FAST>(fu.y[0]);
+    fu.inv[0] = fu.y[0];
 #pragma unroll
     for (int i = 1; i < NB; ++i)
-      fu.inv[grade<A>(i)] += rnd<FAST>(fu.y[i] * fu.y[i] * tb.bc[i]);
+      fu.inv[grade<A>(i)] += fu.y[i] * fu.y[i] * tb.bc[i];
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       const float gate = s.ra[g * c + n] * fu.inv[g] + s.sb[g * c + n];
@@ -307,7 +304,7 @@ __device__ __forceinline__ void block_forward(Fwd<A> (&f)[A::SLOTS],
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       fu.z[i] = fu.s[grade<A>(i)] * fu.y[i];
-      fu.zr[i] = rnd<FAST>(fu.z[i]);
+      fu.zr[i] = fu.z[i];
       if (act[u]) zt[i * c + n] = fu.zr[i];
     }
   }
@@ -348,7 +345,7 @@ __device__ __forceinline__ void block_forward(Fwd<A> (&f)[A::SLOTS],
     for (int g = 0; g < NG; ++g) fu.qg[g] = 0.f;
 #pragma unroll
     for (int i = 0; i < NB; ++i)
-      fu.qg[grade<A>(i)] += rnd<FAST>(fu.yr[i] * fu.yr[i] * tb.bc[i]);
+      fu.qg[grade<A>(i)] += fu.yr[i] * fu.yr[i] * tb.bc[i];
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
       fu.s1g[g] = sqrtf(fu.qg[g] * fu.qg[g] + 1e-16f);
@@ -358,7 +355,7 @@ __device__ __forceinline__ void block_forward(Fwd<A> (&f)[A::SLOTS],
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       fu.yn[i] = fu.yr[i] / fu.den[grade<A>(i)];
-      fu.ynr[i] = rnd<FAST>(fu.yn[i]);
+      fu.ynr[i] = fu.yn[i];
     }
     // ---- weighted geometric product, Cayley pair form, + first order
 #pragma unroll
@@ -378,7 +375,7 @@ __device__ __forceinline__ void block_forward(Fwd<A> (&f)[A::SLOTS],
     fu.qc = 0.f;
 #pragma unroll
     for (int i = 0; i < NB; ++i)
-      fu.qc += rnd<FAST>(fu.o[i] * fu.o[i] * tb.bc[i]);
+      fu.qc += fu.o[i] * fu.o[i] * tb.bc[i];
     fu.s1c = sqrtf(fu.qc * fu.qc + 1e-16f);
     fu.nc = sqrtf(fu.s1c);
     tot += act[u] ? fu.nc : 0.f;

@@ -1,8 +1,13 @@
-// The dense CEMLP block backward in row tiles, fast mode: the device code
-// of K3 (cemlp.cu, `cemlp_bwd_tile_kernel`) and K5 (fused_egcl.cu,
+// The dense CEMLP block in row tiles, fast mode: the device code of K2
+// and K3 (cemlp.cu, `cemlp_fwd_tile_kernel`, `cemlp_bwd_tile_kernel`), K4
+// and K5 (fused_egcl.cu, `fused_mp_fwd_tile_kernel`,
 // `fused_mp_bwd_tile_kernel`) at Cl(3,0) and Cl(2,0).  Exact mode keeps
 // the row-per-warp code of cemlp_block.cuh (fp32 throughout: neither bf16
-// nor TF32 products meet its 1e-4).
+// nor TF32 products meet its 1e-5 forward and 1e-4 backward).
+//
+// A block's forward (`tile_block_forward`) is the phases F1, F2 and row
+// below, its output handed to the caller's sink; its backward
+// (`tile_block_backward`) is all of them.
 //
 // A CTA step takes R = TROWS = 16 rows, with 8 warps.  Its block math runs
 // in phases, each behind a barrier, on tiles in shared memory:
@@ -11,9 +16,9 @@
 //   F2   YR = z Wr and FI = z WL on the tensor cores -> fp32 tiles;
 //   row  a warp per row, a lane per channel (two at Cl(2)): the right
 //        operand's normalisation, the Cayley pair product and the layer
-//        norm, the row's mean and d(mean) by warp shuffles, and their
-//        backward -> d(first), d(yr) (bf16 tiles) and the product's d(z)
-//        (fp32, over YR);
+//        norm, the row's mean and d(mean) by warp shuffles -> the
+//        block's output (the forward), or their backward -> d(first),
+//        d(yr) (bf16 tiles) and the product's d(z) (fp32, over YR);
 //   B2   Y again and d(z) += d(first) WL^T + d(yr) Wr^T on the tensor
 //        cores, then MVSiLU's backward in the accumulator registers -> d(y);
 //   B3   the channel-mixing weight gradients X^T d(y), z^T d(yr), z^T
@@ -42,10 +47,11 @@
 // 16; nch chunks over Cin): where the whole tile does not fit, the phases
 // that read x (F1, B2, B3) load its chunks in turn through the caller's
 // loader, each behind barriers.  The sums over Cin run in the same order
-// either way, so the results do not depend on kch.  Only K3 takes chunks,
-// where it needs them (wide inputs at narrow outputs), in one instance of
-// its own (CHUNKED, 40 tiles a warp): the chunk loops and the loader cost
-// registers, and the whole-tile instances keep the code without them.
+// either way, so the results do not depend on kch.  Only K3 and K2 take
+// chunks, where they need them (wide inputs at narrow outputs), each in
+// one instance of its own (CHUNKED; K3's at 40 tiles a warp): the chunk
+// loops and the loader cost registers, and the whole-tile instances keep
+// the code without them.
 //
 // Code size costs time here: every warp runs each phase's code once per
 // step, and the whole kernel does not stay in the instruction cache.  So
@@ -131,21 +137,21 @@ __host__ __device__ inline int tile_maxt(const TileGeom& t) {
        : per <= 40 ? 40 : 0;
 }
 
-// Moves n floats from global memory into shared memory, eight loads in
-// flight a thread: v = ld(e), then st(e, v), for e < n.
+// Moves n floats from global memory, eight loads in flight a thread:
+// v = ld(e), then st(e, v), for the e < n of thread tid of `stride`.
 template <class Ld, class St>
-__device__ __forceinline__ void copy_in(int n, Ld ld, St st) {
-  const int tid = threadIdx.x + 32 * threadIdx.y;
-  for (int e0 = tid; e0 < n; e0 += 8 * THREADS) {
+__device__ __forceinline__ void copy_in(int n, Ld ld, St st, int tid,
+                                        int stride) {
+  for (int e0 = tid; e0 < n; e0 += 8 * stride) {
     float v[8];
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int e = e0 + u * THREADS;
+      const int e = e0 + u * stride;
       v[u] = e < n ? ld(e) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < 8; ++u) {
-      const int e = e0 + u * THREADS;
+      const int e = e0 + u * stride;
       if (e < n) st(e, v[u]);
     }
   }
@@ -187,11 +193,17 @@ __device__ inline char* carve_tparams(char* p, const TileGeom& t,
   return p + al16(4 * (size_t)c * (3 + 3 * NG + NP));
 }
 
+// Writes a block's parameters in the layout carve_tparams carves, zero
+// padding included, each element by one of `stride` threads (tid is this
+// thread's): a CTA's threads staging them in shared memory
+// (stage_tparams), or a grid's building them once in global memory (K2's
+// parameter image).
 template <class A>
-__device__ void stage_tparams(const Params& p, const TParams& s,
-                              const TileGeom& t) {
+__device__ __forceinline__ void write_tparams(const Params& p,
+                                              const TParams& s,
+                                              const TileGeom& t, int tid,
+                                              int stride) {
   constexpr int NG = A::NG, NP = A::NP;
-  const int tid = threadIdx.x + 32 * threadIdx.y;
   const int c = t.c, cin = t.cin;
   copy_in(
       NG * t.kc * t.ldx,
@@ -201,7 +213,8 @@ __device__ void stage_tparams(const Params& p, const TParams& s,
         return (n < c && m < cin) ? p.w1[((size_t)n * cin + m) * NG + g]
                                   : 0.f;
       },
-      [&](int e, float v) { s.w1[e] = __float2bfloat16_rn(v); });
+      [&](int e, float v) { s.w1[e] = __float2bfloat16_rn(v); }, tid,
+      stride);
   for (int k = 0; k < 2; ++k) {
     const float* src = k == 0 ? p.wr : p.wl;
     bf16* dstw = k == 0 ? s.wr : s.wl;
@@ -212,23 +225,30 @@ __device__ void stage_tparams(const Params& p, const TParams& s,
                     g = e / (t.ldc * t.kc);
           return (n < c && m < c) ? src[(n * c + m) * NG + g] : 0.f;
         },
-        [&](int e, float v) { dstw[e] = __float2bfloat16_rn(v); });
+        [&](int e, float v) { dstw[e] = __float2bfloat16_rn(v); }, tid,
+        stride);
   }
-  for (int e = tid; e < c * NG; e += THREADS) {   // (n, g)
+  for (int e = tid; e < c * NG; e += stride) {   // (n, g)
     const int g = e % NG, n = e / NG;
     s.ra[g * c + n] = rnd<true>(p.sa[e]);
     s.sb[g * c + n] = p.sb[e];
     s.nsig[g * c + n] = 1.f / (1.f + expf(-p.na[e]));
   }
-  for (int e = tid; e < c * NP; e += THREADS) {   // (n, path)
+  for (int e = tid; e < c * NP; e += stride) {   // (n, path)
     const int q = e % NP, n = e / NP;
     s.gw[q * c + n] = rnd<true>(p.gw[e]);
   }
-  for (int e = tid; e < c; e += THREADS) {
+  for (int e = tid; e < c; e += stride) {
     s.b1[e] = p.b1[e];
     s.bl[e] = p.bl[e];
     s.aln[e] = p.aln[e];
   }
+}
+
+template <class A>
+__device__ void stage_tparams(const Params& p, const TParams& s,
+                              const TileGeom& t) {
+  write_tparams<A>(p, s, t, threadIdx.x + 32 * threadIdx.y, THREADS);
 }
 
 // The step's tiles besides its input: z, d(first), d(yr), d(y) bf16
@@ -896,15 +916,16 @@ __device__ __forceinline__ void post_backward(const Post<A>& f,
 // (lane and lane + 32 at Cl(2)).  For each row the forward after the
 // mixing, the row's mean and d(mean) by warp shuffles (a fixed order),
 // then, when `backward`, post_backward for each channel, or else the
-// block's output aln / mean * o rounded to bf16 into `out` ([NB][R][ld]).
-// Rows past nrow get zeros.  The per-channel gradients are added to the
-// warp's slots in b.pacc at the end (one thread a channel).
-template <class A>
+// block's output aln / mean * o of each (row r, channel n) to
+// sink(r, n, v[NB]).  Rows past nrow get zeros (the sink is handed zeros
+// for them).  The per-channel gradients are added to the warp's slots in
+// b.pacc at the end (one thread a channel).
+template <class A, class Sink>
 __device__ __forceinline__ void row_phase(const TParams& s, const Tabs<A>& tb,
                                           const TileBufs& b,
                                           const TileGeom& t, int nrow,
-                                          bool backward, bf16* out, int ld,
-                                          int warp, int lane) {
+                                          bool backward, Sink sink, int warp,
+                                          int lane) {
   constexpr int NB = A::NB, S = A::SLOTS;
   const int c = t.c;
   PairAcc<A> pa[S];
@@ -912,17 +933,21 @@ __device__ __forceinline__ void row_phase(const TParams& s, const Tabs<A>& tb,
   for (int u = 0; u < S; ++u) zero_pair_acc<A>(pa[u]);
   for (int r = warp; r < TROWS; r += TWARPS) {
     if (r >= nrow) {
-      for (int n = lane; n < c; n += 32)
+      float zero[NB];
 #pragma unroll
-        for (int i = 0; i < NB; ++i) {
-          const size_t k = (size_t)(i * TROWS + r);
-          if (backward) {
-            b.df[k * t.ldc + n] = __float2bfloat16_rn(0.f);
-            b.dr[k * t.ldc + n] = __float2bfloat16_rn(0.f);
-          } else {
-            out[k * ld + n] = __float2bfloat16_rn(0.f);
+      for (int i = 0; i < NB; ++i) zero[i] = 0.f;
+      for (int n = lane; n < c; n += 32) {
+        if (backward) {
+#pragma unroll
+          for (int i = 0; i < NB; ++i) {
+            const size_t k = (size_t)(i * TROWS + r) * t.ldc + n;
+            b.df[k] = __float2bfloat16_rn(0.f);
+            b.dr[k] = __float2bfloat16_rn(0.f);
           }
+        } else {
+          sink(r, n, zero);
         }
+      }
       continue;
     }
     Post<A> f[S];
@@ -956,10 +981,10 @@ __device__ __forceinline__ void row_phase(const TParams& s, const Tabs<A>& tb,
         const int n = lane + 32 * u;
         if (n >= c) continue;
         const float scale = s.aln[n] / mean;
+        float v[NB];
 #pragma unroll
-        for (int i = 0; i < NB; ++i)
-          out[(size_t)(i * TROWS + r) * ld + n] =
-              __float2bfloat16_rn(scale * f[u].o[i]);
+        for (int i = 0; i < NB; ++i) v[i] = scale * f[u].o[i];
+        sink(r, n, v);
       }
     }
   }
@@ -977,6 +1002,21 @@ __device__ __forceinline__ void row_phase(const TParams& s, const Tabs<A>& tb,
     for (int gg = 0; gg < A::NG; ++gg) su[2 + A::NP + gg] += pa[u].ns[gg];
   }
 }
+
+// A row phase's sink that writes a block's output rounded to bf16 into a
+// tile [NB][R][ld] (the next block's input tile), zeros included: K4's
+// and K5's sweep 0.
+template <int NB>
+struct Bf16TileSink {
+  bf16* out;
+  int ld;
+  __device__ __forceinline__ void operator()(int r, int n,
+                                             const float (&v)[NB]) const {
+#pragma unroll
+    for (int i = 0; i < NB; ++i)
+      out[(size_t)(i * TROWS + r) * ld + n] = __float2bfloat16_rn(v[i]);
+  }
+};
 
 // F2: yr = z Wr and first = z WL into their fp32 tiles; where two warps
 // share an n8 tile, each takes one of the two products.
@@ -1029,26 +1069,28 @@ __device__ __forceinline__ void x_linear(float (&y)[A::NB][4],
   }
 }
 
-// F1, F2 and the row phase of a block's forward, its output into `out`
-// ([NB][R][ld] bf16): the forward-only step of K5's first block, from its
-// whole x tile.  Ends behind a barrier.
-template <class A>
+// F1, F2 and the row phase of a block's forward for one step of nrow rows
+// from its input tile x ([NB][R][ldb] bf16: whole, or where CHUNKED chunk
+// 0 of it, and load(ch) brings chunk ch, as in x_linear), its output to
+// sink(r, n, v[NB]) (see row_phase): K2's step, and K4's and K5's block
+// forwards (whole tiles, a bf16 tile sink).  Starts after a barrier behind
+// x; ends behind one.
+template <class A, bool CHUNKED, class Sink, class Load>
 __device__ __forceinline__ void tile_block_forward(
     const TParams& s, const Tabs<A>& tb, const bf16* x, const TileBufs& b,
-    const TileGeom& t, int nrow, bf16* out, int ld, int warp, int lane) {
+    const TileGeom& t, int nrow, Sink sink, Load load, int warp, int lane) {
   constexpr int NB = A::NB;
   const bool fw = warp < t.nt * t.ns;
   const int n0 = 8 * (warp % t.nt), half = warp / t.nt;
-  if (fw) {
+  {   // F1
     float y[NB][4];
-    zero_frag<A>(y);
-    frag_linear<A>(y, x, t.ldb, t.kin, s.w1, t.ldx, t.kc, 0, n0, lane);
-    frag_silu_fwd<A>(y, s, tb, b, t, 0, n0, half, nrow, lane);
+    x_linear<A, CHUNKED>(y, s, x, t, fw, n0, lane, false, load);
+    if (fw) frag_silu_fwd<A>(y, s, tb, b, t, 0, n0, half, nrow, lane);
   }
   __syncthreads();
-  frag_right_left<A>(s, b, t, fw, n0, half, lane);
+  frag_right_left<A>(s, b, t, fw, n0, half, lane);   // F2
   __syncthreads();
-  row_phase<A>(s, tb, b, t, nrow, false, out, ld, warp, lane);
+  row_phase<A>(s, tb, b, t, nrow, false, sink, warp, lane);
   __syncthreads();
 }
 
@@ -1075,7 +1117,8 @@ __device__ __forceinline__ void tile_block_backward(
   __syncthreads();
   frag_right_left<A>(s, b, t, fw, n0, half, lane);   // F2
   __syncthreads();
-  row_phase<A>(s, tb, b, t, nrow, true, nullptr, 0, warp, lane);
+  row_phase<A>(s, tb, b, t, nrow, true,
+               [](int, int, const float (&)[NB]) {}, warp, lane);
   __syncthreads();
   {   // B2
     float y[NB][4];

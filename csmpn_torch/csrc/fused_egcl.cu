@@ -151,8 +151,8 @@ fused_mp_fwd_kernel(const float* __restrict__ h,
   float* ys = xs2 + ROWS * NB * c;             // [ROWS][c][NB] messages
   float* acc = ys + ROWS * NB * c;             // [wn][c][NB] window sum
   int* dloc = reinterpret_cast<int*>(acc + gm.wn * per_node);   // [ROWS]
-  stage_params<A, false>(p1, s1, cin1, c);
-  stage_params<A, false>(p2, s2, c, c);
+  stage_params<A>(p1, s1, cin1, c);
+  stage_params<A>(p2, s2, c, c);
 
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int lane = threadIdx.x, r = threadIdx.y;
@@ -169,12 +169,12 @@ fused_mp_fwd_kernel(const float* __restrict__ h,
         float* zt = zs + r * NB * c;
         float* xr2 = xs2 + r * NB * c;
         Fwd<A> f[S];
-        block_forward<A, false>(f, s1, tb, xs1 + r * NB * cin1, zt, cin1, c,
+        block_forward<A>(f, s1, tb, xs1 + r * NB * cin1, zt, cin1, c,
                                lane);
         // block 2 reads its input rounded, as K2 does
         write_scaled<A>(f, s1, xr2, c, 1, c, lane);
         __syncwarp();
-        block_forward<A, false>(f, s2, tb, xr2, zt, c, c, lane);
+        block_forward<A>(f, s2, tb, xr2, zt, c, c, lane);
         write_scaled<A>(f, s2, ys + r * per_node, 1, NB, c, lane);
       }
       __syncthreads();
@@ -250,8 +250,8 @@ fused_mp_bwd_kernel(const float* __restrict__ h,
   float* awl_2 = awr_2 + c * NG * c;
   float* loc_2 = awl_2 + c * NG * c;
 
-  stage_params<A, false>(p1, s1, cin1, c);
-  stage_params<A, false>(p2, s2, c, c);
+  stage_params<A>(p1, s1, cin1, c);
+  stage_params<A>(p2, s2, c, c);
   const int tid = threadIdx.x + 32 * threadIdx.y;
   const int64_t n_part = part_floats<A>(cin1, c);
   for (int64_t e = tid; e < n_part; e += THREADS) part[e] = 0.f;
@@ -282,10 +282,10 @@ fused_mp_bwd_kernel(const float* __restrict__ h,
         if (row < e1) {   // whole warp
           const int d = dloc[r];
           Fwd<A> f[S];
-          block_forward<A, false>(f, s1, tb, xr1, zt1, cin1, c, lane);
+          block_forward<A>(f, s1, tb, xr1, zt1, cin1, c, lane);
           write_scaled<A>(f, s1, xr2, c, 1, c, lane);
           __syncwarp();
-          block_forward<A, false>(f, s2, tb, xr2, zs2 + r * NB * c, c, c,
+          block_forward<A>(f, s2, tb, xr2, zs2 + r * NB * c, c, c,
                                  lane);
           float go[S][NB];
 #pragma unroll
@@ -330,7 +330,7 @@ fused_mp_bwd_kernel(const float* __restrict__ h,
         const int64_t row = row0 + r;
         if (row < e1) {
           Fwd<A> f[S];
-          block_forward<A, false>(f, s1, tb, xr1, zt1, cin1, c, lane);
+          block_forward<A>(f, s1, tb, xr1, zt1, cin1, c, lane);
           float go[S][NB];
 #pragma unroll
           for (int u = 0; u < S; ++u) {
@@ -576,8 +576,9 @@ fused_mp_bwd_tile_kernel(const bf16* __restrict__ h,
         load_msg_tile_bf16<A>(h, hj, attr, dst, mask, row0, nrow, base, cm,
                               ca, x1, t1.ldb, dloc);
         __syncthreads();
-        tile_block_forward<A>(sp, tb, x1, b, t1, nrow, x2, t2.ldb, warp,
-                              lane);
+        tile_block_forward<A, false>(sp, tb, x1, b, t1, nrow,
+                                     Bf16TileSink<NB>{x2, t2.ldb}, no_load,
+                                     warp, lane);
         for (int e = tid; e < nrow * out_w; e += THREADS) {
           const int r = e / out_w, i = (e / c) % NB, n = e % c;
           x2s[row0 * out_w + e] = x2[(size_t)(i * TROWS + r) * t2.ldb + n];
@@ -837,6 +838,7 @@ fused_mp_fwd_tile_kernel(const bf16* __restrict__ h,
   zero_bf16(x1, NB * TROWS * t1.ldb);   // the padded columns stay zero
   zero_bf16(b.z, NB * TROWS * t2.ldc);
   zero_bf16(x2, NB * TROWS * t2.ldc);
+  auto no_load = [](int) {};   // x tiles are whole here
 
   const int warp = threadIdx.y, lane = threadIdx.x;
   const int tid = lane + 32 * warp;
@@ -857,10 +859,12 @@ fused_mp_fwd_tile_kernel(const bf16* __restrict__ h,
         load_msg_tile_bf16<A>(h, hj, attr, dst, mask, row0, nrow, base, cm,
                               ca, x1, t1.ldb, dloc);
         __syncthreads();
-        tile_block_forward<A>(s1, tb, x1, b, t1, nrow, x2, t2.ldb, warp,
-                              lane);
-        tile_block_forward<A>(s2, tb, x2, b, t2, nrow, x2, t2.ldb, warp,
-                              lane);
+        tile_block_forward<A, false>(s1, tb, x1, b, t1, nrow,
+                                     Bf16TileSink<NB>{x2, t2.ldb}, no_load,
+                                     warp, lane);
+        tile_block_forward<A, false>(s2, tb, x2, b, t2, nrow,
+                                     Bf16TileSink<NB>{x2, t2.ldb}, no_load,
+                                     warp, lane);
         // element (i, n) of every message row, by one thread, rows in order
         for (int e = tid; e < out_w; e += THREADS) {
           const int i = e / c, n = e % c;

@@ -7,10 +7,13 @@ two forms:
   * dense, nb = 8 and nb = 4: K2/K3 in ``csrc/cemlp.cu``, compiled for
     Cl(3,0) (the motion and MD17 tasks, output width <= 32 channels) and
     for Cl(2,0) (the NBA task, output width <= 64 channels: a lane holds
-    two 4-blade channels).  In fast mode K3 is the row tile kernel of
-    ``csrc/cemlp_tile.cuh`` (steps of 16 rows, the channel-mixing linears
-    and their weight gradients as bf16 ``mma.sync`` products); its widths
-    are those whose tiles fit in one CTA (``_smem``);
+    two 4-blade channels).  In fast mode both are row tile kernels of
+    ``csrc/cemlp_tile.cuh`` (steps of 16 rows, the channel-mixing linears,
+    and in K3 their weight gradients, as bf16 ``mma.sync`` products; the
+    x tile in chunks of input channels where it does not fit whole); their
+    widths are those whose tiles fit in one CTA (``_smem``); K2's grid is
+    as many CTAs as the SMs hold at once, and its parameters reach the
+    CTAs as one image built by a first launch (``_fwd_tile_launch``);
   * pair, nb = 32 and nb = 16: K2p/K3p, ``csrc/cemlp_pair_kernels.cuh``
     compiled for Cl(5,0) (``csrc/cemlp_pair.cu``, the hulls task) and for
     Cl(4,0) (``csrc/cemlp_pair_cl4.cu``, the bench at ``--dim 4``), where
@@ -310,11 +313,13 @@ def _check_block(x, params):
     return kern, cin, c
 
 
-def _grid(rows: int, device, smem_bytes: int, rows_per_cta: int) -> int:
-    """CTAs to launch: every SM holds as many CTAs as its shared memory
-    allows (at most 8), and each CTA walks over row tiles."""
+def _grid(rows: int, device, smem_bytes: int, rows_per_cta: int,
+          per_sm: int = 0) -> int:
+    """CTAs to launch: every SM holds ``per_sm`` CTAs or, where 0, as many
+    as its shared memory allows (at most 8), and each CTA walks over row
+    tiles."""
     props = torch.cuda.get_device_properties(device)
-    per_sm = max(1, min(8, (228 * 1024) // max(smem_bytes, 1)))
+    per_sm = per_sm or max(1, min(8, (228 * 1024) // max(smem_bytes, 1)))
     n_tiles = -(-rows // rows_per_cta)
     return max(1, min(n_tiles, props.multi_processor_count * per_sm))
 
@@ -330,14 +335,15 @@ PAIR_FWD_TILE_PAIRS = 256
 
 
 def _tiled(kern: BlockKernel, backward: bool, exact: bool) -> bool:
-    """Whether the launch is a fast-mode row tile kernel: the backward of
-    either form (K3, K3p) or the pair form's forward (K2p)."""
-    return not exact and (backward or kern.form == "pair")
+    """Whether the launch is a row tile kernel: every fast-mode launch of
+    either form and direction (K2, K3, K2p, K3p); exact mode keeps the
+    row kernels."""
+    return not exact
 
 
 def _tile_rows(kern: BlockKernel, backward: bool = True) -> int:
-    """Rows a CTA step of the fast-mode row tile backward (or forward, of
-    the pair form) takes."""
+    """Rows a CTA step of the fast-mode row tile backward (or forward)
+    takes."""
     if kern.form == "dense":
         return TILE_ROWS
     return (PAIR_TILE_PAIRS if backward else PAIR_FWD_TILE_PAIRS) \
@@ -347,7 +353,8 @@ def _tile_rows(kern: BlockKernel, backward: bool = True) -> int:
 def _smem(kern: BlockKernel, cin, c, backward, exact=True):
     """Shared-memory bytes of a launch; NotImplementedError where the
     widths do not fit in one CTA's 227 KB (or, for the fast-mode K3 and
-    K3p, in their register tiles)."""
+    K3p, in their register tiles).  Fast mode asks the row tiles' entry of
+    the direction, exact mode the row kernels'."""
     lib = _build.load(kern.source)
     if _tiled(kern, backward, exact):
         entry = "tile_smem_bytes" if backward else "fwd_tile_smem_bytes"
@@ -366,6 +373,29 @@ def _smem(kern: BlockKernel, cin, c, backward, exact=True):
             f"({'backward' if backward else 'forward'}, "
             f"{'exact' if exact else 'fast'} mode)")
     return n
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_tile_launch(kern: BlockKernel, cin: int, c: int) -> Tuple[int, int]:
+    """(CTAs of the fast-mode dense K2's instance at cin -> c that one SM
+    holds at once, the CUDA occupancy of its registers, shared memory and
+    threads; bytes of its parameter image, the forward's scratch) from the
+    library's entries; raises where no CTA fits."""
+    lib = _build.load(kern.source)
+    blocks = getattr(lib, f"{kern.symbol}_fwd_tile_blocks")
+    plan = getattr(lib, f"{kern.symbol}_fwd_tile_plan")
+    if blocks.argtypes is None:
+        blocks.argtypes = [_I, _I]
+        blocks.restype = ctypes.c_int
+    if plan.argtypes is None:
+        plan.argtypes = [_I, _I, ctypes.POINTER(_I)]
+        plan.restype = ctypes.c_size_t
+    info = (_I * 3)()
+    n = int(blocks(cin, c))
+    if n <= 0 or int(plan(cin, c, info)) == 0:
+        raise RuntimeError(f"{kern.label}: the fast-mode forward at {cin} -> "
+                           f"{c} channels fits no CTA on an SM")
+    return n, int(info[2])
 
 
 def _tables(kern: BlockKernel, alg, device) -> Tuple[np.ndarray, int]:
@@ -394,14 +424,20 @@ def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
     if rows == 0:
         return out
     bc, tabs = _tables(kern, alg, x.device)
-    rows_cta = _tile_rows(kern, False) if _tiled(kern, False, exact) \
-        else kern.rows_fwd
-    grid = _grid(rows, x.device, _smem(kern, cin, c, False, exact),
-                 rows_cta)
-    fn = _fn(f"{kern.symbol}_fwd", 14, 5, kern.source)
-    err = fn(x.data_ptr(), *[p.data_ptr() for p in params],
-             bc.ctypes.data, tabs, out.data_ptr(), rows, cin, c,
-             0 if exact else 1, grid,
+    tiled = _tiled(kern, False, exact)
+    rows_cta = _tile_rows(kern, False) if tiled else kern.rows_fwd
+    smem = _smem(kern, cin, c, False, exact)
+    dense = kern.form == "dense"
+    per_sm, img_bytes = _fwd_tile_launch(kern, cin, c) if tiled and dense \
+        else (0, 0)
+    grid = _grid(rows, x.device, smem, rows_cta, per_sm)
+    ptrs = [x.data_ptr(), *[p.data_ptr() for p in params], bc.ctypes.data,
+            tabs, out.data_ptr()]
+    if dense:   # K2's scratch: the fast mode's parameter image (else empty)
+        img = torch.empty(img_bytes, dtype=torch.uint8, device=x.device)
+        ptrs.append(img.data_ptr())
+    fn = _fn(f"{kern.symbol}_fwd", len(ptrs), 5, kern.source)
+    err = fn(*ptrs, rows, cin, c, 0 if exact else 1, grid,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, f"{kern.label} forward kernel")
     kern.fwd.add()

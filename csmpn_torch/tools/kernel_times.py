@@ -12,6 +12,9 @@ device µs per launch, fast mode, and the card:
   * K2 and K3 at the widest inputs of the MD17 and NBA blocks: 90 -> 32
     (Cl(3,0), the triangle embedding) at 30,000 rows and 83 -> 40 (Cl(2,0),
     the node block) at 35,200 rows;
+  * K2 and K3 at three small launches of Cl(3,0): the motion node block 0
+    (5,600 rows, 59 -> 28) and embedding ``embed_1`` (3,200 rows, 4 -> 28),
+    and the bench's node block 0 (8,192 rows, 64 -> 32);
   * K2p and K3p at the hulls edge block 0 (13,184 rows, 34 -> 28,
     Cl(5,0)), and at Cl(4,0) at the bench's --dim 4 node block 0 (8,192
     rows, 56 -> 28);
@@ -28,7 +31,7 @@ device µs per launch, fast mode, and the card:
     (512 x 256 x 2048, 32 reps).
 
 A kernel the checkout at ROOT does not have (K2p/K3p and K4p/K5p at Cl(4)
-before they were ported) is left out of its line.  Run it for two trees in
+before they were ported) is null in its line.  Run it for two trees in
 turns in one call (parent, change, change, parent): two calls may land on
 two cards.  It needs a CUDA card.
 """
@@ -81,10 +84,15 @@ def main(root: str) -> dict:
               ("k2_cl2", 2, 35200, 46, 40, 50, 20),
               ("k2_md17", 3, 30000, 90, 32, 50, 20),
               ("k2_nba83", 2, 35200, 83, 40, 50, 20),
+              ("k2_node_block0", 3, 5600, 59, 28, 100, 40),
+              ("k2_embed_1", 3, 3200, 4, 28, 100, 40),
+              ("k2_bench_node_block0", 3, 8192, 64, 32, 100, 40),
               ("k2p", 5, 13184, 34, 28, 40, 10),
               ("k2p_cl4", 4, 8192, 56, 28, 40, 10)]
     for key, dim, rows, cin, c, itf, itb in blocks:
+        kb = key.replace("k2", "k3", 1)
         if not has(2 ** dim):
+            out[f"{key}_us"] = out[f"{kb}_us"] = None
             continue
         alg = get_algebra((1.0,) * dim)
         nb = alg.n_blades
@@ -93,7 +101,6 @@ def main(root: str) -> dict:
         init_parameters(cemlp, gen)
         params = [p.detach().to(dev) for p in ck.block_params(cemlp, 0)]
         dout = torch.randn(rows, c, nb, generator=gen).to(dev)
-        kb = key.replace("k2", "k3", 1)
         out[f"{key}_us"] = time_us(
             lambda: ck.block_forward(x, params, alg, False), itf)
         out[f"{kb}_us"] = time_us(
@@ -105,7 +112,9 @@ def main(root: str) -> dict:
     fused = [("k4", 3, 30, 15), ("k4_cl2", 2, 30, 15), ("k4p", 5, 5, 3),
              ("k4p_cl4", 4, 10, 5)]
     for key, dim, itf, itb in fused:
+        kb = key.replace("k4", "k5", 1)
         if not has(2 ** dim):
+            out[f"{key}_us"] = out[f"{kb}_us"] = None
             continue
         alg = get_algebra((1.0,) * dim)
         h, ei, _ = workload(dev, hidden=WIDTHS[dim][0], dim=dim)
@@ -120,7 +129,6 @@ def main(root: str) -> dict:
               + ck.block_params(layer.edge_model, 1)]
         dagg = torch.randn(n, c, nb, device=dev)
         plan = fe.make_plan(dst, None, n, c, 0, c, nb)
-        kb = key.replace("k4", "k5", 1)
         out[f"{key}_us"] = time_us(lambda: fe.mp_forward(
             ps, alg, h_s, hj, None, dst, None, False, plan), itf)
         out[f"{kb}_us"] = time_us(lambda: fe.mp_backward(

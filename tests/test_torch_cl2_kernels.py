@@ -152,11 +152,23 @@ def test_plain_k3_cl2_matches_jax_grad(rows, cin, c):
         _close(gr, j_grads[k].numpy(), True, "bwd", k)
 
 
-@pytest.mark.parametrize("exact", [True, False], ids=["exact", "fast"])
-@pytest.mark.parametrize("rows,cin,c", [(11, 3, 4), (6, 40, 40)])
+def _body_case(rows, cin, c, exact):
+    return pytest.param(rows, cin, c, exact, id=f"{rows}-{cin}-{c}-"
+                        f"{'exact' if exact else 'fast'}")
+
+
+@pytest.mark.parametrize("rows,cin,c,exact", [
+    _body_case(r, cin, c, e) for r, cin, c in
+    [(11, 3, 4), (6, 40, 40), (7, 83, 4), (5, 83, 64)]
+    for e in (True, False)] + [
+    _body_case(11, 3, c, False) for c in (1, 2, 3)])
 def test_plain_k2_k3_cl2_match_kernel_body(rows, cin, c, exact):
     """The block and its vjp against the reference kernel's body in both
-    modes (the dense form rounds the path weight in fast mode)."""
+    modes (the dense form rounds the path weight in fast mode), at the
+    widths the fast row tiles take: C = 4 and 40, the widest input of the
+    NBA blocks (83) at C = 4 and at the widest C (64, two channel slots a
+    lane); and in fast mode at C = 1-3, where the layer norm spans 1-3
+    channels (the limits of the Cl(3) test in test_torch_kernels.py)."""
     params, x, g, t = _block(rows, cin, c, seed=3)
     m = JCEMLP(jax_algebra(CL2), cin, c, c, n_layers=1, fused=False)
     fn = _jax_dense_block(m, cin, c, exact)

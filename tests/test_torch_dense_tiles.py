@@ -1,9 +1,10 @@
 """Host-side code of the fast-mode row tile kernels of the dense form at
-Cl(3,0) and Cl(2,0) over csrc/cemlp_tile.cuh: the backwards K3 and K5 and
-the fused forward K4 (the pair form's K2p and K3p have their own in
-tests/test_torch_pair_tiles.py): which launches take the tile kernels,
-the shared-memory entry points they ask, the CTA steps the grid is cut
-for, the partial layouts the tile kernels write, that the CPU wrappers
+Cl(3,0) and Cl(2,0) over csrc/cemlp_tile.cuh: the block kernels K2 and
+K3, the fused backward K5 and forward K4 (the pair form's K2p and K3p have
+their own in tests/test_torch_pair_tiles.py): which launches take the
+tile kernels, the shared-memory entry points they ask, the CTA steps the
+grid is cut for (and, for K2, the CTAs an SM holds by the occupancy
+entry), the partial layouts the tile kernels write, that the CPU wrappers
 take the plain versions and count no launch, the shapes at which
 chip_smoke.py checks each tile kernel instance and the widths it compares
 between the modes.
@@ -30,11 +31,10 @@ KERNELS = [ck.DENSE, ck.DENSE_CL2, ck.PAIR, ck.PAIR_CL4]
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("exact", [False, True])
 def test_tiled_takes_only_the_fast_dense_backward(kern, backward, exact):
-    """Of the block kernels of the dense form, the row tiles take the
-    fast-mode backward only (K3; the dense K2 keeps its row kernel); the
-    pair form has row tiles of its own for both directions (K2p, K3p)."""
-    want = not exact and (backward or kern.form == "pair")
-    assert ck._tiled(kern, backward, exact) == want
+    """Every fast-mode launch of the block kernels is tiled, of both forms
+    and directions (K2 and K3 on csrc/cemlp_tile.cuh, K2p and K3p on the
+    pair form's tiles); every exact-mode launch keeps its row kernel."""
+    assert ck._tiled(kern, backward, exact) == (not exact)
 
 
 def test_dense_kernels_step_16_rows_in_fast_backward():
@@ -66,22 +66,36 @@ class _Lib:
         self.__dict__.update(entries)
 
 
+class _Fn(_Entry):
+    """A C entry point computed by a Python function."""
+
+    def __init__(self, fn):
+        super().__init__(None)
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
 @pytest.mark.parametrize("kern", [ck.DENSE, ck.DENSE_CL2],
                          ids=lambda k: k.label)
 @pytest.mark.parametrize("backward,exact,entry", [
     (True, False, "tile_smem_bytes"), (True, True, "smem_bytes"),
-    (False, False, "smem_bytes"), (False, True, "smem_bytes")])
+    (False, False, "fwd_tile_smem_bytes"), (False, True, "smem_bytes")])
 def test_smem_asks_the_entry_of_the_launch(monkeypatch, kern, backward,
                                            exact, entry):
-    lib = _Lib(**{f"{kern.symbol}_smem_bytes": _Entry(1000),
-                  f"{kern.symbol}_tile_smem_bytes": _Entry(2000)})
+    sizes = {"smem_bytes": 1000, "tile_smem_bytes": 2000,
+             "fwd_tile_smem_bytes": 3000}
+    lib = _Lib(**{f"{kern.symbol}_{k}": _Entry(v) for k, v in sizes.items()})
     monkeypatch.setattr(_build, "load", lambda name: lib)
     got = ck._smem(kern, 34, 28, backward, exact)
+    assert got == sizes[entry]
+    want_args = (34, 28) if entry != "smem_bytes" else (34, 28,
+                                                        int(backward))
+    for k in sizes:
+        called = getattr(lib, f"{kern.symbol}_{k}")
+        assert called.calls == ([want_args] if k == entry else [])
     called = getattr(lib, f"{kern.symbol}_{entry}")
-    assert got == (2000 if entry == "tile_smem_bytes" else 1000)
-    want_args = (34, 28) if entry == "tile_smem_bytes" else (34, 28,
-                                                             int(backward))
-    assert called.calls == [want_args]
     assert called.argtypes == [ctypes.c_int] * len(want_args)
 
 
@@ -221,6 +235,28 @@ def test_cpu_block_backward_is_plain_and_counts_no_launch(metric, exact):
 @pytest.mark.parametrize("metric", [(1.0, 1.0, 1.0), (1.0, 1.0)],
                          ids=["Cl3", "Cl2"])
 @pytest.mark.parametrize("exact", [True, False])
+def test_cpu_block_forward_is_plain_and_counts_no_launch(metric, exact):
+    """On a CPU tensor K2's wrapper, in fast mode too, is its plain version
+    and launches nothing (nor asks the library for sizes)."""
+    alg = get_algebra(metric)
+    nb, ng, npath = alg.n_blades, len(set(alg.blade_to_grade.tolist())), \
+        alg.n_product_paths
+    gen = torch.Generator().manual_seed(4)
+    cin, c, rows = 5, 3, 19
+    shapes = [(c, cin, ng), (c, 1), (c, ng), (c, ng), (c, npath),
+              (c, c, ng), (c, ng), (c, c, ng), (c, 1), (c,)]
+    params = [0.3 * torch.randn(*s, generator=gen) for s in shapes]
+    x = torch.randn(rows, cin, nb, generator=gen)
+    kern = ck.block_kernel(nb)
+    before = (kern.fwd.count, kern.bwd.count)
+    got = ck.block_forward(x, params, alg, exact)
+    assert (kern.fwd.count, kern.bwd.count) == before
+    assert torch.equal(got, ck.block_forward_plain(x, params, alg, exact))
+
+
+@pytest.mark.parametrize("metric", [(1.0, 1.0, 1.0), (1.0, 1.0)],
+                         ids=["Cl3", "Cl2"])
+@pytest.mark.parametrize("exact", [True, False])
 def test_cpu_mp_backward_is_plain_and_counts_no_launch(metric, exact):
     alg = get_algebra(metric)
     nb = alg.n_blades
@@ -287,6 +323,75 @@ class _OnCard(torch.Tensor):
     @property
     def is_cuda(self):
         return True
+
+
+@pytest.mark.parametrize("kern", [ck.DENSE, ck.DENSE_CL2],
+                         ids=lambda k: k.label)
+@pytest.mark.parametrize("exact,blocks,grid", [
+    (True, 2, 625),     # the row kernel: 8-row tiles, 8 CTAs an SM by smem
+    (False, 2, 264),    # 313 steps of 16 rows, 2 CTAs an SM
+    (False, 1, 132),
+    (False, 0, 0)])     # no CTA fits an SM: raises, no launch
+def test_card_block_forward_launch(monkeypatch, kern, exact, blocks, grid):
+    """On the card the fast K2 asks the row tile forward's entries, its
+    shared memory and the CTAs of its instance an SM holds (the occupancy
+    entry), and launches once on that many CTAs an SM, cut to its steps;
+    the exact K2 asks the row kernel's entry and sizes its grid by shared
+    memory.  Each launch counts one."""
+    alg = get_algebra((1.0,) * (3 if kern is ck.DENSE else 2))
+    nb, ng, npath = alg.n_blades, kern.n_grades, kern.n_paths
+    gen = torch.Generator().manual_seed(8)
+    cin, c, rows = 5, 3, 5000
+    shapes = [(c, cin, ng), (c, 1), (c, ng), (c, ng), (c, npath),
+              (c, c, ng), (c, ng), (c, c, ng), (c, 1), (c,)]
+    ins = [torch.randn(rows, cin, nb, generator=gen)] + [
+        torch.randn(*s, generator=gen) for s in shapes]
+    on = [torch.Tensor._make_subclass(_OnCard, t) for t in ins]
+    def plan(cin_, c_, info):
+        info[0], info[1], info[2] = 1, 16, 40_000
+        return 90_000
+
+    entries = {"smem_bytes": _Entry(1000), "fwd_tile_smem_bytes":
+               _Entry(90_000), "fwd_tile_blocks": _Entry(blocks),
+               "fwd_tile_plan": _Fn(plan), "fwd": _Entry(0)}
+    lib = _Lib(**{f"{kern.symbol}_{k}": e for k, e in entries.items()})
+
+    class _Props:
+        multi_processor_count = 132
+
+    class _Stream:
+        cuda_stream = 77
+
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(ck, "_tables", lambda k, a, d: (np.zeros(
+        nb, np.float32), 0))
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: _Props())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
+    ck._fwd_tile_launch.cache_clear()
+    before = (kern.fwd.count, kern.bwd.count)
+    try:
+        if grid == 0:
+            with pytest.raises(RuntimeError, match="fits no CTA"):
+                ck.block_forward(on[0], on[1:], alg, exact)
+        else:
+            out = ck.block_forward(on[0], on[1:], alg, exact)
+            assert tuple(out.shape) == (rows, c, nb)
+    finally:
+        ck._fwd_tile_launch.cache_clear()
+    assert (kern.fwd.count, kern.bwd.count) == (before[0] + (grid > 0),
+                                                before[1])
+    assert entries["smem_bytes"].calls == ([(cin, c, 0)] if exact else [])
+    assert entries["fwd_tile_smem_bytes"].calls == ([] if exact
+                                                    else [(cin, c)])
+    assert entries["fwd_tile_blocks"].calls == ([] if exact else [(cin, c)])
+    assert len(entries["fwd"].calls) == int(grid > 0)
+    if grid:   # ... out, img, rows, cin, c, fast, grid, stream; img is the
+        # fast K2's parameter image (the plan's bytes), else null
+        args = entries["fwd"].calls[0]
+        assert len(args) == 21
+        assert args[-6:] == (rows, cin, c, int(not exact), grid, 77)
+        assert (args[-7] == 0) == exact
 
 
 @pytest.mark.parametrize("kern", [fe.DENSE, fe.DENSE_CL2],
@@ -455,3 +560,68 @@ def test_k4_widths_fast_takes_what_exact_takes(monkeypatch, capsys, narrow):
         assert "Cl(3): at every C the fast-mode K4 takes" in out
         assert "Cl(2): at every C the fast-mode K4 takes" in out
         assert "fewer than 32 targets at the widest Cm of C = [3]" in out
+
+
+def _k2_lib(kb, narrow=False):
+    """A stand-in K2 library: the exact row kernel takes inputs up to 50
+    at every C; the fast row tiles up to 90 (with ``narrow``, 40 at C = 2),
+    their x tile in chunks above 60 input channels or below C = 8."""
+    def plan(cin, c, info):
+        ok = cin <= (40 if narrow and c == 2 else 90)
+        chunked = cin > 60 or c < 8
+        info[0], info[1] = ((2, 48) if chunked else (1, 64)) if ok else (0, 0)
+        info[2] = 40_000 if ok else 0
+        return 150_000 if ok else 0
+
+    return _Lib(**{
+        f"{kb.symbol}_smem_bytes":
+            _Fn(lambda cin, c, bwd: 1000 if cin <= 50 else 300_000),
+        f"{kb.symbol}_fwd_tile_smem_bytes":
+            _Fn(lambda cin, c: plan(cin, c, [0, 0, 0])),
+        f"{kb.symbol}_fwd_tile_plan": _Fn(plan)})
+
+
+@pytest.mark.parametrize("narrow", [False, True])
+def test_k2_widths_fast_takes_what_exact_takes(monkeypatch, capsys, narrow):
+    """k2_caps takes, at every C, the widest input the exact and the fast
+    K2 take from their entries; print_k2_widths raises where the fast
+    mode's is the narrower."""
+    cs = _smoke()
+    libs = {"cemlp": None}
+
+    def load(name):
+        return libs["cemlp"]
+
+    monkeypatch.setattr(_build, "load", load)
+    libs["cemlp"] = _k2_lib(ck.DENSE)
+    assert cs.k2_caps(ck.DENSE) == {c: (50, 90) for c in range(1, 33)}
+    assert cs.k2_plan(ck.DENSE, 90, 28) == (150_000, 2, 48)
+    assert cs.k2_plan(ck.DENSE, 95, 28) == (0, 0, 0)
+
+    class _Both:   # the two algebras' entries in one stand-in library
+        def __init__(self):
+            self.__dict__.update(_k2_lib(ck.DENSE).__dict__)
+            self.__dict__.update(_k2_lib(ck.DENSE_CL2, narrow).__dict__)
+
+    libs["cemlp"] = _Both()
+    if narrow:
+        with pytest.raises(AssertionError, match=r"K2 at Cl\(2\).*C = \[2\]"):
+            cs.print_k2_widths()
+    else:
+        cs.print_k2_widths()
+        out = capsys.readouterr().out
+        assert "Cl(3): at every C the fast-mode K2 takes" in out
+        assert "Cl(2): at every C the fast-mode K2 takes" in out
+        assert "K2 at Cl(3) smem bytes exact/fast: 34->28 1000/150000" in out
+
+
+def test_k2_instance_shapes_take_each_instance_once(monkeypatch):
+    """chip_smoke holds the fast K2 to its plain version at each of its
+    two instances (x tile whole, in chunks), at the narrowest C >= C_MIN
+    whose widest exact input takes it, and at the widest C; on the
+    stand-in library the tile is chunked below C = 8."""
+    cs = _smoke()
+    monkeypatch.setattr(_build, "load", lambda name: _k2_lib(ck.DENSE))
+    assert cs.C_MIN == 4
+    assert cs.k2_instance_shapes(ck.DENSE) == [(50, 8, 1, 64), (50, 4, 2, 48),
+                                               (50, 32, 1, 64)]

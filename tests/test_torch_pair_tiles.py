@@ -59,11 +59,12 @@ class _Lib:
 
 @pytest.mark.parametrize("kern", ALL, ids=lambda k: k.label)
 def test_pair_tiles_take_the_fast_backward_at_nb_32_and_16(kern):
-    """Fast mode takes the row tiles for the backward of either form and,
-    at nb 32 and 16 only, for the forward too; exact mode never."""
+    """Fast mode takes the row tiles for both directions of either form
+    (the dense form's of csrc/cemlp_tile.cuh, the pair form's own);
+    exact mode never."""
     assert ck._tiled(kern, True, False)
     assert not ck._tiled(kern, True, True)
-    assert ck._tiled(kern, False, False) == (kern.form == "pair")
+    assert ck._tiled(kern, False, False)
     assert not ck._tiled(kern, False, True)
     if kern.form == "pair":
         assert kern.n_blades in (16, 32)
