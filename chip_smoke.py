@@ -87,6 +87,30 @@
    weight-gradient tiles a warp) and at its widest C, and K2p at C_MIN and
    its widest C (each at the widest input its exact mode takes), over
    1,001 rows;
+    After its eager run, each of 6-9 runs its task under CUDA graphs
+    through the entry point (``--trainer.steps_per_dispatch=8
+    --trainer.device_data=True --trainer.eval_batches_per_dispatch=2``,
+    16 steps, a profile window over the second group), with the eager
+    step's profile first holding the kernel names that each launch
+    counter stands for (``KERNEL_OF``) to the wrappers' counts: the graph
+    runs' losses against eager K = 1 runs from the same seed (exact
+    precision, the graph both copying host batches and gathering them in
+    the graph with device_data: all 16 within 1e-5 of an eager run with
+    the graph's capturable Adam, the first 8 within 1e-4 of today's eager
+    path; fast precision, device_data: all 16 and the first 8 within
+    1e-2 of the same two; the reasons at G_TOL), 13 replays of the
+    captured step after 3 eager warm-up steps, the lr written before the
+    last replay, the eval graph replayed, the trace written; the step
+    times of both modes in turns (4 x 32 steps each: median, p10, p90); a
+    profile of graph groups (no wrapper called in it, each kernel run as
+    often a step as the eager step launches it, busy share, the
+    hand-written kernels' device times beside the eager profile's, K2's
+    row tile kernel); motion also trains 256 steps at
+    ``steps_per_dispatch=128 eval_batches_per_dispatch=20 device_data``,
+    the form of the reference's long runs: the wrappers' K3 launches only
+    the warm-up's and the capture's, and the trainer's own trace of the
+    second group's 128 replayed steps holding each kernel's runs a step to
+    the eager step's launches;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -100,16 +124,21 @@
     at Cl(4) are held to their plain versions at the bench's node-block
     shapes (8,192 rows, 56 -> 28 and 28 -> 28), a narrow one (3 -> 4) and
     one with attribute-width input (34 -> 28), as in 7, and timed;
-11. prints the kernels JSON line (twenty kernels) and, last, the device
-    JSON line.
+11. prints each task's eager and graph step times beside the aims, the
+    kernels JSON line (twenty kernels; beside each kernel's own path, its
+    launches on the others: for a graph run the wrappers' launches in the
+    run and, as ``launches_per_step_<task>_graph``, its runs a step in
+    the profile of replays) and, last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one card and imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
+import itertools
 import json
 import math
 import os
@@ -1949,7 +1978,7 @@ def phase_model(dev, dataroot):
 MOTION_PER_STEP = {"k2": 19, "k3": 19}
 
 
-def phase_task(dataroot, counters):
+def phase_task(dataroot, counters, runs):
     from csmpn_torch.data.motion import MotionDataset
     from csmpn_torch.tasks.motion import main
 
@@ -1965,7 +1994,64 @@ def phase_task(dataroot, counters):
     res = run_entry(main, argv, dataroot, counters, ds)
     check_per_step(res[1], MOTION_PER_STEP, "motion")
     check_k2_profile(res[5], "motion")
-    return res
+    graph = phase_graph("motion", main, argv, dataroot, counters, ds, res)
+    runs["motion_k128"] = phase_motion_k128(main, argv, dataroot, counters,
+                                            res[1])
+    return res, graph
+
+
+def phase_motion_k128(main, argv, dataroot, counters, eager, steps=256):
+    """The motion task in the reference's form of a long run: 128 steps a
+    group (one captured step replayed), eval 20 batches a read-back,
+    device_data, validation after the first group, and the trainer's
+    profile window over the second group.
+    The wrappers launch only in the warm-up steps and the capture (K3, a
+    training step's alone, 4 x 19 times); the trace's kernel runs over the
+    window's 128 replayed steps are the eager step's launches (``eager``)
+    128 times.  Returns (the wrappers' launches in the run, the kernels'
+    runs a step in the window)."""
+    from csmpn_torch.engineer.trainer import WARMUP_STEPS
+
+    prof_dir = os.path.join(dataroot, "prof_motion_k128")
+    out = [a for a in argv if not a.startswith((
+        "--trainer.max_steps=", "--trainer.val_check_interval=",
+        "--trainer.print_interval="))]
+    # validation at the first group's end only (interval 256), so the
+    # window holds training steps alone
+    out += [f"--trainer.max_steps={steps}", "--trainer.val_check_interval=256",
+            "--trainer.print_interval=32", "--trainer.steps_per_dispatch=128",
+            "--trainer.eval_batches_per_dispatch=20",
+            "--trainer.device_data=True", f"--trainer.profile_dir={prof_dir}",
+            f"--trainer.profile_steps=[128,{steps}]"]
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    tr, text = fire_quiet(main, out, dataroot)
+    dt = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    window = steps - 128
+    with open(os.path.join(prof_dir, f"trace_steps_128_{steps}.json")) as f:
+        names = collections.Counter(e["name"] for e in json.load(f)[
+            "traceEvents"] if e.get("cat") == "kernel")
+    per_step = profiled_launches({k: n / window for k, n in names.items()},
+                                 counters)
+    losses = tr.step_losses
+    print(f"motion at steps_per_dispatch=128 eval_batches_per_dispatch=20 "
+          f"device_data: {steps} steps in {dt:.1f} s (entry point, set-up "
+          f"and capture included), losses {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {tr.train_graph.replays} replays, wrapper "
+          f"launches {launches}, kernel runs a step in the trace of steps "
+          f"128-{steps - 1} {per_step}, median step "
+          f"{statistics.median(tr.step_seconds[128:]) * 1e3:.3f} ms "
+          f"(second group, under the profiler)")
+    ok = (len(losses) == steps and all(math.isfinite(v) for v in losses)
+          and tr.train_graph.replays == steps - WARMUP_STEPS
+          and launches["k3"] == (WARMUP_STEPS + 1) * eager["k3"]
+          and all(abs(per_step[k] - eager[k]) < 1e-9 for k in eager)
+          and "Stopping due to max_steps." in text)
+    if not ok:
+        raise AssertionError("motion at steps_per_dispatch=128 failed")
+    return launches, {k: round(v) for k, v in per_step.items()}
 
 
 def task_argv(task, model, dataset, extra):
@@ -1986,6 +2072,20 @@ def check_per_step(per_step, want, tag):
                                  f"{per_step[k]} != {n}")
 
 
+def fire_quiet(main, argv, dataroot):
+    """A task's entry point (fire -> run_task -> Trainer.fit) with its
+    stdout kept; returns (the trainer, the text)."""
+    from csmpn_torch.engineer.fire import fire
+
+    os.environ["DATAROOT"] = dataroot
+    os.environ["RUNDIR"] = os.path.join(dataroot, "runs")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        trainer = fire(main, argv)
+    torch.cuda.synchronize()
+    return trainer, buf.getvalue()
+
+
 def run_entry(main, argv, dataroot, counters, ds, steps=8):
     """Runs a task's entry point (fire -> run_task -> Trainer.fit) with
     every launch count set to 0 just before and read just after, checks
@@ -1993,18 +2093,10 @@ def run_entry(main, argv, dataroot, counters, ds, steps=8):
     training step on a batch of ``ds`` and profiles a few steps.  Returns
     (launches in the run, launches per step, median step ms, busy ms,
     profiled wall ms, the profile's ms a step by kernel)."""
-    from csmpn_torch.engineer.fire import fire
-
-    os.environ["DATAROOT"] = dataroot
-    os.environ["RUNDIR"] = os.path.join(dataroot, "runs")
     for c in counters.values():
         c.reset()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        trainer = fire(main, argv)
-    torch.cuda.synchronize()
+    trainer, text = fire_quiet(main, argv, dataroot)
     launches = {k: c.count for k, c in counters.items()}
-    text = buf.getvalue()
     for line in text.splitlines():
         if line.startswith(("Step:", "val/loss", "test/loss", "Stopping")):
             print("  " + line)
@@ -2041,14 +2133,22 @@ def run_entry(main, argv, dataroot, counters, ds, steps=8):
     torch.cuda.synchronize()
     per_step = {k: c.count for k, c in counters.items()}
     print(f"  launches per training step: {per_step}")
-    busy_ms, wall_ms, kernels = phase_profile(step)
-    return launches, per_step, step_ms, busy_ms, wall_ms, kernels
+    busy_ms, wall_ms, kernels, runs = phase_profile(step)
+    # KERNEL_OF is the map the graph phase reads replays through: hold it
+    # to the wrappers' counts on the eager step
+    seen = profiled_launches(runs, per_step)
+    if seen != per_step:
+        raise AssertionError(f"kernel runs a profiled step {seen} != the "
+                             f"wrappers' launches {per_step}")
+    return launches, per_step, step_ms, busy_ms, wall_ms, kernels, trainer
 
 
-def phase_profile(step, steps=3):
-    """Device busy time over a few training steps (torch.profiler), and
-    the kernels that take it.  ``step`` runs one step and reads its loss
-    back."""
+def phase_profile(step, steps=3, per_call=1):
+    """Device busy time over a few training steps (torch.profiler), the
+    kernels that take it, and how often each ran.  ``step`` runs
+    ``per_call`` steps and reads their losses back; the numbers are per
+    training step.  Returns (busy ms, wall ms, ms by kernel, runs by
+    kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     step()
@@ -2060,6 +2160,8 @@ def phase_profile(step, steps=3):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    steps *= per_call
+    wall_ms /= per_call
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and not e.key.startswith("Optimizer.")]  # annotation spans
@@ -2071,8 +2173,29 @@ def phase_profile(step, steps=3):
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3 / steps:8.3f} ms/step "
               f"{e.count // steps:5d}x  {e.key[:70]}")
-    return busy_ms, wall_ms, {e.key: e.self_device_time_total / 1e3 / steps
-                              for e in events}
+    return (busy_ms, wall_ms,
+            {e.key: e.self_device_time_total / 1e3 / steps for e in events},
+            {e.key: e.count / steps for e in events})
+
+
+# the device kernels each launch counter's wrapper launches once a call
+# (K1's, K2's and K3's in both modes, at Cl(3) and Cl(2), and the pair
+# form's): a profile's runs of them are the launches the card ran, whether
+# a wrapper or a graph replay issued them
+KERNEL_OF = {
+    "k1": r"\bsegment_sum_kernel<",
+    **dict.fromkeys(("k2", "k2_cl2"), r"\bcemlp_fwd(_tile)?_kernel<"),
+    **dict.fromkeys(("k3", "k3_cl2"), r"\bcemlp_bwd(_tile)?_kernel<"),
+    "k2p": r"\bcemlp_pair_fwd(_tile)?_kernel<",
+    "k3p": r"\bcemlp_pair_bwd(_tile)?_kernel<",
+}
+
+
+def profiled_launches(runs, keys):
+    """Launches a step by counter key, from a profile's runs by kernel
+    name (``phase_profile``'s last result)."""
+    return {k: sum(n for name, n in runs.items()
+                   if re.search(KERNEL_OF[k], name)) for k in keys}
 
 
 def check_k2_profile(kernels, tag):
@@ -2093,6 +2216,227 @@ def check_k2_profile(kernels, tag):
     print(f"  {tag}: K2 {t_ms + p_ms:.3f} ms a profiled step "
           f"(cemlp_fwd_tile_kernel {t_ms:.3f}, pack_tparams_kernel "
           f"{p_ms:.3f}); no cemlp_fwd_kernel")
+
+
+# --------------------------------------- the task steps as a CUDA graph
+
+# the graph phase of a task: G_STEPS training steps in groups of G_K (one
+# captured training step replayed), device_data, eval read back every
+# G_EVAL_K batches; an eager K = 1 run of as many steps (the schedule
+# depends on max_steps) from the same seed (init and shuffle) beside it
+G_STEPS, G_K, G_EVAL_K = 16, 8, 2
+G_KNOBS = [f"--trainer.steps_per_dispatch={G_K}",
+           "--trainer.device_data=True",
+           f"--trainer.eval_batches_per_dispatch={G_EVAL_K}"]
+# step times: T_ROUNDS turns of T_STEPS eager steps, then T_STEPS graph
+# steps (T_STEPS / G_K groups), after warm-up; 4 x 32 = 128 steps a mode
+T_ROUNDS, T_STEPS = 4, 32
+# the graph runs' losses against eager K = 1 runs' from the same seed,
+# relative: (precision, the eager run's Adam) -> (bound, steps held).
+# "capturable": an eager run that builds the graph's optimizer
+# (--optimizer.capturable=True), so the same launches and the same Adam
+# arithmetic, held over all G_STEPS steps (the schedule's decay, steps
+# 12-15, included); only the order of PyTorch's atomic sums (the backward
+# of the models' index_select) may differ.  In exact precision both graph
+# variants, host batches copied into the static buffers and device_data's
+# gather inside the graph, are held to it at 1e-5.  "default": today's
+# eager path (Adam not capturable), the first 8 losses.  Capturable
+# Adam raises beta1 and beta2 to the step in fp32 on the card where the
+# eager Adam does it in double on the host: 1 - 0.999^1 differs by 1.3e-5
+# relative, so every parameter's first update differs by about 6e-6
+# relative, which the early large moves of the models carry into the
+# loss.  In fast precision such a difference, or an atomic sum's order,
+# also flips bf16 roundings of operands and stored activations (2^-8
+# relative each), and a loss that falls 27x in five steps (motion: 2.40
+# -> 0.09) carries them on as a larger relative share.  The readings on
+# the H100 are in PERF.md
+G_TOL = {("exact", "capturable"): (1e-5, G_STEPS),
+         ("exact", "default"): (1e-4, 8),
+         ("fast", "capturable"): (1e-2, G_STEPS),
+         ("fast", "default"): (1e-2, 8)}
+
+
+# aims for the graph step's median (ms) and, but at hulls, the device busy
+# share of a profiled window of graph steps
+G_AIM_MS = {"motion": 8.0, "hulls": 23.0, "nba": 8.5, "md17": 14.0}
+G_AIM_BUSY = 0.8
+
+
+def print_graph_times(graph_times):
+    print("training step, eager (K = 1) and graph (K = 8, device_data): "
+          "median / p10 / p90 ms over the timed steps; graph device busy")
+    for tag, ((_, e_busy, e_wall), (times, busy, wall)) in \
+            graph_times.items():
+        share = busy / wall
+        met = times["graph"][0] <= G_AIM_MS[tag] and (
+            tag == "hulls" or share >= G_AIM_BUSY)
+        print(f"  {tag}: eager {'/'.join(f'{x:.3f}' for x in times['eager'])}"
+              f", graph {'/'.join(f'{x:.3f}' for x in times['graph'])}; "
+              f"graph busy {busy:.3f} of {wall:.3f} ms ({100 * share:.1f}%; "
+              f"eager profile {100 * e_busy / e_wall:.1f}%); aim median <= "
+              f"{G_AIM_MS[tag]} ms"
+              f"{'' if tag == 'hulls' else ', busy >= 80%'}: "
+              f"{'met' if met else 'missed'}")
+
+
+def graph_argv(argv, precision, knobs=()):
+    """A task's argv for the graph phase: G_STEPS steps, two eval batches,
+    ``precision``, and ``knobs``."""
+    out = [a for a in argv if not a.startswith(
+        ("--trainer.max_steps=", "--trainer.limit_val_batches="))]
+    out += [f"--trainer.max_steps={G_STEPS}",
+            "--trainer.limit_val_batches=2", f"--precision={precision}"]
+    return out + list(knobs)
+
+
+def batch_stream(ds, seed, index):
+    """Training batches (or with ``index`` their int32 indices) of ``ds``,
+    epoch after epoch."""
+    loader = ds.train_loader(seed=seed)
+    while True:
+        yield from (loader.index_iter() if index else loader)
+
+
+def quantiles(xs_ms):
+    q = statistics.quantiles(xs_ms, n=10)
+    return statistics.median(xs_ms), q[0], q[-1]
+
+
+def phase_graph(tag, main, argv, dataroot, counters, ds, eager, k2=True):
+    """The task through its entry point under CUDA graphs (G_K steps a
+    group, device_data, eval every G_EVAL_K batches) with every launch
+    count set to 0 just before and read just after; its losses held to
+    eager runs' in exact and fast precision; the step times of both modes
+    in turns; a profile of graph groups in which no wrapper is called and
+    each kernel runs as often a step as the eager step launches it
+    (``eager``: run_entry's result).  Returns (the wrappers' launches in
+    the run, the kernels' runs a step under replay, the timing and
+    profile numbers)."""
+    from csmpn_torch.engineer.trainer import WARMUP_STEPS
+
+    print(f"{tag} under CUDA graphs: {G_STEPS} steps, "
+          f"{' '.join(a[2:] for a in G_KNOBS)}")
+    host_knobs = [k for k in G_KNOBS if "device_data" not in k]
+    for precision in ("exact", "fast"):
+        refs = {opt: fire_quiet(main, graph_argv(argv, precision, extra),
+                                dataroot)[0]
+                for opt, extra in (("default", []), ("capturable", [
+                    "--optimizer.capturable=True"]))}
+        # exact: the graph copying host batches into its static buffers
+        # and gathering them from the split on the card; fast: the
+        # latter, the phase's path
+        variants = {"device_data": G_KNOBS}
+        if precision == "exact":
+            variants = {"host batches": host_knobs, **variants}
+        for variant, knobs in variants.items():
+            path = precision == "fast"
+            if path:
+                for c in counters.values():
+                    c.reset()
+            prof_dir = os.path.join(dataroot, f"prof_{tag}_{precision}_"
+                                    f"{variant.replace(' ', '_')}")
+            tr, text = fire_quiet(main, graph_argv(argv, precision, knobs + [
+                f"--trainer.profile_dir={prof_dir}",
+                f"--trainer.profile_steps=[{G_K},{G_STEPS}]"]), dataroot)
+            if path:
+                launches = {k: c.count for k, c in counters.items()}
+            for opt, ref in refs.items():
+                tol, n = G_TOL[precision, opt]
+                a, b = tr.step_losses[:n], ref.step_losses[:n]
+                rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+                print(f"  {precision}, {variant}: {n} graph losses vs "
+                      f"eager ({opt} Adam), worst rel {max(rel):.2e} (tol "
+                      f"{tol:.0e}); by step "
+                      f"{' '.join(f'{r:.1e}' for r in rel)}")
+                if len(a) != n or not max(rel) <= tol:
+                    raise AssertionError(f"{tag} {precision} {variant}: "
+                                         f"graph losses {a} vs eager "
+                                         f"({opt} Adam) {b}")
+            print(f"  {precision}, {variant}: graph losses "
+                  f"{[round(x, 6) for x in tr.step_losses]}")
+            g = tr.train_graph
+            if (g is None or g.replays != G_STEPS - WARMUP_STEPS
+                    or len(tr.step_losses) != G_STEPS
+                    or "Stopping due to max_steps." not in text):
+                raise AssertionError(
+                    f"{tag} {precision} {variant}: {len(tr.step_losses)} "
+                    f"steps, graph replays {g and g.replays}, not "
+                    f"{G_STEPS} steps of which {G_STEPS - WARMUP_STEPS} "
+                    f"replays")
+            lr = float(tr.optimizer.param_groups[0]["lr"])
+            if lr != float(torch.tensor(tr.scheduler(G_STEPS - 1))):
+                raise AssertionError(f"{tag}: lr {lr} after the last "
+                                     f"replay, not schedule({G_STEPS - 1})")
+            e = tr.eval_graph
+            if e is None or e.replays < 1:
+                raise AssertionError(f"{tag}: the eval graph never replayed")
+            traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+            if not traces:
+                raise AssertionError(f"{tag}: no trace in {prof_dir}")
+            print(f"  {precision}, {variant}: capture "
+                  f"{g.capture_seconds * 1e3:.1f} ms, graph pool "
+                  f"{g.pool_bytes / 2**20:.1f} MiB (training step); eval "
+                  f"graph {e.capture_seconds * 1e3:.1f} ms, "
+                  f"{e.pool_bytes / 2**20:.1f} MiB, {e.replays} replays; "
+                  f"trace {traces[0]}")
+    print(f"  launches during the run: {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} never launched on the path")
+
+    # step times in turns: eager K = 1 (host batches, a read-back a step)
+    # and graph groups (one read-back a group of G_K)
+    et = eager[6]
+    host = batch_stream(ds, 2, False)
+    idx = batch_stream(ds, 2, True)
+    et.step_seconds.clear()
+    tr.step_seconds.clear()
+    with contextlib.redirect_stdout(io.StringIO()):
+        for _ in range(T_ROUNDS):
+            for _ in range(T_STEPS):
+                et.train_group([next(host)])
+            for _ in range(T_STEPS // G_K):
+                tr.train_group(list(itertools.islice(idx, G_K)))
+    times = {}
+    for mode, t in (("eager", et), ("graph", tr)):
+        ms = [x * 1e3 for x in t.step_seconds]
+        times[mode] = quantiles(ms)
+        print(f"  {mode} step: median {times[mode][0]:.3f} ms, p10 "
+              f"{times[mode][1]:.3f}, p90 {times[mode][2]:.3f} over "
+              f"{len(ms)} steps (turns of {T_STEPS})")
+
+    # a profile of graph groups: the kernels' runs a step are the launches
+    # the replays made; no wrapper may be called in it (no eager step, no
+    # second capture)
+    print("  profile of graph groups:")
+    items = list(itertools.islice(batch_stream(ds, 1, True), G_K))
+
+    def group():
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr.train_group(items)
+
+    for c in counters.values():
+        c.reset()
+    busy_ms, wall_ms, kernels, runs = phase_profile(group, steps=2,
+                                                    per_call=G_K)
+    called = {k: c.count for k, c in counters.items()}
+    per_step = profiled_launches(runs, counters)
+    print(f"  launches per training step under replay (kernel runs in the "
+          f"profile): {per_step} (eager {eager[1]}); wrapper calls "
+          f"{called}")
+    if per_step != eager[1] or any(called.values()):
+        raise AssertionError(f"{tag}: kernel runs a step under replay "
+                             f"{per_step} != eager launches {eager[1]}, or "
+                             f"wrappers called {called}")
+    if k2:
+        check_k2_profile(kernels, f"{tag} (graph)")
+    mine = [k for k in kernels if re.search(
+        r"\b(segment_sum|cemlp\w*|pack_tparams|reduce_partials)_kernel\b", k)]
+    for k in sorted(mine, key=lambda k: -kernels[k]):
+        e_ms = eager[5].get(k, float("nan"))
+        print(f"    {k[:60]:60s} graph {kernels[k]:.4f} ms/step, eager "
+              f"{e_ms:.4f} ({kernels[k] / e_ms:.3f}x)")
+    return launches, per_step, times, busy_ms, wall_ms
 
 
 # ---------------------------------------------------------- the hulls path
@@ -2294,7 +2638,8 @@ def phase_hulls(dev, gen, results, dataroot, counters):
           f"e_max={ds.spec.e_max}")
     res = run_entry(main, argv, dataroot, counters, ds)
     check_per_step(res[1], HULLS_PER_STEP, "hulls")
-    return res
+    return res, phase_graph("hulls", main, argv, dataroot, counters, ds,
+                            res, k2=False)
 
 
 # ------------------------------------------------- the NBA and MD17 paths
@@ -2433,7 +2778,7 @@ def phase_nba(dev, gen, results, dataroot, counters):
     res = run_entry(main, argv, dataroot, counters, ds)
     check_per_step(res[1], NBA_PER_STEP, "NBA")
     check_k2_profile(res[5], "NBA")
-    return res
+    return res, phase_graph("NBA", main, argv, dataroot, counters, ds, res)
 
 
 def phase_md17(dev, gen, results, dataroot, counters):
@@ -2465,7 +2810,8 @@ def phase_md17(dev, gen, results, dataroot, counters):
     res = run_entry(main, argv, dataroot, counters, ds)
     check_per_step(res[1], MD17_PER_STEP, "MD17")
     check_k2_profile(res[5], "MD17")
-    return res
+    return res, phase_graph("MD17", main, argv, dataroot, counters, ds,
+                            res)
 
 
 # ------------------------------------------------------- the bench path
@@ -2559,7 +2905,7 @@ def phase_bench(counters, dim=3, per_step_want=BENCH_PER_STEP, idle=None):
     def step():
         return float(bench.train_step(model, opt, h, ei, src_sort))
 
-    busy_ms, wall_ms, kernels = phase_profile(step)
+    busy_ms, wall_ms, kernels, _ = phase_profile(step)
     if dim in (2, 3):
         check_k2_profile(kernels, f"bench{tag}")
 
@@ -2654,6 +3000,7 @@ def main() -> int:
                     "k5p_cl4": fe.PAIR_CL4_BWD_LAUNCHES}
     cl5_pair = {k: c for k, c in cl5_counters.items() if k != "k1"}
     runs = {"envelope": (phase_envelope(dev, results), None)}
+    graph_times = {}
     with tempfile.TemporaryDirectory() as dataroot:
         real = motion_ids(dataroot, dev)
         phase_k1(dev, gen, results, real)
@@ -2668,13 +3015,17 @@ def main() -> int:
         phase_fused_time(dev, results, 4, ("k4p_cl4", "k5p_cl4"))
         phase_block_cl4(dev, gen, results)
         phase_model(dev, dataroot)
-        runs["motion"] = phase_task(dataroot, motion_counters)[:2]
-        runs["hulls"] = phase_hulls(dev, gen, results, dataroot,
-                                    hulls_counters)[:2]
-        runs["nba"] = phase_nba(dev, gen, results, dataroot,
-                                nba_counters)[:2]
-        runs["md17"] = phase_md17(dev, gen, results, dataroot,
-                                  motion_counters)[:2]
+        for tag, (res, graph) in (
+                ("motion", phase_task(dataroot, motion_counters, runs)),
+                ("hulls", phase_hulls(dev, gen, results, dataroot,
+                                      hulls_counters)),
+                ("nba", phase_nba(dev, gen, results, dataroot,
+                                  nba_counters)),
+                ("md17", phase_md17(dev, gen, results, dataroot,
+                                    motion_counters))):
+            runs[tag] = res[:2]
+            runs[f"{tag}_graph"] = graph[:2]
+            graph_times[tag] = (res[2:5], graph[2:])
         phase_tile_instances(dev, gen, results)
         phase_pair_tile_instances(dev, gen, results)
         phase_pair_fused_instances(dev, gen, results)
@@ -2708,6 +3059,7 @@ def main() -> int:
                 entry[f"launches_{tag}"] = lc[k]
                 entry[f"launches_per_step_{tag}"] = ps[k]
         kernels.append(entry)
+    print_graph_times(graph_times)
     print(f"total {time.time() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

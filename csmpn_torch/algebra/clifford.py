@@ -198,6 +198,13 @@ class CliffordAlgebra:
         return paths
 
     @functools.cached_property
+    def product_path_index(self) -> np.ndarray:
+        """Flat indices of the nonzero entries of
+        ``geometric_product_paths``: where the layer's per-path weights go
+        in the (dim+1)^3 cube."""
+        return np.flatnonzero(self.geometric_product_paths)
+
+    @functools.cached_property
     def n_product_paths(self) -> int:
         return int(self.geometric_product_paths.sum())
 

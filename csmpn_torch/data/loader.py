@@ -124,16 +124,28 @@ class Loader:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
-    def __iter__(self):
+    def _batch_indices(self):
+        """The sample indices of each batch of one epoch (advances the
+        epoch counter: the shuffle stream is shared with ``__iter__``)."""
         idx = self._indices()
         self._epoch += 1
         n_full = len(idx) // self.batch_size
         for b in range(n_full):
-            yield self.dataset.select(
-                idx[b * self.batch_size:(b + 1) * self.batch_size])
+            yield idx[b * self.batch_size:(b + 1) * self.batch_size]
         rem = len(idx) - n_full * self.batch_size
         if rem and not self.drop_last:
-            yield self.dataset.select(idx[n_full * self.batch_size:])
+            yield idx[n_full * self.batch_size:]
+
+    def __iter__(self):
+        for idx in self._batch_indices():
+            yield self.dataset.select(idx)
+
+    def index_iter(self):
+        """Each batch's int32 sample indices instead of the batch: the
+        trainer's ``device_data`` path ships these and gathers the batch on
+        the device from the split held there."""
+        for idx in self._batch_indices():
+            yield idx.astype(np.int32)
 
 
 def dataroot() -> str:

@@ -90,6 +90,12 @@ def _coerce(value: str, default: Any, key: str):
         return try_literal_eval(value)
     if isinstance(default, bool):
         return str(value).lower() == "true"
+    if isinstance(default, (tuple, list)):      # e.g. profile_steps=[8,12]
+        parsed = try_literal_eval(value)
+        if not isinstance(parsed, (tuple, list)):
+            raise ValueError(f"--{key} wants a sequence such as [8,12], "
+                             f"got {value!r}")
+        return type(default)(parsed)
     return type(default)(value)
 
 

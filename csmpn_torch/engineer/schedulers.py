@@ -1,8 +1,11 @@
-"""Learning-rate schedules as plain ``step -> lr`` functions, applied per
-optimizer step through ``torch.optim.lr_scheduler.LambdaLR``."""
+"""Learning-rate schedules as plain ``step -> lr`` functions.  The trainer
+writes ``schedule(step)`` into the optimizer with ``set_lr`` before every
+step."""
 from __future__ import annotations
 
 import math
+
+import torch
 
 
 def cosine_annealing_schedule(base_lr: float, max_steps: int,
@@ -27,9 +30,12 @@ def cosine_annealing_schedule(base_lr: float, max_steps: int,
     return schedule
 
 
-def lambda_lr(optimizer, schedule, base_lr: float):
-    """A ``LambdaLR`` that sets the optimizer's lr to ``schedule(step)``."""
-    import torch
-
-    return torch.optim.lr_scheduler.LambdaLR(
-        optimizer, lambda step: schedule(step) / base_lr)
+def set_lr(optimizer, lr: float) -> None:
+    """Sets every param group's lr to ``lr``: in place where the lr is a
+    tensor (a capturable optimizer's, which a CUDA graph of the step
+    reads), else by assignment."""
+    for group in optimizer.param_groups:
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(float(lr))
+        else:
+            group["lr"] = float(lr)

@@ -11,6 +11,7 @@ Port of ``csmpn_tpu/models/common.py``:
 """
 from __future__ import annotations
 
+import functools
 import itertools
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -42,12 +43,18 @@ def gather_vertex_features(feat: torch.Tensor, x_ind: torch.Tensor,
     return batched_take(feat, x_ind[:, :, : d + 1])
 
 
+@functools.lru_cache(maxsize=None)
+def _permutations(d: int, device: torch.device) -> torch.Tensor:
+    """The (d+1)! vertex orders of a d-simplex, (P, d+1) int64 on
+    ``device``: copied to the device once, not on every forward."""
+    return torch.as_tensor(
+        np.asarray(list(itertools.permutations(range(d + 1))),
+                   dtype=np.int64), device=device)
+
+
 def permutation_expand(x: torch.Tensor, d: int) -> torch.Tensor:
     """(B, S, d+1, ...) -> (B, S, P, d+1, ...) over all (d+1)! orders."""
-    perms = torch.as_tensor(
-        np.asarray(list(itertools.permutations(range(d + 1))),
-                   dtype=np.int64), device=x.device)
-    return x[:, :, perms]
+    return x[:, :, _permutations(d, x.device)]
 
 
 class SimplexEmbedding(nn.Module):

@@ -154,9 +154,7 @@ class SteerableGeometricProductLayer(nn.Module):
         """Blade-resolution weighted Cayley tensor (C, nb, nb, nb)."""
         alg = self.algebra
         d = alg.dim + 1
-        idx = torch.as_tensor(
-            (alg.geometric_product_paths.reshape(-1)).nonzero()[0],
-            device=self.weight.device)
+        idx = alg.index("product_path_index", self.weight.device)
         cube = self.weight.new_zeros(self.features, d * d * d)
         cube = cube.index_copy(1, idx, self.weight).reshape(
             self.features, d, d, d)

@@ -9,6 +9,12 @@ Port of ``csmpn_tpu/tasks/common.py``.  Two top-level config keys:
   * ``--precision`` (default ``fast``): ``fast`` feeds the kernels bf16
     operands with fp32 accumulation and stores activations in bf16 on the
     card; ``exact`` is fp32 throughout.
+
+The training shuffle is seeded from ``--seed``.  Where the trainer
+replays a CUDA graph of the step (``Trainer.uses_graphs``:
+``--trainer.steps_per_dispatch`` above 1 on the card) the optimizer is
+built ``capturable`` (see ``engineer/optim.py``); the trainer applies the
+schedule either way.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import torch
 
 from ..engineer.config import load_module
 from ..engineer.loggers import ConsoleLogger
-from ..engineer.schedulers import cosine_annealing_schedule, lambda_lr
+from ..engineer.schedulers import cosine_annealing_schedule
 from ..engineer.trainer import Trainer
 from ..nn.modules import init_parameters
 from ..ops.segment import set_aggregation_mode
@@ -50,7 +56,9 @@ def run_task(config: Dict) -> Trainer:
         init_parameters(model, generator)
     model = model.to(device)
 
-    train_loader = dataset.train_loader()
+    # the training shuffle follows --seed, so two runs of one config see
+    # the same batches
+    train_loader = dataset.train_loader(seed=config.get("seed"))
     val_loader = dataset.val_loader()
     test_loader = dataset.test_loader()
 
@@ -61,10 +69,6 @@ def run_task(config: Dict) -> Trainer:
     schedule = cosine_annealing_schedule(
         base_lr, steps, warmup_steps=int(steps / 64),
         decay_steps=int(steps / 4))
-    optimizer = load_module(opt_cfg.pop("module"))(model.parameters(),
-                                                   **opt_cfg)
-    lr_scheduler = lambda_lr(optimizer, schedule, base_lr)
-
     trainer_cfg = dict(config["trainer"])
     for k in ("module", "scheduler", "logger"):
         trainer_cfg.pop(k, None)
@@ -73,6 +77,10 @@ def run_task(config: Dict) -> Trainer:
         logger=ConsoleLogger(run_name=config.get("run_name", "run")),
         **trainer_cfg,
     )
+    if trainer.uses_graphs(device):
+        opt_cfg["capturable"] = True
+    optimizer = load_module(opt_cfg.pop("module"))(model.parameters(),
+                                                   **opt_cfg)
     trainer.fit(model, optimizer, train_loader, val_loader=val_loader,
-                test_loader=test_loader, lr_scheduler=lr_scheduler)
+                test_loader=test_loader)
     return trainer

@@ -17,8 +17,7 @@ from csmpn_tpu.engineer import optim as joptim
 from csmpn_tpu.engineer.schedulers import cosine_annealing_schedule as jsched
 from csmpn_torch.engineer import optim as toptim
 from csmpn_torch.engineer.config import parse_args
-from csmpn_torch.engineer.schedulers import (cosine_annealing_schedule,
-                                             lambda_lr)
+from csmpn_torch.engineer.schedulers import cosine_annealing_schedule, set_lr
 
 
 @pytest.mark.parametrize("steps", [8, 640])
@@ -41,12 +40,11 @@ def test_optimizer_steps_match_optax(name):
 
     w = torch.tensor(w0, requires_grad=True)
     opt = getattr(toptim, name)([w], lr=lr, weight_decay=wd)
-    sched = lambda_lr(opt, schedule, lr)
-    for _ in range(steps):
+    for s in range(steps):
+        set_lr(opt, schedule(s))
         opt.zero_grad()
         ((w - torch.from_numpy(target)) ** 2).sum().backward()
         opt.step()
-        sched.step()
 
     tx = getattr(joptim, name)(lr=lr, weight_decay=wd,
                                schedule=jsched(lr, steps, 1, 2))
