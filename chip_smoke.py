@@ -124,11 +124,27 @@
     at Cl(4) are held to their plain versions at the bench's node-block
     shapes (8,192 rows, 56 -> 28 and 28 -> 28), a narrow one (3 -> 4) and
     one with attribute-width input (34 -> 28), as in 7, and timed;
-11. prints each task's eager and graph step times beside the aims, the
+11. the one-card streaming path (S5a): one EGCL layer (Cl(3,0), hidden
+    32, mean) streamed over 16 chunks of a 262,144-simplex complex against
+    the same layer unstreamed on the card, fast (K4/K5) and exact (the
+    composed route): output (bitwise equal in fast mode), d(h) and every
+    parameter gradient, and the streamed step's launches; K4/K5 (fast),
+    K2/K3 (both modes) and K1 on a chunk of 10,000,000 edge rows (offsets
+    past 2**31 elements) bitwise against the same kernels on its upper
+    rows alone; then the reference's workload through
+    ``csmpn_torch.bench_scaling.main --simplices 10000000 --degree 8
+    --stream 64`` (80M edges, fwd+bwd, fast): its JSON line, the host
+    times of the complex and the partition, the step time, the peak
+    memory, the launches of a step (64 K4 and 64 K5) and a profiled
+    step's device time by kernel; and the same workload forward only,
+    whose peak must lie the saved aggregates' bytes below;
+12. prints each task's eager and graph step times beside the aims, the
     kernels JSON line (twenty kernels; beside each kernel's own path, its
     launches on the others: for a graph run the wrappers' launches in the
     run and, as ``launches_per_step_<task>_graph``, its runs a step in
-    the profile of replays) and, last, the device JSON line.
+    the profile of replays; ``launches_stream`` and
+    ``launches_per_step_stream`` for the streaming run) and, last, the
+    device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one card and imports nothing of JAX.
@@ -2946,6 +2962,300 @@ def phase_bench(counters, dim=3, per_step_want=BENCH_PER_STEP, idle=None):
     return launches, per_step, res, busy_ms, wall_ms
 
 
+# ------------------------------------- S5a: one EGCL layer streamed in chunks
+
+# the streamed layer against the same layer unstreamed: 262,144 simplices,
+# in-degree 8, 16 chunks (16,384 nodes a chunk, a multiple of K4/K5's
+# window of 32 targets, so the two runs cut the targets into the same
+# windows), hidden 32, Cl(3,0)
+S_NODES, S_DEGREE, S_CHUNKS, S_HID = 262_144, 8, 16, 32
+# the reference's workload (runs/queue_r5.sh:174-175): bench_scaling
+# --simplices 10000000 --degree 8 --stream 64, fwd+bwd, fast
+STREAM_ARGV = ["--simplices", "10000000", "--degree", "8", "--stream", "64",
+               "--steps", "3", "--device=cuda"]
+# wrapper launches a step.  Fast: a chunk launches K4 once (forward) and
+# K5 once (backward, from d(agg)); K2 for the node CEMLP's two blocks in
+# the forward and in the backward's recompute, K3 for both in the
+# backward; K1 once for the sources' d(h_j) where h needs a gradient (the
+# bench takes it for the parameters only).  Exact (the composed route, h
+# needing a gradient): a chunk's K2 the edge and node blocks in the
+# forward and again in the backward's recompute (8), K3 both CEMLPs' (4),
+# K1 the aggregation in the forward and its recompute, the target
+# gather's backward and the sources' d(h_j) (4)
+STREAM_PER_STEP = {"k1": 0, "k2": 256, "k3": 128, "k4": 64, "k5": 64}
+STREAM_CMP_PER_STEP = {
+    "fast": {"k1": 16, "k2": 64, "k3": 32, "k4": 16, "k5": 16},
+    "exact": {"k1": 64, "k2": 128, "k3": 64, "k4": 0, "k5": 0}}
+# the offset checks: a chunk of the reference's workload cut into 8
+# (10,000,000 edge rows, 1,250,000 targets): block 1's input rows hold
+# 2.56e9 elements, past 2**31.  K4/K5 (fast) take them on the fused route;
+# K2/K3 (both modes) and K1 (the aggregation, 256 columns) take them on
+# the composed route of exact mode
+BIG_EDGES, BIG_NODES = 10_000_000, 1_250_000
+# forward only, the same workload: no aggregate is kept for a backward, so
+# the peak lies at least the aggregates' bytes (N x 32 x 8 fp32) below the
+# fwd+bwd run's
+STREAM_FWD_ARGV = STREAM_ARGV[:-3] + ["--steps", "1", "--fwd-only",
+                                      "--device=cuda"]
+STREAM_TOL = {
+    # streamed against unstreamed, relative to the largest magnitude.
+    # The outputs: the same windows, edge rows in the same order and
+    # row-local node blocks, so expected bitwise; the limit is for the
+    # exact mode's composed route (K1's sums, the same rows in the same
+    # order, are expected bitwise too).  Parameter gradients: the same
+    # cotangents summed over 16 chunks instead of one launch's CTA
+    # partials, fp32 order only.  d(h) in fast mode: the unstreamed
+    # layer's gather backward returns the sources' and the targets' sums
+    # as bf16 (the type of the gathered rows) and autograd adds them in
+    # bf16; the streamed layer adds both in fp32, so they part by bf16
+    # rounding of the node sums (2**-8 of the largest)
+    "out": 1e-6, "param_grad": 1e-4, "h_grad_exact": 1e-4,
+    "h_grad_fast": 1e-2,
+}
+STREAM_KERNELS = [      # (label, kernel names in a profile)
+    ("K4", r"\bfused_mp_fwd"), ("K5", r"\bfused_mp_bwd"),
+    ("K2", r"\bcemlp_fwd|\bpack_tparams_kernel"), ("K3", r"\bcemlp_bwd"),
+    ("K3/K5 partial sums", r"\breduce_partials_kernel"),
+    ("K1", r"\bsegment_sum_kernel"),
+    ("source gather (index_select)", r"gather_kernel|indexSelect"),
+    ("index_add_ (d(h))", r"indexFunc|index_add"),
+]
+
+
+def stream_compare(dev, counters, mode):
+    """The streamed layer (remat) against the same layer unstreamed, on
+    the card, in ``mode``: output, every parameter gradient and d(h) of
+    sum(out * g); the streamed step's launches."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.nn.egcl import EGCL
+    from csmpn_torch.nn.modules import init_parameters
+    from csmpn_torch.ops.segment import set_aggregation_mode
+    from csmpn_torch.parallel.edge_partition import (
+        StreamArrays, make_synthetic_complex, partition_edges,
+        streaming_egcl_apply)
+
+    set_aggregation_mode(mode)
+    ei = make_synthetic_complex(S_NODES, S_DEGREE, seed=0)
+    part = partition_edges(ei, S_NODES, S_CHUNKS)
+    arrays = StreamArrays.of(part, dev)
+    layer = EGCL(get_algebra((1.0, 1.0, 1.0)), S_HID, S_HID, S_HID,
+                 aggr="mean")
+    init_parameters(layer, torch.Generator().manual_seed(3))
+    layer = layer.to(dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    h = torch.randn((S_NODES, S_HID, 8), generator=gen, device=dev)
+    g = torch.randn((S_NODES, S_HID, 8), generator=gen, device=dev)
+
+    def grads(run):
+        hh = h.clone().requires_grad_(True)
+        layer.zero_grad(set_to_none=True)
+        out = run(hh)
+        (out * g).sum().backward()
+        return out.detach(), hh.grad, [p.grad for p in layer.parameters()]
+
+    ei_t = torch.from_numpy(ei).to(dev)
+    ref = grads(lambda hh: layer(hh, ei_t))
+    streaming_egcl_apply(layer, h, part, arrays=arrays)   # tables built
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    got = grads(lambda hh: streaming_egcl_apply(layer, hh, part,
+                                                arrays=arrays))
+    torch.cuda.synchronize()
+    per_step = {k: c.count for k, c in counters.items()}
+    bitwise = torch.equal(got[0], ref[0])
+    # a chunk's padded (masked) edges target its last node, so there K1's
+    # segment is longer and its lanes sum in another order
+    inner = torch.arange(S_NODES, device=dev) % part.nodes_per_shard \
+        != part.nodes_per_shard - 1
+    print(f"  {mode}: streamed output bitwise equal to unstreamed: "
+          f"{bitwise}; at all but each chunk's last node: "
+          f"{torch.equal(got[0][inner], ref[0][inner])}")
+    check(f"stream {mode}: output, streamed vs unstreamed", got[0], ref[0],
+          STREAM_TOL["out"])
+    check(f"stream {mode}: d(h)", got[1], ref[1],
+          STREAM_TOL[f"h_grad_{mode}"])
+    names = [k for k, _ in layer.named_parameters()]
+    errs = sorted(((rel_err(a, b)[1], k) for a, b, k in
+                   zip(got[2], ref[2], names)), reverse=True)
+    ok = errs[0][0] <= STREAM_TOL["param_grad"] and all(
+        torch.isfinite(a).all().item() for a in got[2])
+    print(f"  stream {mode}: parameter gradients, worst of {len(names)} "
+          f"rel {errs[0][0]:.3e} ({errs[0][1]})  tol "
+          f"{STREAM_TOL['param_grad']:.0e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"stream {mode}: parameter gradients "
+                             f"{errs[0]}")
+    want = STREAM_CMP_PER_STEP[mode]
+    print(f"  stream {mode}: launches of a streamed step {per_step} "
+          f"(expected {want})")
+    if per_step != want:
+        raise AssertionError(f"stream {mode}: launches {per_step} != {want}")
+    return bitwise
+
+
+def same_upper(name, a, b):
+    """Bitwise equality of a whole call's upper rows and the same rows
+    computed alone."""
+    same = torch.equal(a, b)
+    print(f"  {name:<16s} of the upper rows, whole call vs alone: "
+          f"{'bitwise equal' if same else 'DIFFER'}")
+    if not same or not torch.isfinite(a.float()).all().item():
+        raise AssertionError(f"{name}: offsets past 2**31 disagree")
+
+
+def stream_offsets(dev):
+    """K4 and K5 on one chunk past 2**31 elements (BIG_EDGES rows of 32
+    channels x 8 blades, fast), K2 and K3 on those rows in both modes and
+    K1 on BIG_EDGES rows of 256 columns, each against the same kernel on
+    its upper rows alone, where every offset is small: the same windows,
+    rows and order, so the results of those rows must be bitwise equal."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.ops import cemlp_kernel as ck
+    from csmpn_torch.ops import fused_egcl as fe
+    from csmpn_torch.ops import segment_kernel as sk
+
+    c, nb = S_HID, 8
+    alg = get_algebra((1.0, 1.0, 1.0))
+    params = edge_params(c, c, torch.Generator().manual_seed(5), dev)
+    g = torch.Generator(dev).manual_seed(5)
+    dst = torch.sort(torch.randint(0, BIG_NODES, (BIG_EDGES,), generator=g,
+                                   device=dev)).values.to(torch.int32)
+    # the upper part starts at a window boundary, its rows from there
+    base = (int(BIG_NODES * 0.7) // 32) * 32
+    e0 = int(torch.searchsorted(dst, torch.tensor([base], device=dev,
+                                                  dtype=torch.int32)))
+    print(f"offsets past 2**31: {BIG_EDGES} edge rows x {c} x {nb} "
+          f"= {BIG_EDGES * c * nb:.3e} elements, against the upper "
+          f"{BIG_NODES - base} targets and {BIG_EDGES - e0} rows alone")
+
+    def fused():
+        h = torch.randn((BIG_NODES, c, nb), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        hj = torch.randn((BIG_EDGES, c, nb), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+        dagg = torch.randn((BIG_NODES, c, nb), generator=g, device=dev)
+        out = fe.mp_forward(params, alg, h, hj, None, dst, None, False)
+        dh, dhj, _, _ = fe.mp_backward(params, alg, h, hj, None, dst, None,
+                                       dagg, False)
+        out, dh, dhj = out[base:], dh[base:], dhj[e0:]
+        sub = (h[base:], hj[e0:], None, (dst[e0:] - base).contiguous())
+        out2 = fe.mp_forward(params, alg, *sub, None, False)
+        dh2, dhj2, _, _ = fe.mp_backward(params, alg, *sub, None,
+                                         dagg[base:].contiguous(), False)
+        torch.cuda.synchronize()
+        for name, a, b in (("K4 sums", out, out2), ("K5 d(h)", dh, dh2),
+                           ("K5 d(h_j)", dhj, dhj2)):
+            same_upper(name, a, b)
+
+    def blocks(exact):
+        # a row tile boundary of every K2/K3 instance (16 or 64 rows)
+        r0 = (int(BIG_EDGES * 0.7) // 64) * 64
+        mode = "exact" if exact else "fast"
+        x = torch.randn((BIG_EDGES, c, nb), generator=g, device=dev)
+        out = ck.block_forward(x, params[:10], alg, exact)[r0:]
+        same_upper(f"K2 {mode}", out,
+                   ck.block_forward(x[r0:], params[:10], alg, exact))
+        del out
+        dout = torch.randn((BIG_EDGES, c, nb), generator=g, device=dev)
+        dx = ck.block_backward(x, dout, params[:10], alg, exact)[0][r0:]
+        dx2 = ck.block_backward(x[r0:], dout[r0:], params[:10], alg,
+                                exact)[0]
+        same_upper(f"K3 {mode} d(x)", dx, dx2)
+
+    def segments(exact):
+        data = torch.randn((BIG_EDGES, c * nb), generator=g, device=dev)
+        out = sk.sorted_segment_sum(data, dst, BIG_NODES, exact)[0][base:]
+        alone = sk.sorted_segment_sum(data[e0:], (dst[e0:] - base)
+                                      .contiguous(), BIG_NODES - base,
+                                      exact)[0]
+        same_upper(f"K1 {'exact' if exact else 'fast'}", out, alone)
+
+    for run in (fused, lambda: blocks(False), lambda: blocks(True),
+                lambda: segments(False), lambda: segments(True)):
+        run()
+        torch.cuda.empty_cache()
+
+
+def phase_streaming(dev, counters):
+    """S5a: the streamed EGCL layer against the unstreamed one (fast and
+    exact), K1-K5 past 2**31 elements, then the reference's 10M-simplex,
+    80M-edge workload through csmpn_torch.bench_scaling.main: its line,
+    host times, step time, peak memory, launches a step, a profiled
+    step."""
+    from csmpn_torch import bench_scaling
+
+    print(f"streaming (S5a): the layer streamed in {S_CHUNKS} chunks vs "
+          f"unstreamed on the card: {S_NODES} simplices, in-degree "
+          f"{S_DEGREE}, hidden {S_HID}")
+    bitwise = {m: stream_compare(dev, counters, m) for m in ("fast", "exact")}
+    torch.cuda.empty_cache()
+    stream_offsets(dev)
+    torch.cuda.empty_cache()
+    print(f"streaming via csmpn_torch.bench_scaling.main "
+          f"{' '.join(STREAM_ARGV)} (fwd+bwd, fast)")
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    res = bench_scaling.main(STREAM_ARGV)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    print(f"  {card_line()}")
+    print(f"  host: complex {res['complex_s']:.2f} s, partition "
+          f"{res['partition_s']:.2f} s; first step {res['first_step_s']:.2f}"
+          f" s; the entry point {run_s:.1f} s")
+    print(f"  step {res['step_s']:.4f} s, {res['line']['value']} edges/s, "
+          f"peak {res['peak_gb']} GiB (max_memory_allocated)")
+    print(f"  launches during the run: {launches}")
+    for k in ("k2", "k3", "k4", "k5"):
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the "
+                                 f"streaming path")
+    step = res["step"]
+    for c in counters.values():
+        c.reset()
+    step()
+    torch.cuda.synchronize()
+    per_step = {k: c.count for k, c in counters.items()}
+    print(f"  launches per step: {per_step} (expected {STREAM_PER_STEP})")
+    if per_step != STREAM_PER_STEP:
+        raise AssertionError(f"streaming launches a step {per_step} != "
+                             f"{STREAM_PER_STEP}")
+    grads = [p.grad for p in res["egcl"].parameters()]
+    if not all(torch.isfinite(gr).all().item() for gr in grads):
+        raise AssertionError("streaming parameter gradients not finite")
+    busy_ms, wall_ms, kernels, runs = phase_profile(step, steps=1)
+    rest = dict(kernels)
+    for label, pattern in STREAM_KERNELS:
+        names = [k for k in rest if re.search(pattern, k)]
+        ms = sum(rest.pop(k) for k in names)
+        n = sum(runs[k] for k in names)
+        print(f"    {label:<30s} {ms:10.3f} ms  {100 * ms / busy_ms:5.1f}% "
+              f"of busy  {n:6.0f} runs")
+    print(f"    {'other':<30s} {sum(rest.values()):10.3f} ms  "
+          f"{100 * sum(rest.values()) / busy_ms:5.1f}% of busy")
+    agg_gib = res["n_nodes"] * S_HID * 8 * 4 / 2**30
+    peak = res["peak_gb"]
+    del res, step, grads
+    torch.cuda.empty_cache()
+    print(f"streaming forward only via csmpn_torch.bench_scaling.main "
+          f"{' '.join(STREAM_FWD_ARGV)}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    fwd = bench_scaling.main(STREAM_FWD_ARGV)
+    print(f"  {card_line()}")
+    print(f"  forward step {fwd['step_s']:.4f} s, {fwd['line']['value']} "
+          f"edges/s, peak {fwd['peak_gb']} GiB; fwd+bwd peak {peak} GiB, "
+          f"the aggregates {agg_gib:.2f} GiB")
+    if not math.isfinite(float(fwd["line"]["value"])) \
+            or fwd["peak_gb"] > peak - agg_gib:
+        raise AssertionError(f"forward only: peak {fwd['peak_gb']} GiB not "
+                             f"{agg_gib:.2f} below fwd+bwd {peak}")
+    del fwd
+    torch.cuda.empty_cache()
+    return launches, per_step, bitwise
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card "
@@ -3034,6 +3344,7 @@ def main() -> int:
     runs["bench_cl5"] = phase_bench(cl5_counters, 5, BENCH_CL5_PER_STEP)[:2]
     runs["bench_cl4"] = phase_bench(cl4_counters, 4, BENCH_CL4_PER_STEP,
                                     idle=cl5_pair)[:2]
+    runs["stream"] = phase_streaming(dev, counters)[:2]
     # each kernel's launches on the path that runs it (the bench for
     # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2), the bench at
     # Cl(2), Cl(5) and Cl(4) for K4/K5 at Cl(2), K4p/K5p and the Cl(4)

@@ -109,6 +109,13 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+# The most rows, nodes or segments a kernel takes in one call.  Every
+# kernel computes its element offsets in 64 bits, but takes its counts as
+# C ints (ctypes wraps a wider value silently) and rounds them up to whole
+# tiles (at most 64 rows) in int arithmetic; the wrappers raise above this.
+MAX_COUNT = 2**31 - 1 - 64
+
+
 class LaunchCounter:
     """Counts the launches of one kernel: its wrapper adds one where it
     launches the kernel, and nowhere else."""

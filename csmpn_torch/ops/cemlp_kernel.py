@@ -307,6 +307,10 @@ def _check_block(x, params):
         raise ValueError(f"x must be (rows, Cin, nb) float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
     kern = block_kernel(nb)
+    if x.shape[0] > _build.MAX_COUNT:
+        raise NotImplementedError(
+            f"{kern.label}: {x.shape[0]} rows in one call; the kernels take "
+            f"at most {_build.MAX_COUNT}")
     cin = x.shape[1]
     c = params[0].shape[0]
     check_block_params(params, cin, c, x.device, kern)
@@ -416,9 +420,9 @@ def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
     Cin, nb) float32 -> (rows, C, nb)."""
     if not x.is_cuda:
         return block_forward_plain(x, params, alg, exact)
+    kern, cin, c = _check_block(x, params)
     x = x.contiguous()
     params = [p.contiguous() for p in params]
-    kern, cin, c = _check_block(x, params)
     rows, nb = x.shape[0], kern.n_blades
     out = torch.empty((rows, c, nb), dtype=torch.float32, device=x.device)
     if rows == 0:
@@ -473,10 +477,10 @@ def block_backward(x: torch.Tensor, dout: torch.Tensor,
     gradients of one CEMLP block."""
     if not x.is_cuda:
         return block_backward_plain(x, dout, params, alg, exact)
+    kern, cin, c = _check_block(x, params)
     x = x.contiguous()
     dout = dout.to(torch.float32).contiguous()
     params = [p.contiguous() for p in params]
-    kern, cin, c = _check_block(x, params)
     rows, nb = x.shape[0], kern.n_blades
     if dout.shape != (rows, c, nb):
         raise ValueError(f"dout shape {tuple(dout.shape)} != {(rows, c, nb)}")

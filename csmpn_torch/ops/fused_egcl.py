@@ -250,6 +250,22 @@ def window_bounds(dst: torch.Tensor, n_nodes: int, wn: int) -> torch.Tensor:
     return torch.searchsorted(dst, starts, side="left")
 
 
+def check_counts(kern: FusedKernel, n_nodes: int, n_edges: int) -> None:
+    """Raise before any launch unless the kernels index a call of
+    n_nodes targets and n_edges edge rows correctly: their element offsets
+    are 64-bit, but node and window counts reach them as C ints (ctypes
+    wraps a wider value silently), so the windows must end below 2**31;
+    the edge rows are held to the same count, the rows K2/K3 take on the
+    composed route."""
+    n_win = -(-n_nodes // kern.wn)
+    if n_win * kern.wn > _build.MAX_COUNT or n_edges > _build.MAX_COUNT:
+        raise NotImplementedError(
+            f"{kern.label}: {n_nodes} targets and {n_edges} edge rows in one "
+            f"call; the kernels take at most {_build.MAX_COUNT} of each "
+            f"(windows of {kern.wn} included): split the edges into more "
+            f"chunks")
+
+
 def make_plan(dst, mask, n_nodes: int, cm: int, ca: int, c: int,
               nb: int = 8) -> _Plan:
     """The window layout of a call on the card (dst on the card) for the
@@ -284,6 +300,7 @@ def _check(params, h, hj, attr, dst, mask):
         raise ValueError("mask (E,) must lie on h's device")
     if len(params) != 20:
         raise ValueError(f"20 block parameters expected, got {len(params)}")
+    check_counts(kern, h.shape[0], e)
     c = params[0].shape[0]
     block = block_kernel(nb)
     check_block_params(params[:10], cm + ca, c, h.device, block)
@@ -496,12 +513,17 @@ def fused_message_aggregate(edge_model, h: torch.Tensor, hj: torch.Tensor,
                             edge_attr: Optional[torch.Tensor],
                             dst: torch.Tensor,
                             edge_mask: Optional[torch.Tensor] = None, *,
-                            mean: bool) -> torch.Tensor:
+                            mean: bool,
+                            plan: Optional[_Plan] = None,
+                            counts: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
     """EGCL edge side — ``reduce_dst(edge_cemlp(h[dst] - hj ++ attr))`` —
     in one pass.  ``h``: (N, Cm, nb); ``hj``: (E, Cm, nb) pre-gathered
-    source rows; ``dst``: (E,) sorted ascending.  Returns (N, C, nb)
-    float32."""
-    from .segment import aggregation_exact, segment_counts
+    source rows; ``dst``: (E,) sorted ascending.  A caller that keeps them
+    passes ``plan``, the window plan of ``dst`` and ``edge_mask``
+    (``make_plan``), and ``counts``, the masked in-degrees (N,) float32 of
+    the mean.  Returns (N, C, nb) float32."""
+    from .segment import aggregation_exact
 
     alg = edge_model.algebra
     exact = aggregation_exact()
@@ -511,12 +533,45 @@ def fused_message_aggregate(edge_model, h: torch.Tensor, hj: torch.Tensor,
         raise ValueError(f"edge model takes {ca} attribute channels, "
                          f"edge_attr is {edge_attr is not None}")
     params = block_params(edge_model, 0) + block_params(edge_model, 1)
-    plan = (make_plan(dst, edge_mask, n, cm, ca, edge_model.hidden_features,
-                      alg.n_blades) if h.is_cuda else None)
+    if plan is None and h.is_cuda:
+        plan = make_plan(dst, edge_mask, n, cm, ca,
+                         edge_model.hidden_features, alg.n_blades)
     agg = _FusedMP.apply(h, hj, edge_attr, dst, edge_mask, plan, alg, exact,
                          *params)
     if mean:
+        agg = agg / _mean_divisor(dst, n, edge_mask, counts)
+    return agg
+
+
+def _mean_divisor(dst, n: int, edge_mask, counts) -> torch.Tensor:
+    """The mean's divisor (N, 1, 1): the masked in-degree, at least 1."""
+    if counts is None:
+        from .segment import segment_counts
+
         counts = segment_counts(dst, n, mask=edge_mask,
                                 indices_are_sorted=True)
-        agg = agg / torch.clamp(counts, min=1.0)[:, None, None]
-    return agg
+    return torch.clamp(counts, min=1.0)[:, None, None]
+
+
+def fused_message_aggregate_backward(edge_model, h: torch.Tensor,
+                                     hj: torch.Tensor,
+                                     edge_attr: Optional[torch.Tensor],
+                                     dst: torch.Tensor,
+                                     edge_mask: Optional[torch.Tensor],
+                                     dagg: torch.Tensor, *, mean: bool,
+                                     plan: Optional[_Plan] = None,
+                                     counts: Optional[torch.Tensor] = None):
+    """The backward of ``fused_message_aggregate`` from the cotangent
+    ``dagg`` (N, C, nb) of its result, without its forward: the mean's
+    division, then K5 (K5p).  Returns (d(h), d(hj), d(edge_attr) or None,
+    the gradients of ``edge_model.parameters()`` in their order)."""
+    from .segment import aggregation_exact
+
+    if mean:
+        dagg = dagg / _mean_divisor(dst, h.shape[0], edge_mask, counts)
+    params = block_params(edge_model, 0) + block_params(edge_model, 1)
+    dh, dhj, dattr, grads = mp_backward(
+        params, edge_model.algebra, h, hj, edge_attr, dst, edge_mask, dagg,
+        aggregation_exact(), plan)
+    by_id = {id(p): gr for p, gr in zip(params, grads)}
+    return dh, dhj, dattr, [by_id[id(p)] for p in edge_model.parameters()]

@@ -87,6 +87,10 @@ def sorted_segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     if mask is not None and (mask.shape != (e,) or mask.device != data.device
                              or mask.dtype != torch.bool):
         raise ValueError("mask must be (E,) bool on the data's device")
+    if num_segments > _build.MAX_COUNT or d > _build.MAX_COUNT:
+        raise NotImplementedError(
+            f"sorted_segment_sum: {num_segments} segments of {d} columns; "
+            f"the kernel takes at most {_build.MAX_COUNT} of each")
     data = data.contiguous()
     segment_ids = segment_ids.contiguous()
     mask = mask.contiguous() if mask is not None else None
