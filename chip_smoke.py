@@ -111,6 +111,17 @@
     the warm-up's and the capture's, and the trainer's own trace of the
     second group's 128 replayed steps holding each kernel's runs a step to
     the eager step's launches;
+    After the task phases, the data-parallel path (S5b): the motion task
+    through its entry point with ``--data_parallel=true`` in an NCCL
+    process group of one that ``engineer.fire`` joins from torchrun's
+    variables, 8 eager steps and 16 at ``steps_per_dispatch=8`` (the
+    all-reduce of the gradients and the loss inside the captured step):
+    under ``torch.use_deterministic_algorithms`` the final parameters and
+    losses bitwise equal to the same runs without data parallel; then,
+    without it, its launches counted, a profile of each mode holding one
+    NCCL all-reduce kernel a step besides K1, K2 and K3, and the step
+    times with and without the all-reduce in turns, with the
+    all-reduce's device time a step;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -143,7 +154,8 @@
     launches on the others: for a graph run the wrappers' launches in the
     run and, as ``launches_per_step_<task>_graph``, its runs a step in
     the profile of replays; ``launches_stream`` and
-    ``launches_per_step_stream`` for the streaming run) and, last, the
+    ``launches_per_step_stream`` for the streaming run; ``launches_dp``
+    and ``launches_dp_graph`` for the data-parallel runs) and, last, the
     device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -1994,14 +2006,19 @@ def phase_model(dev, dataroot):
 MOTION_PER_STEP = {"k2": 19, "k3": 19}
 
 
+def motion_argv():
+    """The motion task at configs/motion.yaml widths, 8 steps."""
+    return task_argv("motion", "motion.MotionModel", "motion.MotionDataset", [
+        "--model.num_hidden=28", "--model.num_layers=4",
+        "--dataset.num_training_samples=200", "--dataset.batch_size=100",
+        "--optimizer.lr=5e-4", "--optimizer.weight_decay=1e-4"])
+
+
 def phase_task(dataroot, counters, runs):
     from csmpn_torch.data.motion import MotionDataset
     from csmpn_torch.tasks.motion import main
 
-    argv = task_argv("motion", "motion.MotionModel", "motion.MotionDataset", [
-        "--model.num_hidden=28", "--model.num_layers=4",
-        "--dataset.num_training_samples=200", "--dataset.batch_size=100",
-        "--optimizer.lr=5e-4", "--optimizer.weight_decay=1e-4"])
+    argv = motion_argv()
     print("motion task via fire -> run_task -> Trainer.fit: hidden 28, "
           "4 layers, batch 100, 8 steps, fast precision")
     os.environ["DATAROOT"] = dataroot
@@ -2180,7 +2197,7 @@ def phase_profile(step, steps=3, per_call=1):
     wall_ms /= per_call
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.key.startswith("Optimizer.")]  # annotation spans
+              and not e.key.startswith(("Optimizer.", "nccl:"))]  # spans
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / steps
     n_launch = sum(e.count for e in events) / steps
     print(f"  profile of {steps} steps: wall {wall_ms:.2f} ms/step, device "
@@ -2453,6 +2470,209 @@ def phase_graph(tag, main, argv, dataroot, counters, ds, eager, k2=True):
         print(f"    {k[:60]:60s} graph {kernels[k]:.4f} ms/step, eager "
               f"{e_ms:.4f} ({kernels[k] / e_ms:.3f}x)")
     return launches, per_step, times, busy_ms, wall_ms
+
+
+# ------------------------------------------- data parallel (S5b)
+
+# the device kernels of an NCCL all-reduce: a group of one runs ReduceOp.AVG
+# as NCCL's one-rank kernel, larger groups as ncclDevKernel_AllReduce_*
+NCCL_KERNEL = r"oneRankReduce|ncclDevKernel|ncclKernel"
+DP_STEPS = {"eager": 8, "graph": 16}
+DP_KNOBS = {"eager": [], "graph": [f"--trainer.steps_per_dispatch={G_K}"]}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_argv(mode, on):
+    argv = [a for a in motion_argv() if not a.startswith(
+        "--trainer.max_steps=")]
+    return argv + [f"--trainer.max_steps={DP_STEPS[mode]}",
+                   f"--data_parallel={'true' if on else 'false'}",
+                   *DP_KNOBS[mode]]
+
+
+def nccl_per_step(kernels, runs):
+    """(all-reduce kernel runs a step, their device µs a step) from a
+    profile's ms and runs by kernel name."""
+    names = [k for k in runs if re.search(NCCL_KERNEL, k)]
+    return (sum(runs[k] for k in names),
+            sum(kernels[k] for k in names) * 1e3)
+
+
+def phase_data_parallel(dataroot, counters, eager):
+    """The motion task through its entry point with --data_parallel=true
+    in an NCCL process group of one (this process, rank 0 of 1, joined by
+    engineer.fire from torchrun's variables): the gradients and the loss
+    all-reduced between backward and the optimizer step, eagerly and
+    inside the captured step under steps_per_dispatch=8.
+
+    1. Under torch.use_deterministic_algorithms (the models' index_select
+       backward otherwise sums with atomics in a varying order): the
+       final parameters and the losses of each mode bitwise equal to the
+       same run without data parallel, from the same seed.
+    2. Without it, the runs of the path with their launches counted (every
+       count set to 0 just before and read just after), a profile of each
+       mode (one NCCL all-reduce kernel a step besides K1, K2 and K3 as
+       often as the eager step launches them; no wrapper called under
+       replay) and the step times with and without the all-reduce in
+       turns (eager: one trainer's steps with its mesh and without it;
+       ``eager``: run_entry's motion result, whose launches a step the
+       profiles must show).
+    The group is destroyed and the variables restored at the end.
+    Returns (the launches and runs a step of each mode, the times)."""
+    import torch.distributed as dist
+    from csmpn_torch.tasks.motion import main
+
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    print(f"data parallel: motion via fire -> run_task -> Trainer.fit with "
+          f"--data_parallel=true in an NCCL group of one; eager "
+          f"{DP_STEPS['eager']} steps, graph {DP_STEPS['graph']} steps "
+          f"(steps_per_dispatch={G_K}), fast precision")
+    try:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for mode in ("eager", "graph"):
+                plain, _ = fire_quiet(main, dp_argv(mode, False), dataroot)
+                dp, text = fire_quiet(main, dp_argv(mode, True), dataroot)
+                check_dp_run(mode, plain, dp, text)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                and dist.get_world_size() == 1):
+            raise AssertionError("no NCCL group of one after the runs")
+
+        out, trainers = {}, {}
+        for mode in ("eager", "graph"):
+            for c in counters.values():
+                c.reset()
+            dp, text = fire_quiet(main, dp_argv(mode, True), dataroot)
+            launches = {k: c.count for k, c in counters.items()}
+            check_dp_run(mode, None, dp, text)
+            for k, v in launches.items():
+                if v <= 0:
+                    raise AssertionError(f"kernel {k} never launched on the "
+                                         f"data-parallel path ({mode})")
+            trainers[mode] = dp
+            out[mode] = launches
+        trainers["graph plain"], _ = fire_quiet(
+            main, dp_argv("graph", False), dataroot)
+
+        from csmpn_torch.data.motion import MotionDataset
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            ds = MotionDataset(batch_size=B, num_training_samples=200)
+        per_step, ar_us = {}, {}
+        for mode in ("eager", "graph"):
+            tr, k = trainers[mode], (1 if mode == "eager" else G_K)
+            items = list(itertools.islice(batch_stream(ds, 1, False), k))
+
+            def group():
+                with contextlib.redirect_stdout(io.StringIO()):
+                    tr.train_group(items)
+
+            print(f"  profile of {mode} data-parallel steps:")
+            for c in counters.values():
+                c.reset()
+            _, _, kernels, runs = phase_profile(group, steps=2 if k > 1
+                                                else 3, per_call=k)
+            called = {n: c.count for n, c in counters.items()}
+            per_step[mode] = profiled_launches(runs, counters)
+            n_ar, ar_us[mode] = nccl_per_step(kernels, runs)
+            print(f"  {mode}: all-reduce kernels a step {n_ar:.3f} "
+                  f"({ar_us[mode]:.2f} us a step: "
+                  f"{[n[:60] for n in runs if re.search(NCCL_KERNEL, n)]}); "
+                  f"K1-K3 runs a step {per_step[mode]} (eager step "
+                  f"{eager[1]}); wrapper calls {called}")
+            if abs(n_ar - 1) > 1e-9 or per_step[mode] != eager[1]:
+                raise AssertionError(
+                    f"data parallel {mode}: {n_ar} all-reduce kernels a "
+                    f"step, kernel runs {per_step[mode]} != {eager[1]}")
+            if mode == "graph" and any(called.values()):
+                raise AssertionError(f"wrappers called under replay: "
+                                     f"{called}")
+
+        # step times in turns: eager steps of one trainer with its mesh
+        # and with the mesh taken away (the step without the all-reduce),
+        # then graph groups with / without it (two captured steps)
+        secs = {m: [] for m in ("eager", "eager plain", "graph",
+                                "graph plain")}
+        streams = {m: batch_stream(ds, 2, False) for m in secs}
+        et, mesh = trainers["eager"], trainers["eager"].mesh
+        with contextlib.redirect_stdout(io.StringIO()):
+            for _ in range(T_ROUNDS):
+                for m in secs:
+                    tr = trainers.get(m, et)
+                    et.mesh = None if m == "eager plain" else mesh
+                    n = len(tr.step_seconds)
+                    for _ in range(T_STEPS // (G_K if tr is not et else 1)):
+                        tr.train_group(list(itertools.islice(
+                            streams[m], G_K if tr is not et else 1)))
+                    secs[m] += tr.step_seconds[n:]
+        et.mesh = mesh
+        times = {m: quantiles([x * 1e3 for x in v]) for m, v in secs.items()}
+        print(f"  step ms, median / p10 / p90 of {T_ROUNDS * T_STEPS} steps "
+              f"a mode in turns (graph: K = {G_K}, host batches), on "
+              f"{card_line()}:")
+        for m in ("eager", "graph"):
+            print(f"    {m}: with the all-reduce "
+                  f"{'/'.join(f'{x:.3f}' for x in times[m])}, without "
+                  f"{'/'.join(f'{x:.3f}' for x in times[m + ' plain'])}"
+                  f"; all-reduce {ar_us[m]:.2f} us of device time a step")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return ((out["eager"], per_step["eager"]),
+            (out["graph"], per_step["graph"]), times, ar_us)
+
+
+def check_dp_run(mode, plain, dp, text):
+    """A data-parallel run of ``mode``: a mesh of one NCCL rank, its steps
+    and replays, and, given the same run without data parallel
+    (``plain``), bitwise the same parameters and losses."""
+    from csmpn_torch.engineer.trainer import WARMUP_STEPS
+
+    mesh = dp.mesh
+    steps = DP_STEPS[mode]
+    ok = (mesh is not None and mesh.world == 1 and mesh.rank == 0
+          and "Distributed: {'rank': 0, 'world_size': 1" in text
+          and len(dp.step_losses) == steps
+          and all(math.isfinite(v) for v in dp.step_losses)
+          and "Stopping due to max_steps." in text)
+    if mode == "graph":
+        ok = ok and dp.train_graph is not None and \
+            dp.train_graph.replays == steps - WARMUP_STEPS
+    if not ok:
+        raise AssertionError(f"data parallel {mode}: mesh {mesh}, "
+                             f"{len(dp.step_losses)} losses {dp.step_losses}")
+    if plain is None:
+        return
+    if plain.mesh is not None:
+        raise AssertionError("--data_parallel=false built a mesh")
+    diff = [n for (n, a), b in zip(plain.model.named_parameters(),
+                                   dp.model.parameters())
+            if not torch.equal(a, b)]
+    same_loss = plain.step_losses == dp.step_losses
+    print(f"  {mode}: {steps} steps, losses {dp.step_losses[0]:.6f} -> "
+          f"{dp.step_losses[-1]:.6f}; parameters bitwise equal to the run "
+          f"without data parallel: {not diff}; losses equal: {same_loss}")
+    if diff or not same_loss:
+        raise AssertionError(f"data parallel {mode}: parameters {diff[:5]} "
+                             f"differ, or losses {dp.step_losses} != "
+                             f"{plain.step_losses}")
 
 
 # ---------------------------------------------------------- the hulls path
@@ -3336,6 +3556,9 @@ def main() -> int:
             runs[tag] = res[:2]
             runs[f"{tag}_graph"] = graph[:2]
             graph_times[tag] = (res[2:5], graph[2:])
+            if tag == "motion":
+                runs["dp"], runs["dp_graph"] = phase_data_parallel(
+                    dataroot, motion_counters, res)[:2]
         phase_tile_instances(dev, gen, results)
         phase_pair_tile_instances(dev, gen, results)
         phase_pair_fused_instances(dev, gen, results)

@@ -19,7 +19,8 @@ import numpy as np
 
 from .batching import pad_big_graph, spec_from_graphs
 from .lifting import flatten_complex, hull_lift
-from .loader import Loader, SimplicialArrayDataset, dataroot
+from .loader import (Loader, SimplicialArrayDataset, dataroot,
+                     write_atomic)
 
 _SPLIT_SEEDS = {"train": 0, "val": 1, "test": 2}
 
@@ -44,8 +45,8 @@ def generate_raw(root: str, split: str, num_samples: int,
     volumes = np.asarray(
         [ConvexHull(p).volume for p in points], dtype=np.float32)
     os.makedirs(root, exist_ok=True)
-    np.save(inp_path, points)
-    np.save(tgt_path, volumes)
+    write_atomic(inp_path, lambda f: np.save(f, points))
+    write_atomic(tgt_path, lambda f: np.save(f, volumes))
     return points, volumes
 
 
@@ -89,12 +90,17 @@ class ConvexHullDataset:
         self.test_dataset = datasets["test"]
         self.spec = self.train_dataset.spec
 
-    def train_loader(self, seed: Optional[int] = None) -> Loader:
+    def train_loader(self, seed: Optional[int] = None,
+                     shard: Optional[Tuple[int, int]] = None) -> Loader:
         return Loader(self.train_dataset, self.batch_size, shuffle=True,
-                      seed=seed)
+                      seed=seed, shard=shard)
 
-    def val_loader(self) -> Loader:
-        return Loader(self.val_dataset, self.batch_size, shuffle=False)
+    def val_loader(self,
+                   shard: Optional[Tuple[int, int]] = None) -> Loader:
+        return Loader(self.val_dataset, self.batch_size, shuffle=False,
+                      shard=shard)
 
-    def test_loader(self) -> Loader:
-        return Loader(self.test_dataset, self.batch_size, shuffle=False)
+    def test_loader(self,
+                    shard: Optional[Tuple[int, int]] = None) -> Loader:
+        return Loader(self.test_dataset, self.batch_size, shuffle=False,
+                      shard=shard)

@@ -13,11 +13,21 @@ entries for the feature/target dicts.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import BinaryIO, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from .batching import PaddingSpec, SimplicialBatch, collate
+
+
+def write_atomic(path: str, write: Callable[[BinaryIO], object]) -> None:
+    """``write(f)`` into a file of this process's own, then
+    ``os.replace`` onto ``path``: a reader, or another rank writing the
+    same seeded data, sees the old file or a whole new one."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        write(f)
+    os.replace(tmp, path)
 
 
 class SimplicialArrayDataset:
@@ -70,10 +80,7 @@ class SimplicialArrayDataset:
         for k, v in a.targets.items():
             payload[f"tgt_{k}"] = v
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            np.savez(f, **payload)
-        os.replace(tmp, path)
+        write_atomic(path, lambda f: np.savez(f, **payload))
 
     @classmethod
     def load(cls, path: str) -> "SimplicialArrayDataset":
@@ -97,19 +104,36 @@ class Loader:
     """Minibatch iterator over a :class:`SimplicialArrayDataset`.  A
     shuffled (training) loader reshuffles every epoch (epoch e with
     ``seed + e`` when ``seed`` is given) and drops the last partial batch;
-    an unshuffled one keeps it.  Rank sharding comes with scale-out."""
+    an unshuffled one keeps it.  ``shard=(rank, world)`` gives rank
+    ``rank`` of ``world`` its shard of the samples, as
+    ``DistributedSampler`` does: every rank gets exactly
+    ``ceil(n / world)`` samples (the short ones wrap around to the first
+    samples), so every rank takes as many steps and meets the same
+    collectives; the shuffle permutes the shard."""
 
     def __init__(self, dataset: SimplicialArrayDataset, batch_size: int,
-                 shuffle: bool = False, seed: Optional[int] = None):
+                 shuffle: bool = False, seed: Optional[int] = None,
+                 shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.drop_last = shuffle
         self.seed = seed
+        self.shard = shard
         self._epoch = 0
+
+    def _shard_len(self) -> int:
+        n = len(self.dataset)
+        _, world = self.shard
+        return -(-n // world)
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
+        if self.shard is not None:
+            rank, world = self.shard
+            # wrap around cyclically (the reference concatenates the head
+            # once, the same indices wherever n >= world / 2)
+            idx = np.resize(idx, self._shard_len() * world)[rank::world]
         if self.shuffle:
             if self.seed is not None:
                 rng = np.random.RandomState(self.seed + self._epoch)
@@ -120,6 +144,8 @@ class Loader:
 
     def __len__(self) -> int:
         n = len(self.dataset)
+        if self.shard is not None:
+            n = self._shard_len()
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)

@@ -22,13 +22,14 @@ same path runs on it.
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from .batching import pad_big_graph, spec_from_graphs
 from .lifting import clique_lift, flatten_complex, rips_lift
-from .loader import Loader, SimplicialArrayDataset, dataroot
+from .loader import (Loader, SimplicialArrayDataset, dataroot,
+                     write_atomic)
 
 PAST_FRAMES = 10
 FUTURE_FRAMES = 10
@@ -61,9 +62,10 @@ def preprocess_raw(data_dir: str, molecule_type: str) -> bool:
     n = x.shape[1]
     d0 = np.sqrt(((x[0][:, None] - x[0][None]) ** 2).sum(-1))
     structure = ((d0 < 1.6) & ~np.eye(n, dtype=bool)).astype(np.float64)
-    np.save(os.path.join(data_dir, f"{molecule_type}_charges.npy"), z)
-    np.save(os.path.join(data_dir, f"{molecule_type}_structure.npy"),
-            structure)
+    write_atomic(os.path.join(data_dir, f"{molecule_type}_charges.npy"),
+                 lambda f: np.save(f, z))
+    write_atomic(os.path.join(data_dir, f"{molecule_type}_structure.npy"),
+                 lambda f: np.save(f, structure))
 
     total = x.shape[0]
     train_len = int(total * 5 / 8)
@@ -81,8 +83,8 @@ def preprocess_raw(data_dir: str, molecule_type: str) -> bool:
             period[SAMPLE_FREQ * j:SAMPLE_FREQ * j + TRAJ_LEN:FRAME_GAP]
             for j in range(num)]).astype(np.float32)
         rng.shuffle(trajs)
-        np.save(os.path.join(data_dir,
-                             f"{molecule_type}_{split}.npy"), trajs)
+        write_atomic(os.path.join(data_dir, f"{molecule_type}_{split}.npy"),
+                     lambda f: np.save(f, trajs))
     return True
 
 
@@ -100,10 +102,11 @@ def _synthesize_raw(data_dir: str, molecule_type: str, seed: int = 11,
     R = base[None] + 0.08 * np.sin(0.013 * t + phase) \
         + 0.01 * rng.randn(T, len(z), 3)
     os.makedirs(data_dir, exist_ok=True)
-    np.savez(os.path.join(data_dir, f"md17_{molecule_type}.npz"), R=R, z=z)
-    with open(os.path.join(data_dir, "SYNTHETIC"), "w") as f:
-        f.write("generated stand-in data; drop the real md17_<mol>.npz "
-                "here to train on it\n")
+    write_atomic(os.path.join(data_dir, f"md17_{molecule_type}.npz"),
+                 lambda f: np.savez(f, R=R, z=z))
+    write_atomic(os.path.join(data_dir, "SYNTHETIC"), lambda f: f.write(
+        b"generated stand-in data; drop the real md17_<mol>.npz here to "
+        b"train on it\n"))
     print(f"md17: no raw md17_{molecule_type}.npz found -> generated "
           "SYNTHETIC stand-in")
 
@@ -208,12 +211,17 @@ class MD17Dataset:
         self.test_dataset = datasets["test"]
         self.spec = self.train_dataset.spec
 
-    def train_loader(self, seed: Optional[int] = None) -> Loader:
+    def train_loader(self, seed: Optional[int] = None,
+                     shard: Optional[Tuple[int, int]] = None) -> Loader:
         return Loader(self.train_dataset, self.batch_size, shuffle=True,
-                      seed=seed)
+                      seed=seed, shard=shard)
 
-    def val_loader(self) -> Loader:
-        return Loader(self.val_dataset, self.batch_size, shuffle=False)
+    def val_loader(self,
+                   shard: Optional[Tuple[int, int]] = None) -> Loader:
+        return Loader(self.val_dataset, self.batch_size, shuffle=False,
+                      shard=shard)
 
-    def test_loader(self) -> Loader:
-        return Loader(self.test_dataset, self.batch_size, shuffle=False)
+    def test_loader(self,
+                    shard: Optional[Tuple[int, int]] = None) -> Loader:
+        return Loader(self.test_dataset, self.batch_size, shuffle=False,
+                      shard=shard)

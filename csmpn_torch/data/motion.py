@@ -28,7 +28,8 @@ import numpy as np
 
 from .batching import pad_big_graph, spec_from_graphs
 from .lifting import SimplicialComplex, flatten_complex
-from .loader import Loader, SimplicialArrayDataset, dataroot
+from .loader import (Loader, SimplicialArrayDataset, dataroot,
+                     write_atomic)
 
 N_JOINTS = 31
 TRAIN_CASES = [20, 1, 17, 13, 14, 9, 4, 2, 7, 5, 16]
@@ -72,8 +73,7 @@ class Motion:
                 {i: rng.choice(np.arange(itv), size=100, replace=False)
                  for i in cases}
                 for cases in (TRAIN_CASES, VAL_CASES, TEST_CASES))
-            with open(split_path, "wb") as f:
-                pickle.dump(split, f)
+            write_atomic(split_path, lambda f: pickle.dump(split, f))
 
         mapping = {"train": split[0], "val": split[1],
                    "test": split[2]}[partition]
@@ -146,11 +146,11 @@ def _synthesize_raw(root: str, seed: int = 7, n_trials: int = 23,
         steps = 0.02 * rng.randn(T, N_JOINTS, 3)
         X.append((base[None] + np.cumsum(steps, axis=0)).astype(np.float64))
     os.makedirs(root, exist_ok=True)
-    with open(os.path.join(root, "motion.pkl"), "wb") as f:
-        pickle.dump((edges, X), f)
-    with open(os.path.join(root, "SYNTHETIC"), "w") as f:
-        f.write("generated stand-in data; drop the real GMN motion.pkl "
-                "here to train on it\n")
+    write_atomic(os.path.join(root, "motion.pkl"),
+                 lambda f: pickle.dump((edges, X), f))
+    write_atomic(os.path.join(root, "SYNTHETIC"), lambda f: f.write(
+        b"generated stand-in data; drop the real GMN motion.pkl here to "
+        b"train on it\n"))
     print("motion: no raw motion.pkl found -> generated SYNTHETIC stand-in")
 
 
@@ -197,12 +197,17 @@ class MotionDataset:
         self.test_dataset = datasets["test"]
         self.spec = self.train_dataset.spec
 
-    def train_loader(self, seed: Optional[int] = None) -> Loader:
+    def train_loader(self, seed: Optional[int] = None,
+                     shard: Optional[Tuple[int, int]] = None) -> Loader:
         return Loader(self.train_dataset, self.batch_size, shuffle=True,
-                      seed=seed)
+                      seed=seed, shard=shard)
 
-    def val_loader(self) -> Loader:
-        return Loader(self.val_dataset, self.batch_size, shuffle=False)
+    def val_loader(self,
+                   shard: Optional[Tuple[int, int]] = None) -> Loader:
+        return Loader(self.val_dataset, self.batch_size, shuffle=False,
+                      shard=shard)
 
-    def test_loader(self) -> Loader:
-        return Loader(self.test_dataset, self.batch_size, shuffle=False)
+    def test_loader(self,
+                    shard: Optional[Tuple[int, int]] = None) -> Loader:
+        return Loader(self.test_dataset, self.batch_size, shuffle=False,
+                      shard=shard)

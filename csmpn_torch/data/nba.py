@@ -22,13 +22,14 @@ from __future__ import annotations
 
 import os
 from math import ceil
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from .batching import pad_big_graph, spec_from_graphs
 from .lifting import flatten_complex, rips_lift
-from .loader import Loader, SimplicialArrayDataset, dataroot
+from .loader import (Loader, SimplicialArrayDataset, dataroot,
+                     write_atomic)
 
 OBS_FRAMES = 10
 PRED_FRAMES = 40
@@ -57,10 +58,11 @@ def preprocess_raw(data_dir: str, mode: str = "atk",
     val_end = ceil(plays / 100 * (train_pct + val_pct))
     out = os.path.join(data_dir, mode)
     os.makedirs(out, exist_ok=True)
-    np.save(os.path.join(out, "trajectories_train.npy"), data[:train_end])
-    np.save(os.path.join(out, "trajectories_val.npy"),
-            data[train_end:val_end])
-    np.save(os.path.join(out, "trajectories_test.npy"), data[val_end:])
+    for split, part in (("train", data[:train_end]),
+                        ("val", data[train_end:val_end]),
+                        ("test", data[val_end:])):
+        write_atomic(os.path.join(out, f"trajectories_{split}.npy"),
+                     lambda f: np.save(f, part))
     return True
 
 
@@ -84,10 +86,11 @@ def _synthesize_raw(data_dir: str, seed: int = 3, plays: int = 40,
     steps[..., 2:] = 0.0
     data = (start + np.cumsum(steps, axis=1)).astype(np.float32)
     os.makedirs(data_dir, exist_ok=True)
-    np.save(os.path.join(data_dir, "all_data.npy"), data)
-    with open(os.path.join(data_dir, "SYNTHETIC"), "w") as f:
-        f.write("generated stand-in data; drop the real SportVU "
-                "all_data.npy here to train on it\n")
+    write_atomic(os.path.join(data_dir, "all_data.npy"),
+                 lambda f: np.save(f, data))
+    write_atomic(os.path.join(data_dir, "SYNTHETIC"), lambda f: f.write(
+        b"generated stand-in data; drop the real SportVU all_data.npy "
+        b"here to train on it\n"))
     print("nba: no raw all_data.npy found -> generated SYNTHETIC stand-in")
 
 
@@ -161,12 +164,17 @@ class NBADataset:
         self.test_dataset = datasets["test"]
         self.spec = self.train_dataset.spec
 
-    def train_loader(self, seed: Optional[int] = None) -> Loader:
+    def train_loader(self, seed: Optional[int] = None,
+                     shard: Optional[Tuple[int, int]] = None) -> Loader:
         return Loader(self.train_dataset, self.batch_size, shuffle=True,
-                      seed=seed)
+                      seed=seed, shard=shard)
 
-    def val_loader(self) -> Loader:
-        return Loader(self.val_dataset, self.batch_size, shuffle=False)
+    def val_loader(self,
+                   shard: Optional[Tuple[int, int]] = None) -> Loader:
+        return Loader(self.val_dataset, self.batch_size, shuffle=False,
+                      shard=shard)
 
-    def test_loader(self) -> Loader:
-        return Loader(self.test_dataset, self.batch_size, shuffle=False)
+    def test_loader(self,
+                    shard: Optional[Tuple[int, int]] = None) -> Loader:
+        return Loader(self.test_dataset, self.batch_size, shuffle=False,
+                      shard=shard)

@@ -7,6 +7,13 @@ sidecar with {metrics, epoch, step}.  An improvement of a tracked metric
 saves ``best_<metric>`` and schedules a test pass; a stopped run saves
 ``last``.  ``Checkpoint(dir=path)`` reads the metadata at once and
 restores the tensors when the trainer calls ``restore``.
+
+In a process group (data parallel), ``torch.save`` is no collective, so
+rank 0 alone writes (each file under a temporary name, then
+``os.replace``) and removes stale checkpoints; then every rank meets at a
+barrier.  So no rank goes on past a save before the files are whole, and
+a restore loads the same file on every rank.  Every rank calls the saves
+equally often: the metrics that decide them are gathered over the ranks.
 """
 from __future__ import annotations
 
@@ -17,15 +24,20 @@ from typing import Dict, Optional
 
 import torch
 
+from ..data.loader import write_atomic
+from ..parallel.mesh import barrier, is_master
+
 
 def _save(path: str, model, optimizer, trainer, best) -> None:
     os.makedirs(path, exist_ok=True)
-    torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict()},
-               os.path.join(path, "state.pt"))
-    with open(os.path.join(path, "meta.json"), "w") as f:
-        json.dump({"metrics": best, "epoch": trainer.current_epoch,
-                   "step": trainer.global_step}, f)
+    state = {"model": model.state_dict(),
+             "optimizer": optimizer.state_dict()}
+    meta = {"metrics": best, "epoch": trainer.current_epoch,
+            "step": trainer.global_step}
+    write_atomic(os.path.join(path, "state.pt"),
+                 lambda f: torch.save(state, f))
+    write_atomic(os.path.join(path, "meta.json"),
+                 lambda f: f.write(json.dumps(meta).encode()))
 
 
 class Checkpoint:
@@ -74,9 +86,11 @@ class Checkpoint:
         if trainer.logger is None or trainer.logger.dir is None:
             return
         path = os.path.abspath(os.path.join(trainer.logger.dir, "last"))
-        _save(path, model, optimizer, trainer, self.best_metrics)
-        print(f"Saved latest-state checkpoint to {path} "
-              f"(step {trainer.global_step}).")
+        if is_master():
+            _save(path, model, optimizer, trainer, self.best_metrics)
+            print(f"Saved latest-state checkpoint to {path} "
+                  f"(step {trainer.global_step}).")
+        barrier()
 
     def on_test_end(self, trainer, model, optimizer, metrics) -> None:
         can_write = (trainer.logger is not None
@@ -91,13 +105,16 @@ class Checkpoint:
                     alias = f"best_{m.replace('/', '_')}"
                     path = os.path.abspath(
                         os.path.join(trainer.logger.dir, alias))
-                    _save(path, model, optimizer, trainer, self.best_metrics)
-                    stale = self.save_paths.get(m)
-                    if stale is not None and stale != path \
-                            and os.path.isdir(stale):
-                        shutil.rmtree(stale)
-                    print(f"Metric {m} improved to {value:.4f}; "
-                          f"saved checkpoint to {path}. "
-                          f"Scheduling test loop.")
+                    if is_master():
+                        _save(path, model, optimizer, trainer,
+                              self.best_metrics)
+                        stale = self.save_paths.get(m)
+                        if stale is not None and stale != path \
+                                and os.path.isdir(stale):
+                            shutil.rmtree(stale)
+                        print(f"Metric {m} improved to {value:.4f}; "
+                              f"saved checkpoint to {path}. "
+                              f"Scheduling test loop.")
+                    barrier()
                     self.save_paths[m] = path
                 trainer.should_test = True

@@ -36,8 +36,16 @@ The reference's knobs:
   the limit (0 = off).
 * ``donate``: buffer donation has no PyTorch meaning; any bool is accepted
   and ignored.
-* ``mesh``: data parallelism is not ported (ROADMAP.md, Queue 1, S5b) and
-  raises NotImplementedError.
+* ``mesh`` (``parallel.mesh.Mesh``): data parallel, one process per card.
+  ``fit`` broadcasts rank 0's parameters and buffers; every step, eager or
+  replayed, all-reduces the gradients and the loss between ``backward``
+  and the optimizer step (``parallel.mesh.all_reduce_grads``: one
+  all-reduce a dtype of a flat buffer, which leaves the mean over the
+  ranks), so the ranks stay identical and the printed loss and
+  the NaN check read the mean over the ranks on every rank.  Under CUDA
+  graphs the all-reduce is captured in the step's graph.  The stop
+  decisions of ``max_time`` and ``max_rss_gb`` stay rank-local, as in the
+  reference; ``max_steps`` stops every rank at the same step.
 
 The trainer owns the learning-rate schedule: before every training step,
 eager or replayed, it writes ``scheduler(step)`` into the optimizer's
@@ -63,6 +71,8 @@ import numpy as np
 import torch
 
 from ..data.batching import SimplicialBatch
+from ..parallel.mesh import (Mesh, all_reduce_grads, is_distributed,
+                             replicate)
 from .checkpoint import Checkpoint
 from .loggers import ConsoleLogger
 from .metrics import Loss, MetricCollection
@@ -228,10 +238,9 @@ class Trainer:
         max_rss_gb: float = 0.0,
         device_data: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "trainer.mesh (data parallel) is not ported yet (ROADMAP.md, "
-                "Queue 1, S5b); leave it at None")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"trainer.mesh must be a csmpn_torch.parallel."
+                            f"mesh.Mesh (make_mesh()), got {mesh!r}")
         if int(steps_per_dispatch) < 1 or int(eval_batches_per_dispatch) < 1:
             raise ValueError("steps_per_dispatch and "
                              "eval_batches_per_dispatch must be >= 1")
@@ -274,6 +283,7 @@ class Trainer:
         self.steps_per_dispatch = int(steps_per_dispatch)
         self.eval_batches_per_dispatch = int(eval_batches_per_dispatch)
         self.device_data = bool(device_data)
+        self.mesh = mesh
 
         self.global_step = 0
         self.current_epoch = 0
@@ -444,14 +454,23 @@ class Trainer:
             return _gather(self._dev_data, idx)
         return item.to(self.device)
 
+    def _reduce(self, loss: torch.Tensor) -> torch.Tensor:
+        """Under a mesh the gradients and ``loss`` averaged over the ranks
+        (after ``backward``, before the optimizer step); the loss, detached,
+        is returned."""
+        if self.mesh is None:
+            return loss.detach()
+        return all_reduce_grads(self.model.parameters(), self.mesh, loss)
+
     def _eager_step(self, item, step):
         self._set_lr(step)
         batch = self._batch(item)
         loss, outputs = self.model(batch, step, "train")
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss = self._reduce(loss)
         self.optimizer.step()
-        return loss.detach(), {k: v.detach() for k, v in outputs.items()}
+        return loss, {k: v.detach() for k, v in outputs.items()}
 
     def _graph_body(self, static_in):
         """One training step on the graph's static input (a batch, or
@@ -461,8 +480,9 @@ class Trainer:
                  if self._dev_data is not None else static_in)
         loss, outputs = self.model(batch, self.global_step, "train")
         loss.backward()
+        loss = self._reduce(loss)
         self.optimizer.step()
-        return {_STEP_LOSS: loss.detach(),
+        return {_STEP_LOSS: loss,
                 **{k: v.detach() for k, v in outputs.items()}}
 
     def _set_lr(self, step: int) -> None:
@@ -548,14 +568,15 @@ class Trainer:
         self.model = model
         self.optimizer = optimizer
         self.device = next(model.parameters()).device
+        if self.mesh is not None and self.mesh.device != self.device:
+            raise ValueError(f"the model is on {self.device}, the mesh's "
+                             f"rank on {self.mesh.device}")
         self._graphs = self.uses_graphs(self.device)
         if self._graphs:
             self._check_graph_optimizer(optimizer)
             self._side_stream = torch.cuda.Stream(self.device)
         if self.device_data:
-            if (torch.distributed.is_available()
-                    and torch.distributed.is_initialized()
-                    and torch.distributed.get_world_size() > 1):
+            if is_distributed():
                 raise ValueError(
                     "trainer.device_data supports single-process runs only "
                     "(the split is placed on one device)")
@@ -576,6 +597,8 @@ class Trainer:
 
         if self.checkpoint:
             self.checkpoint.restore(self, model, optimizer)
+        if self.mesh is not None:
+            replicate(model, self.mesh)
 
         model.train()
         if self.test_only:

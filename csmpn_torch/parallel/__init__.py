@@ -1,3 +1,4 @@
-"""Scale-out of the EGCL layer: the partition of a complex's edges by
-target node, and the one-card streaming path over its chunks
+"""Scale-out: data parallel over a ``torch.distributed`` process group, one
+process per card (``mesh``), and the partition of a complex's edges by
+target node with the one-card streaming path over its chunks
 (``edge_partition``)."""

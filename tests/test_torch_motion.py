@@ -171,11 +171,12 @@ def test_device_cuda_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("knob,value", [("mesh", object())])
 def test_trainer_relay_knobs_raise(knob, value):
-    """Of the reference's trainer knobs only the mesh is not ported
-    (tests/test_torch_trainer_knobs.py holds the others)."""
+    """The trainer's mesh takes a parallel.mesh.Mesh and raises on any
+    other object (tests/test_torch_trainer_knobs.py holds the other knobs,
+    tests/test_torch_data_parallel.py the mesh)."""
     from csmpn_torch.engineer.trainer import Trainer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Mesh"):
         Trainer(**{knob: value})
 
 

@@ -233,11 +233,12 @@ def test_max_rss_gb_stops(ds, tmp_path, capsys):
 
 
 def test_trainer_mesh_raises_and_donate_is_ignored(ds, tmp_path):
-    """mesh (data parallel) is not ported; donate has no PyTorch meaning
-    and either value trains the same."""
+    """mesh (data parallel, tests/test_torch_data_parallel.py) raises
+    unless it is a parallel.mesh.Mesh; donate has no PyTorch meaning and
+    either value trains the same."""
     from csmpn_torch.engineer.trainer import Trainer
 
-    with pytest.raises(NotImplementedError, match="S5b"):
+    with pytest.raises(TypeError, match="make_mesh"):
         Trainer(mesh=object())
     _, kept, _ = _train(ds, tmp_path, 2, steps=4, donate=True)
     _, donated, _ = _train(ds, tmp_path, 2, steps=4, donate=False)
