@@ -12,12 +12,15 @@
    does not fit whole, and K2p) and the dense fused forward (K4 at Cl(3)
    and Cl(2), whose fast mode sums sub-windows where a window's sum does
    not fit);
-2. the envelope probe (P1 copy, P2 resident matrix product in bf16 and
-   tf32 on the tensor cores and fp32 FFMA, P3 FMA chain): each kernel
-   against its plain version at tools/mxu_probe.py's sizes (P1 bitwise at
-   every tile height), two launches bitwise equal, then the probe through
-   its entry point with its launches counted, the plain and library
-   times, the bounds, and the measured envelope against the data sheet;
+2. the envelope probe (P1 copy on TMA bulk copies, P2 resident matrix
+   product in bf16 and tf32 on wgmma and fp32 FFMA, P3 FMA chain): the
+   SASS of the built library (wgmma's HGMMA and no HMMA in P2's tensor-core
+   kernels, the bulk copy UBLKCP in P1's), each kernel against its plain
+   version at tools/mxu_probe.py's sizes (P1 bitwise at every tile height
+   and at a ragged R = 131,109), two launches bitwise equal, then the
+   probe through its entry point with its launches counted, the plain and
+   library times, the bounds, and the measured envelope against the data
+   sheet;
    every later bound is also given against that envelope;
 3. holds each kernel against its plain PyTorch version on the card, in
    exact and fast mode, with stated tolerances: K1 (bf16 and fp32 rows,
@@ -297,7 +300,7 @@ TOL = {  # max |kernel - plain| allowed, relative to max |plain|: fp32
     "k5p_route": 1e-4,
 }
 # the measured envelope of this card (phase_envelope): "bytes" (P1's best
-# copy bandwidth, bytes/s), "bf16" (P2's bf16 mma.sync rate) and "fp32"
+# copy bandwidth, bytes/s), "bf16" (P2's bf16 wgmma rate) and "fp32"
 # (P3's FMA rate), FLOP/s; bound() sets each kernel's least time by it
 ENVELOPE = {}
 # the hulls task (configs/hulls.yaml, HullsModel defaults): Cl(5,0),
@@ -1116,10 +1119,12 @@ def phase_pair_fused_instances(dev, gen, results):
 
 def kernel_name(ptxas_line: str) -> str:
     """'name<args>' from ptxas's 'Compiling entry function' line: the
-    kernel's name (lower-case words ending in '_kernel', which no digit of
-    the mangled prefix can join), its algebra (Cl2E ... Cl5E), its bool
-    (Lb0E / Lb1E) and int (Li16E) template arguments, in their order."""
-    m = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)(I\w*?Ev)?", ptxas_line)
+    kernel's name (lower-case words ending in '_kernel', a word's digits
+    after its letters, as in 'tf32', so that no digit of the mangled
+    prefix can join), its algebra (Cl2E ... Cl5E), its bool (Lb0E / Lb1E)
+    and int (Li16E) template arguments, in their order."""
+    m = re.search(r"([a-z]+(?:_[a-z]+[0-9]*)*_kernel)(I\w*?Ev)?",
+                  ptxas_line)
     if m is None:
         return ptxas_line.strip()[-40:]
     args = ["".join(a) for a in re.findall(r"(Cl\d)E|Lb([01])E|Li(\d+)E",
@@ -1174,26 +1179,108 @@ def bound(bytes_moved: float, flops: float, peak: float):
 
 # ------------------------------------------------- P1-P3: the envelope probe
 
+def sass_opcodes(lib: str) -> dict:
+    """{kernel name: Counter of SASS opcodes (without modifiers)} of the
+    kernels in the shared library ``lib``, read by cuobjdump -sass."""
+    from csmpn_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(kernel_name(m.group(1)),
+                                   collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_]*)", line)
+        if m and cur is not None:
+            cur[m.group(1)] += 1
+    return funcs
+
+
+def check_envelope_sass():
+    """P2's tensor-core kernels run on wgmma (HGMMA) and hold no mma.sync
+    (HMMA); no kernel of envelope.cu holds HMMA; P1's kernel holds the
+    bulk copy (UBLKCP)."""
+    from csmpn_torch.ops import _build
+
+    funcs = sass_opcodes(_build._lib_path("envelope"))
+    wg = {k: c for k, c in funcs.items() if "resident_wgmma" in k}
+    probe = ("resident_wgmma_bf16_kernel<4>", "resident_wgmma_tf32_kernel<4>")
+    if not all(k in wg for k in probe):
+        raise AssertionError(f"P2's wgmma kernels {probe} not found in "
+                             f"libenvelope: {sorted(funcs)}")
+    for name, ops in sorted(funcs.items()):
+        if ops["HMMA"]:
+            raise AssertionError(f"{name}: {ops['HMMA']} HMMA (mma.sync)")
+        if name in wg and not ops["HGMMA"]:
+            raise AssertionError(f"{name}: no HGMMA; opcodes "
+                                 f"{sorted(ops)}")
+    tma = [c for k, c in funcs.items() if k.startswith("copy_scale")]
+    if len(tma) != 1 or not tma[0]["UBLKCP"]:
+        uops = sorted(o for c in tma for o in c if o[0] == "U")
+        raise AssertionError(f"P1 kernel: no UBLKCP; its U opcodes {uops}")
+    for name in probe:   # K = 256, the probe's instances
+        print(f"  SASS {name}: HGMMA x {wg[name]['HGMMA']}, HMMA x 0, "
+              f"{sum(wg[name].values())} instructions")
+    print(f"  SASS copy_scale_kernel: UBLKCP x {tma[0]['UBLKCP']}; "
+          f"{len(wg)} P2 wgmma kernels hold HGMMA, none of "
+          f"{len(funcs)} kernels HMMA")
+
+
 def phase_envelope(dev, results):
     """P1-P3 against their plain versions at the envelope probe's default
-    sizes (P1 bitwise at every tile height), two launches bitwise equal;
-    then the probe through its entry point with every count set to 0 just
-    before and read just after, the plain versions' times, the bounds, and
-    the measured envelope, which sets ENVELOPE.  Returns the launches."""
+    sizes (P1 bitwise at every tile height and at a ragged R), two
+    launches bitwise equal, the SASS of the built kernels; then the probe
+    through its entry point with every count set to 0 just before and read
+    just after, the plain versions' times, the bounds, and the measured
+    envelope, which sets ENVELOPE.  Returns the launches."""
     from csmpn_torch.ops import probe_kernels as pk
     from csmpn_torch.tools import envelope_probe as ep
 
     print("P1-P3 (envelope probe) vs plain at tools/mxu_probe.py's sizes")
+    check_envelope_sass()
     reps = 32
     x, a, b, v = (t.to(dev) for t in ep.inputs())
+    gen = torch.Generator().manual_seed(0)
+    ragged = torch.randn(131109, ep.COLS, generator=gen).to(dev)
+    for xx in (x, ragged):
+        ref = pk.copy_scale_plain(xx)
+        for tile in ep.TILES:
+            out, again = pk.copy_scale(xx, tile), pk.copy_scale(xx, tile)
+            if not (torch.equal(out, ref) and torch.equal(out, again)):
+                raise AssertionError(
+                    f"P1 tile {tile} R {xx.shape[0]}: not x * 2 bit for "
+                    f"bit, or two launches differ")
+        print(f"  P1 copy ({xx.shape[0]} x 256 fp32), tiles {ep.TILES}: "
+              f"bitwise equal to x * 2, two launches bitwise equal")
+    # P1's claim counters: launches on two streams at once, and a captured
+    # launch replayed beside eager ones, each pair of its own
     ref = pk.copy_scale_plain(x)
-    for tile in ep.TILES:
-        out, again = pk.copy_scale(x, tile), pk.copy_scale(x, tile)
-        if not (torch.equal(out, ref) and torch.equal(out, again)):
-            raise AssertionError(f"P1 tile {tile}: not x * 2 bit for bit, or "
-                                 f"two launches differ")
-    print(f"  P1 copy (131072 x 256 fp32), tiles {ep.TILES}: bitwise equal "
-          f"to x * 2, two launches bitwise equal")
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = pk.copy_scale(x, 64)
+    torch.cuda.synchronize(dev)
+    outs = []
+    for i in range(8):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(pk.copy_scale(x, 64))
+    for _ in range(3):
+        with torch.cuda.stream(streams[0]):
+            graph.replay()
+        with torch.cuda.stream(streams[1]):
+            outs.append(pk.copy_scale(x, 64))
+    torch.cuda.synchronize(dev)
+    if not all(torch.equal(o, ref) for o in outs + [captured]):
+        raise AssertionError("P1 on two streams, or replayed beside an "
+                             "eager launch: not x * 2 bit for bit")
+    print("  P1 on two streams at once and replayed from a graph beside "
+          "eager launches: bitwise equal to x * 2")
+    del ragged, ref, outs, captured, graph
     errs = {}
     for mode in pk.MODES:
         out = pk.resident_matmul(a, b, reps, mode)
@@ -1254,7 +1341,7 @@ def phase_envelope(dev, results):
           f"{plain_p3 * 1e3:.1f} us  bound {p3_b * 1e3:.1f} us ({p3_by})")
     print(f"  measured envelope vs the data sheet: copy "
           f"{env['copy'] / 1e9:.1f} GB/s of {MEM_BW / 1e9:.0f}; bf16 "
-          f"mma.sync "
+          f"wgmma "
           f"{env['bf16'] / 1e12:.2f} TF/s of {BF16_PEAK / 1e12:.0f}; tf32 "
           f"{env['tf32'] / 1e12:.2f} of {ep.DATA_SHEET['tf32'] / 1e12:.0f}; "
           f"fp32 FFMA GEMM {env['fp32'] / 1e12:.2f} and FMA chain "
@@ -1280,8 +1367,8 @@ def phase_envelope(dev, results):
         bound_ms_by_mode={m: p2_b[m][0] for m in pk.MODES},
         tflops_by_mode=res["resident"]["tflops"],
         launches_by_mode={m: launches[f"p2_{m}"] for m in pk.MODES},
-        shape=f"M, K, N = 512, 256, 2048, {reps} reps; bf16 (mma.sync), "
-              f"tf32 (mma.sync), fp32 (FFMA)")
+        shape=f"M, K, N = 512, 256, 2048, {reps} reps; "
+              + ", ".join(f"{m} ({ep.HOW[m]})" for m in pk.MODES))
     results["p3"] = dict(
         name="fma_chain", route="cuda", source=src, replaces=line + "150",
         max_abs_err=errs["p3"], ms=res["fma"]["ms"], plain_ms=plain_p3,
@@ -3502,7 +3589,8 @@ def main() -> int:
         for line in _build.build_log(name).splitlines():
             if "Compiling entry function" in line:
                 fn = kernel_name(line)
-            elif "registers" in line or "spill" in line:
+            elif ("registers" in line or "spill" in line
+                  or "Performance Loss" in line):
                 print(f"  {name}.cu {fn}: {line.split(':', 1)[-1].strip()}")
     print_dense_smem()
     print_k2_widths()

@@ -1,7 +1,8 @@
-// P1-P3 — the envelope probe's kernels on Hopper (sm_90a): a scaled copy,
-// a resident matrix product on the tensor cores (or the CUDA cores), and a
+// P1-P3 — the envelope probe's kernels on Hopper (sm_90a): a scaled copy
+// on the Tensor Memory Accelerator's bulk copies, a resident matrix
+// product on the warpgroup tensor cores (`wgmma`) or the CUDA cores, and a
 // dependent FMA chain.  Together they measure what this card delivers to a
-// stream, to `mma.sync` and to FFMA, so that a kernel's bound can be set
+// stream, to `wgmma` and to FFMA, so that a kernel's bound can be set
 // against the card's own envelope beside the data sheet's.
 //
 // Replaces: tools/mxu_probe.py, the three Pallas kernels of the TPU's
@@ -17,34 +18,58 @@
 //      time is 2 * R * 256 * 4 bytes over 3.35 TB/s (80.1 us at R = 131,072).
 //   P2 operations: 2 * M * K * N * reps over 989 TFLOP/s (bf16), 495 (tf32)
 //      or 67 (fp32 outside the tensor cores); the operands are read once.
+//      At M, N = 512, 2048 the 128 output tiles of 64 x 128 fill 128 of
+//      the 132 SMs, so the best this grid can do is 128/132 of the rate.
 //   P3 operations: two per FMA over 67 TFLOP/s; its bytes take a third of that.
 //
 // Design.
-//   P1: one CTA per tile of `tile_rows` rows (the TPU probe's tile heights),
-//      16-byte loads and stores, eight loads in flight per thread.  Small
-//      tiles give many CTAs per SM, which is what a stream needs to keep
-//      enough bytes in flight; the large ones show what too few CTAs cost.
-//   P2: one CTA per 64 x 128 output tile (512 x 2048 -> 128 CTAs on 132
-//      SMs).  The CTA stages its A panel (64 x K) and its B panel (K x 128,
-//      stored transposed) in shared memory once, in the operand type; every
-//      rep reads the fragments from there, so nothing streams from device
-//      memory inside the rep loop.  Between reps the CTA perturbs its A
-//      panel in place, rounded in the operand type as the TPU probe does,
-//      behind two barriers.  Rows are padded so that a fragment load (8
-//      rows of 16 bytes) hits 32 distinct banks.
-//        bf16: mma.sync m16n8k16 bf16 -> f32 (the probe's bf16 DEFAULT);
-//        tf32: mma.sync m16n8k8 tf32 -> f32, operands rounded by
-//              cvt.rna.tf32.f32 (what an fp32 product becomes with TF32
-//              allowed: the probe's f32 DEFAULT);
-//      16 warps of 16 x 32 outputs, fragments by ldmatrix, one depth step
-//      loaded ahead: of the warp tilings tried on the H100 (16 x 16 to
-//      64 x 32 outputs a warp, 4 to 32 warps, with and without ldmatrix)
-//      the fastest, though none came near the data sheet's rate.
-//        fp32: FFMA on the CUDA cores (the probe's f32 HIGHEST): A panel
-//              transposed, 8 warps, each thread an 8 x 4 block of the
-//              tile, 2 + 1 16-byte shared loads per 32 FMAs.
-//      mma.sync is not wgmma: it is not expected to reach the data sheet's
-//      tensor-core rates, which are wgmma figures.
+//   P1: a persistent grid of one wave (ops/probe_kernels.copy_grid: as
+//      many CTAs as fit at once, one a SM) whose CTAs claim whole tiles of
+//      `tile_rows` rows, one at a time, from a counter in device memory
+//      (the last CTA to finish sets it back to zero), so that CTAs that
+//      stream faster take more tiles and all finish within a tile of each
+//      other.  A CTA streams its tiles in chunks of at most 32 KB through
+//      a ring of six shared-memory stages: one thread issues the bulk
+//      loads (cp.async.bulk, completion counted in bytes on the stage's
+//      mbarrier) and the bulk stores, and all threads double the stage in
+//      shared memory between the two.  A stage is refilled once its store
+//      has read it (bulk wait_group.read); five loads stay in flight, and
+//      no byte passes through registers on its way in or out.
+//      Tried on the H100 and dropped (times in PERF.md): the previous
+//      kernel's 16-byte loads and stores (eight in flight a thread) on the
+//      same one-wave grid with loads that skip L1 and streaming stores
+//      (ld.global.nc.L1::no_allocate, st.global.cs), 5% slower at 64-row
+//      tiles and 1.4x at 4096; and a fixed-stride walk of the tiles in
+//      either form, which lost ~4% to the CTAs that fall behind at the end.
+//   P2 bf16 / tf32: one CTA per 64 x 128 output tile (512 x 2048 -> 128
+//      CTAs on 132 SMs), one warpgroup on n128, `wgmma.mma_async`
+//      m64n128k16 (bf16) or m64n128k8 (tf32, operands rounded by
+//      cvt.rna.tf32.f32: what an fp32 product becomes with TF32 allowed,
+//      the probe's f32 DEFAULT), A from registers, fp32 sums in registers.
+//      B's panel (K x 128) is converted and transposed into shared memory
+//      once, in the canonical K-major layout with the 128-byte swizzle
+//      (wgmma.cuh), by 16-byte loads and stores, since TMA neither
+//      converts nor transposes.  The products of a rep are issued back to
+//      back in groups; A's perturbation for the next rep waits only for the
+//      group that read the values it changes, so it overlaps the other
+//      groups' products, and the rep loop holds no barrier.
+//        bf16: each thread holds its k16 fragments (K/4 registers) and
+//          perturbs them in place, half of K at a time.
+//        tf32: the thread keeps the fp32 values of its k8 fragments (K/2
+//          registers) and rounds them, two k-steps a group, into one of two
+//          fragment buffers, so that the rounded copy of all of A (another
+//          K/2) never has to be held.
+//      K % 64 == 0 and K <= 256 (one instance per K / 64).  Tried on the
+//      H100 and dropped (times in PERF.md): two warpgroups on the n64
+//      halves, each holding all of A (bf16 4% slower), and A from shared
+//      memory through a descriptor, perturbed in registers and written
+//      back behind a barrier of the warpgroups, on one warpgroup or two
+//      (bf16 1.2-1.3x, tf32 1.3-1.8x slower: the products then read A and
+//      B from shared memory, up to 128 bytes a clock in tf32 at n64, the
+//      SM's whole rate).
+//   P2 fp32: FFMA on the CUDA cores (the probe's f32 HIGHEST): A panel
+//      transposed, 8 warps, each thread an 8 x 4 block of the tile, 2 + 1
+//      16-byte shared loads per 32 FMAs.
 //   P3: each thread carries 8 independent elements (two float4) through
 //      the dependent chain, so a warp has 8 FMAs to issue per step.
 
@@ -52,35 +77,126 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "mma.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 // ------------------------------------------------------------------ P1
 
 constexpr int kCopyThreads = 256;
-constexpr int kCopyUnroll = 8;
+constexpr int kStages = 6;          // the ring
+constexpr int kStageBytes = 32768;
+// the ring, then a stage's mbarrier and chunk each
+constexpr int kCopySmem = kStages * (kStageBytes + 8 + 16);
 
-__global__ void __launch_bounds__(kCopyThreads)
-copy_scale_kernel(const float4* __restrict__ x, float4* __restrict__ o,
-                  int64_t rows, int row_vec, int tile_rows) {
-  const int64_t r0 = (int64_t)blockIdx.x * tile_rows;
-  const int64_t r1 = r0 + tile_rows < rows ? r0 + tile_rows : rows;
-  const int64_t base = r0 * row_vec;
-  const int64_t n = (r1 - r0) * row_vec;
-  for (int64_t i = threadIdx.x; i < n; i += kCopyThreads * kCopyUnroll) {
-    float4 v[kCopyUnroll];
-#pragma unroll
-    for (int u = 0; u < kCopyUnroll; ++u) {
-      const int64_t j = i + u * kCopyThreads;
-      v[u] = j < n ? __ldg(x + base + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+// A chunk of P1's copy: its byte offset and size (0: no more chunks).
+struct Chunk {
+  int64_t pos;
+  uint32_t bytes;
+};
+
+// The producer's walk: whole tiles claimed one at a time from a counter in
+// device memory (claims[0]), each cut into chunks of at most kStageBytes
+// (multiples of 16 bytes, none crossing a tile); ops/probe_kernels.
+// copy_chunks mirrors the cut.
+struct TileClaims {
+  int64_t tile, off, tiles, rows, row_bytes;
+  int tile_rows;
+  unsigned* claims;
+  __device__ TileClaims(int64_t rows_, int64_t row_bytes_, int tile_rows_,
+                        unsigned* claims_)
+      : tile(0), off(0), tiles((rows_ + tile_rows_ - 1) / tile_rows_),
+        rows(rows_), row_bytes(row_bytes_), tile_rows(tile_rows_),
+        claims(claims_) {}
+  __device__ void claim() {
+    off = 0;
+    tile = atomicAdd(claims, 1u);
+  }
+  __device__ bool done() const { return tile >= tiles; }
+  __device__ int64_t tile_bytes() const {
+    const int64_t left = rows - tile * tile_rows;
+    return (left < tile_rows ? left : tile_rows) * row_bytes;
+  }
+  __device__ Chunk chunk() const {
+    const int64_t left = tile_bytes() - off;
+    return {tile * tile_rows * row_bytes + off,
+            (uint32_t)(left < kStageBytes ? left : kStageBytes)};
+  }
+  __device__ void next() {
+    off += kStageBytes;
+    if (off >= tile_bytes()) claim();
+  }
+};
+
+// Stage s's next chunk, by thread 0: its place and size in meta[s], then
+// the bulk load, counted on full[s]; past the last chunk a chunk of size 0
+// and a plain arrival, which releases the consumers.
+__device__ __forceinline__ void produce(TileClaims& ld, const char* src,
+                                        unsigned char* stage, Chunk* meta,
+                                        uint64_t* full) {
+  if (ld.done()) {
+    meta->bytes = 0;
+    tma::mbar_arrive(full);
+    return;
+  }
+  const Chunk c = ld.chunk();
+  *meta = c;
+  tma::mbar_expect_tx(full, c.bytes);
+  tma::bulk_load(stage, src + c.pos, c.bytes, full);
+  ld.next();
+}
+
+__global__ void __launch_bounds__(kCopyThreads, 1)
+copy_scale_kernel(const float* __restrict__ x, float* __restrict__ o,
+                  int64_t rows, int row_bytes, int tile_rows,
+                  unsigned* claims) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+  Chunk* meta = reinterpret_cast<Chunk*>(full + kStages);
+  const char* src = reinterpret_cast<const char*>(x);
+  char* dst = reinterpret_cast<char*>(o);
+  TileClaims ld(rows, row_bytes, tile_rows, claims);   // thread 0's
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) tma::mbar_init(&full[s], 1);
+    tma::mbar_init_fence();
+    ld.claim();
+    for (int s = 0; s < kStages; ++s)
+      produce(ld, src, ring + s * kStageBytes, &meta[s], &full[s]);
+  }
+  __syncthreads();
+  for (int64_t j = 0;; ++j) {
+    const int s = (int)(j % kStages);
+    unsigned char* buf = ring + s * kStageBytes;
+    tma::mbar_wait(&full[s], (uint32_t)(j / kStages) & 1);
+    const Chunk c = meta[s];
+    if (c.bytes == 0) break;
+    float4* v = reinterpret_cast<float4*>(buf);
+    for (int i = threadIdx.x; i < (int)(c.bytes >> 4); i += kCopyThreads) {
+      const float4 u = v[i];
+      v[i] = make_float4(u.x * 2.f, u.y * 2.f, u.z * 2.f, u.w * 2.f);
     }
-#pragma unroll
-    for (int u = 0; u < kCopyUnroll; ++u) {
-      const int64_t j = i + u * kCopyThreads;
-      if (j < n)
-        o[base + j] = make_float4(v[u].x * 2.f, v[u].y * 2.f, v[u].z * 2.f,
-                                  v[u].w * 2.f);
+    tma::fence_proxy_async();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      tma::bulk_store(dst + c.pos, buf, c.bytes);
+      tma::bulk_commit();
+      if (j > 0) {
+        // chunk j - 1's stage is free once its store no longer reads it:
+        // at most one group (chunk j's) may still be reading
+        const int r = (int)((j - 1) % kStages);
+        tma::bulk_wait_read<1>();
+        produce(ld, src, ring + r * kStageBytes, &meta[r], &full[r]);
+      }
+    }
+  }
+  if (threadIdx.x == 0) {
+    tma::bulk_wait_all();
+    // the last CTA to finish resets the counters for the next launch
+    __threadfence();
+    if (atomicAdd(claims + 1, 1u) == gridDim.x - 1) {
+      claims[0] = 0;
+      claims[1] = 0;
     }
   }
 }
@@ -89,8 +205,6 @@ copy_scale_kernel(const float4* __restrict__ x, float4* __restrict__ o,
 
 constexpr int kTileM = 64;
 constexpr int kTileN = 128;
-constexpr int kMmaWarpsN = 4;      // mma: 4 x 4 warps of 16 x 32 outputs
-constexpr int kMmaThreads = 32 * (kTileM / 16) * kMmaWarpsN;
 constexpr int kFfmaThreads = 256;  // FFMA: 8 warps of 8 x 128 outputs
 constexpr float kEps = 1e-7f;      // the probe's perturbation
 
@@ -100,181 +214,278 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return r;
 }
 
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// The operand type of each mode: bf16 values, or fp32 values (tf32 mode
-// rounds them to tf32 where they enter the tensor cores; B, which never
-// changes, is rounded once when it is staged).  perturb() applies
-// a <- a + a * eps to 16 bytes of A, each operation rounded in the
-// operand type.
-template <bool TF32> struct Operand;
-template <> struct Operand<false> {
-  using T = __nv_bfloat16;
-  static constexpr int kStep = 16;   // mma depth
-  static constexpr int kPad = 8;     // row stride K + 8 halves: 4 words mod 32
-  __device__ static T cvt_b(float x) { return __float2bfloat16_rn(x); }
-  __device__ static void store4(T* p, float4 v) {   // p 8-byte aligned
-    __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-    __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
-    uint2 u;
-    u.x = *reinterpret_cast<uint32_t*>(&lo);
-    u.y = *reinterpret_cast<uint32_t*>(&hi);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-  // bf16 products and sums, each rounded to bf16 (a * 1e-7 lies below
-  // half an ulp of a, so a keeps its value, as on the TPU)
-  __device__ static void perturb(uint4& v) {
-    const __nv_bfloat162 eps = __float2bfloat162_rn(kEps);
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __hadd2(h[i], __hmul2(h[i], eps));
-  }
-};
-template <> struct Operand<true> {
-  using T = float;
-  static constexpr int kStep = 8;
-  static constexpr int kPad = 4;     // row stride K + 4 words: 4 mod 32
-  __device__ static T cvt_b(float x) { return __uint_as_float(to_tf32(x)); }
-  __device__ static void store4(T* p, float4 v) {   // p 16-byte aligned
-    *reinterpret_cast<float4*>(p) = v;
-  }
-  __device__ static void perturb(uint4& v) {
-    float* f = reinterpret_cast<float*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) f[i] = __fadd_rn(f[i], __fmul_rn(f[i], kEps));
-  }
-};
-
-// One warp's operand fragments for one mma depth step: one m16 tile of A
-// and four n8 tiles of B (layouts in mma.cuh).  ldmatrix loads A's four
-// 8 x 8 matrices in one instruction (rows 0-7 / 8-15 at depth 0 / 8 halves,
-// 16 bytes) and two n8 tiles of B in another, B being stored transposed.
-// In tf32 the same 16 bytes hold 4 floats, which is the tf32 layout.
-struct Frags {
-  uint32_t a[4];
-  uint32_t b[4][2];
-};
-
-// As and Bs point at the warp's first A row and first B column (a row of
-// B transposed), at depth k0.
-template <bool TF32, typename T>
-__device__ __forceinline__ void load_frags(Frags& f, const T* As, const T* Bs,
-                                           int ld, int lane) {
-  const char* pa = reinterpret_cast<const char*>(As + (lane & 15) * ld) +
-                   (lane >> 4) * 16;
-  ldsm4(f.a, pa);
-  if constexpr (TF32) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) f.a[q] = to_tf32(__uint_as_float(f.a[q]));
-  }
-  const int j = lane >> 3;   // (n tile, depth half) of the matrix addressed
-#pragma unroll
-  for (int nt = 0; nt < 4; nt += 2) {
-    const char* pb = reinterpret_cast<const char*>(
-                         Bs + ((nt + (j >> 1)) * 8 + (lane & 7)) * ld) +
-                     (j & 1) * 16;
-    uint32_t r[4];
-    ldsm4(r, pb);
-    f.b[nt][0] = r[0];
-    f.b[nt][1] = r[1];
-    f.b[nt + 1][0] = r[2];
-    f.b[nt + 1][1] = r[3];
-  }
+// a <- a + a * eps, each operation rounded in the operand type: two bf16
+// values (a * 1e-7 lies below half an ulp of a, so a keeps its value, as
+// on the TPU), or one fp32 value.
+__device__ __forceinline__ uint32_t perturb_bf16x2(uint32_t u) {
+  __nv_bfloat162 h = *reinterpret_cast<__nv_bfloat162*>(&u);
+  h = __hadd2(h, __hmul2(h, __float2bfloat162_rn(kEps)));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+__device__ __forceinline__ uint32_t perturb_f32(uint32_t u) {
+  const float f = __uint_as_float(u);
+  return __float_as_uint(__fadd_rn(f, __fmul_rn(f, kEps)));
+}
+__device__ __forceinline__ void perturb_f32(uint4& v) {
+  v.x = perturb_f32(v.x);
+  v.y = perturb_f32(v.y);
+  v.z = perturb_f32(v.z);
+  v.w = perturb_f32(v.w);
 }
 
-template <bool TF32>
-__device__ __forceinline__ void mma_frags(float (&acc)[4][4], const Frags& f) {
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    if constexpr (TF32)
-      mma_tf32(acc[nt], f.a, f.b[nt]);
-    else
-      mma_bf16(acc[nt], f.a, f.b[nt]);
-  }
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  const uint32_t s = tma::smem_addr(p);
+  return p + (((s + 1023u) & ~1023u) - s);
 }
 
-// Staging reads A and B as 16-byte vectors: A along its rows; B with the
-// lanes along k, so that the transposed stores are conflict-free.  The
-// depth loop holds two fragment sets, loading one step ahead of the
-// products (K % (2 * kStep) == 0).
-template <bool TF32>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-resident_mma_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                    float* __restrict__ out, int K, int N, int reps) {
-  using Op = Operand<TF32>;
-  using T = typename Op::T;
-  constexpr int kWarps = kMmaThreads / 32;
-  constexpr int kVec = 16 / sizeof(T);
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ld = K + Op::kPad;
-  T* As = reinterpret_cast<T*>(smem);   // [kTileM][ld] row-major
-  T* Bs = As + kTileM * ld;             // [kTileN][ld]: B transposed
-  const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kTileM; r += kWarps)
-    for (int k = lane * 4; k < K; k += 128)
-      Op::store4(As + r * ld + k, __ldg(reinterpret_cast<const float4*>(
-                                      a + (int64_t)(m0 + r) * K + k)));
-  for (int n = warp * 4; n < kTileN; n += kWarps * 4)
-    for (int k = lane; k < K; k += 32) {
-      const float4 v = __ldg(
-          reinterpret_cast<const float4*>(b + (int64_t)k * N + n0 + n));
-      Bs[n * ld + k] = Op::cvt_b(v.x);
-      Bs[(n + 1) * ld + k] = Op::cvt_b(v.y);
-      Bs[(n + 2) * ld + k] = Op::cvt_b(v.z);
-      Bs[(n + 3) * ld + k] = Op::cvt_b(v.w);
+__device__ __forceinline__ float comp(const float4& v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+__host__ __device__ constexpr int gcd(int a, int b) {
+  return b == 0 ? a : gcd(b, a % b);
+}
+
+constexpr int kBatch = 2;   // B units whose loads fly together in stage_b
+
+// B's panel: the tile's 128 columns of b (K x N fp32, row-major) as 128
+// rows of K operands, swizzled K-major.  Lane l reads columns 4l..4l+3 of
+// kPer consecutive rows of b (16-byte loads, a warp 512 contiguous bytes a
+// row), kBatch units' loads in flight before any is converted, and writes
+// the four 16-byte units of those columns, starting at column (l / 2) % 4
+// so that the eight lanes of each store phase hit eight distinct rows
+// modulo 8, hence eight distinct bank groups.
+template <bool TF32, int K, int kThreads>
+__device__ __forceinline__ void stage_b(const float* __restrict__ b,
+                                        unsigned char* Bs, int N, int n0) {
+  constexpr int kPer = TF32 ? 4 : 8;   // operands a 16-byte unit
+  constexpr int kItems = 32 * (K / kPer) / kThreads;   // units a thread
+  constexpr int kNB = gcd(kItems, kBatch);   // batches dividing the units
+  const int lane = threadIdx.x & 31;
+#pragma unroll 1
+  for (int i0 = 0; i0 < kItems; i0 += kNB) {
+    float4 v[kNB][kPer];
+#pragma unroll
+    for (int i = 0; i < kNB; ++i) {
+      const int c = ((i0 + i) * kThreads + threadIdx.x) >> 5;
+      const float* p = b + (int64_t)c * kPer * N + n0 + 4 * lane;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        v[i][j] = __ldg(reinterpret_cast<const float4*>(p + (int64_t)j * N));
     }
-  __syncthreads();
-
-  const int wm = (warp / kMmaWarpsN) * 16, wn = (warp % kMmaWarpsN) * 32;
-  const T* Aw = As + wm * ld;
-  const T* Bw = Bs + wn * ld;
-  float acc[4][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < kNB; ++i) {
+      const int c = ((i0 + i) * kThreads + threadIdx.x) >> 5;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
-
-  constexpr int S = Op::kStep;
-  for (int rep = 0; rep < reps; ++rep) {
-    Frags f0, f1;
-    load_frags<TF32>(f0, Aw, Bw, ld, lane);
-    for (int k0 = 0; k0 < K; k0 += 2 * S) {
-      load_frags<TF32>(f1, Aw + k0 + S, Bw + k0 + S, ld, lane);
-      mma_frags<TF32>(acc, f0);
-      if (k0 + 2 * S < K)
-        load_frags<TF32>(f0, Aw + k0 + 2 * S, Bw + k0 + 2 * S, ld, lane);
-      mma_frags<TF32>(acc, f1);
-    }
-    if (rep + 1 < reps) {   // the last rep's perturbation is never read
-      __syncthreads();
-      for (int r = warp; r < kTileM; r += kWarps)
-        for (int k = lane * kVec; k < K; k += 32 * kVec) {
-          uint4* p = reinterpret_cast<uint4*>(As + r * ld + k);
-          uint4 v = *p;
-          Op::perturb(v);
-          *p = v;
+      for (int j = 0; j < 4; ++j) {
+        const int q = (j + (lane >> 1)) & 3;
+        const float4* w = v[i];
+        uint4 u;
+        if constexpr (TF32) {
+          u = make_uint4(to_tf32(comp(w[0], q)), to_tf32(comp(w[1], q)),
+                         to_tf32(comp(w[2], q)), to_tf32(comp(w[3], q)));
+        } else {
+          u = make_uint4(pack_bf16(comp(w[0], q), comp(w[1], q)),
+                         pack_bf16(comp(w[2], q), comp(w[3], q)),
+                         pack_bf16(comp(w[4], q), comp(w[5], q)),
+                         pack_bf16(comp(w[6], q), comp(w[7], q)));
         }
-      __syncthreads();
+        *reinterpret_cast<uint4*>(
+            Bs + wgmma::unit_offset(4 * lane + q, c, kTileN)) = u;
+      }
     }
   }
+}
 
-  const int g = lane >> 2, t = lane & 3;
+// The tile's fp32 sums to `out`: thread (warp w, lane 4g + t) of the
+// warpgroup holds rows r = 16w + g and r + 8 at columns c + 8j, c + 8j + 1.
+__device__ __forceinline__ void store_tile(const float (&d)[64],
+                                           float* __restrict__ out, int N,
+                                           int r, int c) {
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int r = m0 + wm + g, c = n0 + wn + nt * 8 + 2 * t;
-    *reinterpret_cast<float2*>(out + (int64_t)r * N + c) =
-        make_float2(acc[nt][0], acc[nt][1]);
-    *reinterpret_cast<float2*>(out + (int64_t)(r + 8) * N + c) =
-        make_float2(acc[nt][2], acc[nt][3]);
+  for (int j = 0; j < 16; ++j) {
+    *reinterpret_cast<float2*>(out + (int64_t)r * N + c + 8 * j) =
+        make_float2(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<float2*>(out + (int64_t)(r + 8) * N + c + 8 * j) =
+        make_float2(d[4 * j + 2], d[4 * j + 3]);
   }
+}
+
+// Hides a value from the compiler here, so that each product's descriptor
+// is computed just before it is issued, not all hoisted ahead of the
+// products or out of the rep loop, where their 2 registers each (32 or 64
+// in all) would crowd out A.
+__device__ __forceinline__ void opaque(uint32_t& v) {
+  asm volatile("" : "+r"(v));
+}
+
+// k-steps [S0, S1) of one bf16 rep, back to back (issued after
+// wgmma::fence, committed as one group by the caller).
+template <int S0, int S1, int kSteps>
+__device__ __forceinline__ void issue_bf16(float (&d)[64],
+                                           const uint32_t (&a)[kSteps][4],
+                                           uint32_t b_base) {
+#pragma unroll
+  for (int s = S0; s < S1; ++s) {
+    uint32_t bb = b_base;
+    opaque(bb);
+    wgmma::mma_bf16(d, a[s], wgmma::kstep_desc(bb, s, kTileN));
+  }
+}
+
+// bf16.  Warp w holds the k16 fragments of rows 16w..16w+15 of the tile
+// (K/4 registers), each value its own operand.  Between reps a thread
+// perturbs one half of its fragments once that half's group has completed,
+// while the other half's products run.
+template <int KB>
+__global__ void __launch_bounds__(128, 1)
+resident_wgmma_bf16_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           float* __restrict__ out, int N, int reps) {
+  constexpr int K = KB * 64, kSteps = K / 16, kHalf = kSteps / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Bs = align_1024(smem_raw);
+  const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileN;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  stage_b<false, K, 128>(b, Bs, N, n0);
+  uint32_t ar[kSteps][4];
+  const float* a0 = a + (int64_t)(m0 + warp * 16 + g) * K + 2 * t;
+  const float* a1 = a0 + 8 * K;
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    const float2 x0 = __ldg(reinterpret_cast<const float2*>(a0 + 16 * s));
+    const float2 x1 = __ldg(reinterpret_cast<const float2*>(a1 + 16 * s));
+    const float2 x2 = __ldg(reinterpret_cast<const float2*>(a0 + 16 * s + 8));
+    const float2 x3 = __ldg(reinterpret_cast<const float2*>(a1 + 16 * s + 8));
+    ar[s][0] = pack_bf16(x0.x, x0.y);
+    ar[s][1] = pack_bf16(x1.x, x1.y);
+    ar[s][2] = pack_bf16(x2.x, x2.y);
+    ar[s][3] = pack_bf16(x3.x, x3.y);
+  }
+  tma::fence_proxy_async();
+  __syncthreads();
+  const uint32_t b_base = tma::smem_addr(Bs);
+  float acc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+  issue_bf16<0, kHalf>(acc, ar, b_base);
+  wgmma::commit();
+  issue_bf16<kHalf, kSteps>(acc, ar, b_base);
+  wgmma::commit();
+  for (int rep = 1; rep < reps; ++rep) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      wgmma::wait<1>();   // the previous rep's half h has completed
+#pragma unroll
+      for (int s = h * kHalf; s < (h + 1) * kHalf; ++s) {
+        wgmma::fence_operand(ar[s]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ar[s][q] = perturb_bf16x2(ar[s][q]);
+      }
+      wgmma::fence();
+      if (h == 0)
+        issue_bf16<0, kHalf>(acc, ar, b_base);
+      else
+        issue_bf16<kHalf, kSteps>(acc, ar, b_base);
+      wgmma::commit();
+    }
+  }
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+  store_tile(acc, out, N, m0 + warp * 16 + g, n0 + 2 * t);
+}
+
+// Group i (k-steps i*G .. i*G+G-1) of a tf32 rep: wait until the group
+// that last used fragment buffer i % 2 has completed (WAIT), perturb the
+// fp32 values of the group's steps (PERTURB: every rep but the first),
+// round them into the buffer, and issue the group's products.
+template <int G, int I, bool WAIT, bool PERTURB, int kSteps>
+__device__ __forceinline__ void tf32_group(float (&acc)[64],
+                                           uint32_t (&am)[kSteps][4],
+                                           uint32_t (&fr)[2][G][4],
+                                           uint32_t b_base) {
+  if constexpr (WAIT) wgmma::wait<1>();
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    wgmma::fence_operand(fr[I % 2][j]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if constexpr (PERTURB) am[I * G + j][q] = perturb_f32(am[I * G + j][q]);
+      fr[I % 2][j][q] = to_tf32(__uint_as_float(am[I * G + j][q]));
+    }
+  }
+  wgmma::fence();
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    uint32_t bb = b_base;
+    opaque(bb);
+    wgmma::mma_tf32(acc, fr[I % 2][j],
+                    wgmma::kstep_desc(bb, I * G + j, kTileN));
+  }
+  wgmma::commit();
+}
+
+// Groups [I, END) of a rep.
+template <int G, int I, int END, bool FIRST, int kSteps>
+__device__ __forceinline__ void tf32_rep(float (&acc)[64],
+                                         uint32_t (&am)[kSteps][4],
+                                         uint32_t (&fr)[2][G][4],
+                                         uint32_t b_base) {
+  if constexpr (I < END) {
+    tf32_group<G, I, !FIRST || I >= 2, !FIRST>(acc, am, fr, b_base);
+    tf32_rep<G, I + 1, END, FIRST>(acc, am, fr, b_base);
+  }
+}
+
+// tf32.  A thread keeps the fp32 values of its k8 fragments (K/2
+// registers) and rounds them, 2 k-steps at a time, into one of two small
+// fragment buffers: a group is issued while the one before it runs, and
+// its buffer is refilled once the group two back has completed.
+template <int KB>
+__global__ void __launch_bounds__(128, 1)
+resident_wgmma_tf32_kernel(const float* __restrict__ a,
+                           const float* __restrict__ b,
+                           float* __restrict__ out, int N, int reps) {
+  constexpr int K = KB * 64, kSteps = K / 8, G = 2, kGroups = kSteps / G;
+  static_assert(kGroups % 2 == 0, "fragment buffers alternate");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Bs = align_1024(smem_raw);
+  const int m0 = blockIdx.y * kTileM, n0 = blockIdx.x * kTileN;
+  const int warp = threadIdx.x >> 5;
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  stage_b<true, K, 128>(b, Bs, N, n0);
+  uint32_t am[kSteps][4];
+  const float* a0 = a + (int64_t)(m0 + warp * 16 + g) * K + t;
+  const float* a1 = a0 + 8 * K;
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+    am[s][0] = __float_as_uint(__ldg(a0 + 8 * s));
+    am[s][1] = __float_as_uint(__ldg(a1 + 8 * s));
+    am[s][2] = __float_as_uint(__ldg(a0 + 8 * s + 4));
+    am[s][3] = __float_as_uint(__ldg(a1 + 8 * s + 4));
+  }
+  tma::fence_proxy_async();
+  __syncthreads();
+  const uint32_t b_base = tma::smem_addr(Bs);
+  float acc[64];
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+  uint32_t fr[2][G][4];
+  wgmma::fence_operand(acc);
+  tf32_rep<G, 0, kGroups, true>(acc, am, fr, b_base);
+  for (int rep = 1; rep < reps; ++rep)
+    tf32_rep<G, 0, kGroups, false>(acc, am, fr, b_base);
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+  store_tile(acc, out, N, m0 + warp * 16 + g, n0 + 2 * t);
 }
 
 // fp32 on the CUDA cores: warp w owns rows 8w..8w+7 of the tile, lane l
@@ -329,7 +540,7 @@ resident_ffma_kernel(const float* __restrict__ a, const float* __restrict__ b,
       __syncthreads();
       for (int i = threadIdx.x; i < K * kTileM / 4; i += kFfmaThreads) {
         uint4 v = reinterpret_cast<uint4*>(At)[i];
-        Operand<true>::perturb(v);
+        perturb_f32(v);
         reinterpret_cast<uint4*>(At)[i] = v;
       }
       __syncthreads();
@@ -367,55 +578,96 @@ fma_chain_kernel(const float4* __restrict__ x, float4* __restrict__ o,
   o[i + half] = v;
 }
 
+template <bool TF32, int KB>
+void launch_wgmma(const float* a, const float* b, float* out, int m, int n,
+                  int reps, cudaStream_t st) {
+  constexpr int K = KB * 64;
+  const int bytes = kTileN * K * (TF32 ? 4 : 2) + 1024;
+  void (*kern)(const float*, const float*, float*, int, int) =
+      TF32 ? resident_wgmma_tf32_kernel<KB> : resident_wgmma_bf16_kernel<KB>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       bytes);
+  kern<<<dim3(n / kTileN, m / kTileM), 128, bytes, st>>>(a, b, out, n, reps);
+}
+
+template <bool TF32>
+cudaError_t launch_wgmma_k(const float* a, const float* b, float* out, int m,
+                           int k, int n, int reps, cudaStream_t st) {
+  switch (k) {
+    case 64: launch_wgmma<TF32, 1>(a, b, out, m, n, reps, st); break;
+    case 128: launch_wgmma<TF32, 2>(a, b, out, m, n, reps, st); break;
+    case 192: launch_wgmma<TF32, 3>(a, b, out, m, n, reps, st); break;
+    case 256: launch_wgmma<TF32, 4>(a, b, out, m, n, reps, st); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError().
 
-// o = 2 * x, x and o (rows, cols) float32, cols % 4 == 0, 16-byte aligned.
+// How many CTAs of P1 fit on the current device at once: its SMs times the
+// CTAs an SM holds.
+extern "C" int csmpn_probe_copy_slots(int* slots) {
+  int dev = 0, sms = 0, per = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaFuncSetAttribute(copy_scale_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, kCopySmem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, copy_scale_kernel,
+                                                kCopyThreads, kCopySmem);
+  *slots = sms * per;
+  return cudaGetLastError();
+}
+
+// o = 2 * x, x and o (rows, cols) float32, cols % 4 == 0, 16-byte aligned;
+// `grid` CTAs (ops/probe_kernels.copy_grid) claim the tiles of `tile_rows`
+// rows from `claims`, two unsigned counters, zero before the launch and
+// after it, used by no launch that may run at the same time.
 extern "C" int csmpn_probe_copy(const float* x, float* o, int64_t rows,
-                                int cols, int tile_rows, void* stream) {
-  if (rows > 0) {
-    const int64_t grid = (rows + tile_rows - 1) / tile_rows;
-    copy_scale_kernel<<<(unsigned)grid, kCopyThreads, 0,
+                                int cols, int tile_rows, int grid,
+                                unsigned* claims, void* stream) {
+  if (rows > 0 && cols > 0 && grid > 0) {
+    cudaFuncSetAttribute(copy_scale_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         kCopySmem);
+    copy_scale_kernel<<<grid, kCopyThreads, kCopySmem,
                         static_cast<cudaStream_t>(stream)>>>(
-        reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(o),
-        rows, cols / 4, tile_rows);
+        x, o, rows, cols * 4, tile_rows, claims);
   }
   return cudaGetLastError();
 }
 
 // out (m, n) = sum over reps of a_r @ b, a (m, k) and b (k, n) float32 read
-// once; mode 0 bf16 mma.sync, 1 tf32 mma.sync, 2 fp32 FFMA.  m % 64 == 0,
-// n % 128 == 0, k % 32 == 0, and the panels fit shared memory (the wrapper
-// checks; ops/probe_kernels.resident_smem_bytes mirrors the sizes here).
+// once; mode 0 bf16 and 1 tf32 on wgmma, 2 fp32 FFMA.  m % 64 == 0,
+// n % 128 == 0; on wgmma k in {64, 128, 192, 256}, on FFMA k % 32 == 0 with
+// the panels in shared memory (the wrapper checks;
+// ops/probe_kernels.resident_smem_bytes mirrors the sizes here).
 extern "C" int csmpn_probe_resident(const float* a, const float* b, float* out,
                                     int m, int k, int n, int reps, int mode,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = kTileM + kTileN;
-  const int bytes = mode == 0   ? rows * (k + Operand<false>::kPad) * 2
-                    : mode == 1 ? rows * (k + Operand<true>::kPad) * 4
-                                : rows * k * 4;
-  const dim3 grid(n / kTileN, m / kTileM);
-  if (m > 0 && n > 0) {
-    if (mode == 0) {
-      cudaFuncSetAttribute(resident_mma_kernel<false>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      resident_mma_kernel<false><<<grid, kMmaThreads, bytes, st>>>(a, b, out, k,
-                                                                   n, reps);
-    } else if (mode == 1) {
-      cudaFuncSetAttribute(resident_mma_kernel<true>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      resident_mma_kernel<true><<<grid, kMmaThreads, bytes, st>>>(a, b, out, k,
-                                                                  n, reps);
-    } else {
-      cudaFuncSetAttribute(resident_ffma_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-      resident_ffma_kernel<<<grid, kFfmaThreads, bytes, st>>>(a, b, out, k, n,
-                                                             reps);
-    }
+  if (m <= 0 || n <= 0) return cudaGetLastError();
+  if (reps <= 0) {
+    cudaMemsetAsync(out, 0, sizeof(float) * (size_t)m * n, st);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  cudaError_t bad = cudaSuccess;
+  if (mode == 0) {
+    bad = launch_wgmma_k<false>(a, b, out, m, k, n, reps, st);
+  } else if (mode == 1) {
+    bad = launch_wgmma_k<true>(a, b, out, m, k, n, reps, st);
+  } else if (mode == 2) {
+    const int bytes = (kTileM + kTileN) * k * 4;
+    cudaFuncSetAttribute(resident_ffma_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    resident_ffma_kernel<<<dim3(n / kTileN, m / kTileM), kFfmaThreads, bytes,
+                           st>>>(a, b, out, k, n, reps);
+  } else {
+    bad = cudaErrorInvalidValue;
+  }
+  return bad != cudaSuccess ? (int)bad : (int)cudaGetLastError();
 }
 
 // o = x after `steps` of v <- fma(v, 1.0001, 0.001), n % 8 == 0 elements.

@@ -1,6 +1,7 @@
 // Warp-level tensor-core helpers shared by the kernels that use mma.sync:
-// the envelope probe's resident product (envelope.cu, P2) and the dense
-// CEMLP block backward tiles (cemlp_tile.cuh, K3 and K5 in fast mode).
+// the dense CEMLP block tiles (cemlp_tile.cuh: K2, K3, K4 and K5 in fast
+// mode) and the pair form's tiles.  The envelope probe's P2 runs on wgmma
+// (wgmma.cuh), whose per-warp fragments are the ones described here.
 //
 // Fragment layouts of mma.sync (PTX ISA, "Matrix fragments for
 // mma.m16n8k16 / m16n8k8"), g = lane / 4, t = lane % 4:

@@ -5,12 +5,12 @@ The port of ``tools/mxu_probe.py`` (same flags, defaults and inputs:
 ``np.random.RandomState(0)`` in the same draw order).  On the card:
 
   1. stream bandwidth: P1 (``o = x * 2`` over (rows, 256) float32) at the
-     TPU probe's tile heights 256, 1024 and 4096 rows per CTA and at 64
-     (2,048 CTAs at the default rows, several per SM), beside ``x * 2``
-     and ``Tensor.copy_``;
+     TPU probe's tile heights 256, 1024 and 4096 rows per CTA claim and at
+     64, on a grid of one wave (TMA bulk copies through shared memory),
+     beside ``x * 2`` and ``Tensor.copy_``;
   2. resident matrix-product rate: P2 (512 x 256 x 2048, ``reps`` times,
      operands held on chip) in bf16 and tf32 on the tensor cores
-     (``mma.sync``) and fp32 on the CUDA cores (FFMA), each beside
+     (``wgmma``) and fp32 on the CUDA cores (FFMA), each beside
      ``torch.matmul`` at its operand type repeated ``reps`` times;
   3. FMA rate: P3, 256 dependent FMAs on (4096, 512) float32.
 
@@ -38,13 +38,16 @@ from ..ops import probe_kernels as pk
 from .perf_breakdown import card, timed_ms
 
 COLS = 256                    # P1's row width (tools/mxu_probe.py:83)
-TILES = (64, 256, 1024, 4096)  # rows per CTA; 256-4096 are the TPU probe's
+TILES = (64, 256, 1024, 4096)  # rows a tile; 256-4096 are the TPU probe's
 MKN = (512, 256, 2048)        # P2's M, K, N (tools/mxu_probe.py:107)
 FMA_SHAPE = (4096, 512)       # P3's array (tools/mxu_probe.py:147)
 FMA_STEPS = 256
 # H100 SXM data sheet (dense): bytes/s, and FLOP/s by operand type
 DATA_SHEET = {"copy": 3.35e12, "bf16": 989e12, "tf32": 495e12,
               "fp32": 67e12, "fma": 67e12}
+# what P2 runs on in each mode
+HOW = {"bf16": "wgmma m64n128k16 bf16, A from registers",
+       "tf32": "wgmma m64n128k8 tf32, A from registers", "fp32": "FFMA"}
 
 
 def inputs(rows: int = 131072, mkn: Sequence[int] = MKN,
@@ -137,8 +140,11 @@ def measure(device="cuda", rows: int = 131072, steps: int = 16,
     for tile in TILES:
         t = timed(lambda: pk.copy_scale(x, tile))
         copy["ms"][tile], copy["gbps"][tile] = t, gb / t * 1e3
-        ctas = f" ({-(-rows // tile)} CTAs)" if cuda else ""
-        say(f"copy {what} tile {tile:5d}{ctas}: {t:7.3f} ms  "
+        label = ""
+        if cuda:
+            grid = pk.copy_grid(-(-rows // tile), pk.copy_slots(device))
+            label = f" ({grid} CTAs)"
+        say(f"copy {what} tile {tile:5d}{label}: {t:7.3f} ms  "
             f"{gb / t * 1e3:7.1f} GB/s")
     if library:
         y = torch.empty_like(x)
@@ -153,12 +159,10 @@ def measure(device="cuda", rows: int = 131072, steps: int = 16,
     # ---- 2. resident matrix-product rate by operand type
     fl = res["work"]["resident"]["flops"]
     resident = {"ms": {}, "tflops": {}, "library_ms": {}}
-    how = {"bf16": "mma.sync m16n8k16 bf16", "tf32": "mma.sync m16n8k8 tf32",
-           "fp32": "FFMA"}
     for mode in pk.MODES:
         t = timed(lambda: pk.resident_matmul(a, b, reps, mode))
         resident["ms"][mode], resident["tflops"][mode] = t, fl / t / 1e9
-        label = f" ({how[mode]})" if cuda else ""
+        label = f" ({HOW[mode]})" if cuda else ""
         line = (f"resident matmul {mode} {what}{label}: {t:7.3f} ms  "
                 f"{fl / t / 1e9:7.2f} TF/s")
         if library:

@@ -27,7 +27,7 @@ runs fp32 and the composed edge side.  Each stage's least time is
 reported twice: at the H100 SXM data sheet's rates (3.35 TB/s HBM3, 989
 TFLOP/s bf16 dense, 67 TFLOP/s fp32) and at this card's measured
 envelope, which ``tools/envelope_probe.measure`` takes once at start-up
-(P1's best copy bandwidth, P2's bf16 mma.sync rate, P3's FMA rate).  The
+(P1's best copy bandwidth, P2's bf16 wgmma rate, P3's FMA rate).  The
 card's name and power limit head the output.
 """
 from __future__ import annotations
@@ -119,7 +119,7 @@ def main(argv: Optional[Sequence[str]] = None) -> List[tuple]:
     print(f"# device={torch.cuda.get_device_name(dev)} E={E} N={N} C={C} "
           f"D={D} mode={'exact' if args.exact else 'fast'}")
     print(f"# measured envelope: copy {env['copy'] / 1e9:.1f} GB/s, bf16 "
-          f"mma.sync {env['bf16'] / 1e12:.2f} TF/s, fp32 FMA "
+          f"wgmma {env['bf16'] / 1e12:.2f} TF/s, fp32 FMA "
           f"{env['fma'] / 1e12:.2f} TF/s")
     rows = []
 
