@@ -152,14 +152,32 @@
     memory, the launches of a step (64 K4 and 64 K5) and a profiled
     step's device time by kernel; and the same workload forward only,
     whose peak must lie the saved aggregates' bytes below;
-12. prints each task's eager and graph step times beside the aims, the
+12. the edge-partitioned path (S5c) in an NCCL process group of one: at
+    world 1 (262,144 simplices, in-degree 16, hidden 32) the halo and
+    all-gather layers against the flat EGCL layer (exact: the same
+    composed route; fast: K2/K3 and K1 against K4/K5), the two sharded
+    streaming forms against ``streaming_egcl_apply`` on the same 16
+    chunks, and the shard bodies of a 4-shard halo partition on one card
+    (each shard's halo rows indexed from the full h) against the world-1
+    halo layer: outputs, d(h) and every parameter gradient, with each
+    form's launches a step asserted; then the entry points: the mesh
+    sweep (``csmpn_torch.bench_scaling.main --mesh-list 1``, exact) in
+    both exchanges with its lines, peaks and launches a step, and
+    ``run_sharded_streaming`` at the reference's 10M-simplex, 80M-edge
+    workload (64 chunks, fast, fwd+bwd): its line, host times, peak,
+    launches a step, a profiled step and the exchanges' device ops alone;
+    last the host tables of 8 shards x 8 chunks of the 10M complex at
+    locality 4096 beside the reference's record;
+13. prints each task's eager and graph step times beside the aims, the
     kernels JSON line (twenty kernels; beside each kernel's own path, its
     launches on the others: for a graph run the wrappers' launches in the
     run and, as ``launches_per_step_<task>_graph``, its runs a step in
     the profile of replays; ``launches_stream`` and
     ``launches_per_step_stream`` for the streaming run; ``launches_dp``
-    and ``launches_dp_graph`` for the data-parallel runs) and, last, the
-    device JSON line.
+    and ``launches_dp_graph`` for the data-parallel runs;
+    ``launches_sharded`` for the sharded entry points and
+    ``launches_per_step_sharded`` for a sharded streaming step) and,
+    last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
 result line.  It needs one card and imports nothing of JAX.
@@ -3563,6 +3581,326 @@ def phase_streaming(dev, counters):
     return launches, per_step, bitwise
 
 
+# ------------------------ S5c: edge-partitioned message passing across cards
+
+# the world-1 comparisons: 262,144 simplices, in-degree 16, hidden 32; the
+# streamed forms in 16 chunks as phase_streaming's; 4 shards on one card
+SH_NODES, SH_DEGREE, SH_CHUNKS, SH_SHARDS = 262_144, 16, 16, 4
+# the two exchanges' layers and the flat layer (or the streamed layers),
+# world 1: outputs, d(h) and parameter gradients, relative to the largest
+# magnitude.  Exact: the same composed route over the same rows in the
+# same order, expected bitwise; the limits are fp32 order (a chunk's or a
+# shard's padded edges lengthen its last node's K1 segment).  Fast: K2/K3
+# and K1 against K4/K5 (the flat layer), the limits of K4 and K5 against
+# their composed route; the streamed forms run the same kernels on the
+# same chunks and keep the exact limits
+SHARD_TOL = {"exact": {"out": 1e-6, "h_grad": 1e-4, "param_grad": 1e-4},
+             "fast": {"out": 1e-2, "h_grad": 3e-2, "param_grad": 3e-2}}
+# wrapper launches of one layer step of the exchanges' layers with d(h):
+# K2 the edge and node CEMLPs' two blocks, K3 the same backward, K1 the
+# aggregation and the two gathers' backward; without d(h) (the sweep) K1
+# the aggregation alone.  The streamed forms: STREAM_CMP_PER_STEP
+SHARD_PER_STEP = {"k1": 3, "k2": 4, "k3": 4, "k4": 0, "k5": 0}
+SWEEP_PER_STEP = {"k1": 1, "k2": 4, "k3": 4, "k4": 0, "k5": 0}
+# the mesh sweep through its entry point at the comparisons' size (exact,
+# its default: the composed route holds every edge's rows at once)
+SWEEP_ARGV = ["--mesh-list", "1", "--simplices", str(SH_NODES), "--degree",
+              str(SH_DEGREE), "--steps", "3", "--device=cuda"]
+# the reference's workload through run_sharded_streaming: 10M simplices,
+# 80M edges, 64 chunks, fwd+bwd, fast, halo exchange (STREAM_ARGV)
+# the host tables of RESULTS.md:44-47 (the reference's virtual 8-device
+# run): 8 shards x 8 chunks of the 10M complex at locality 4096; the
+# reference printed 49,397 halo rows and 200,704 padded slots
+HOST_ARGS = (10_000_000, 8, 4096, 8, 8)
+HOST_REFERENCE = (49_397, 200_704)
+
+
+def shards_on_one_card(egcl, h, part, node_attr=None, edge_attr=None):
+    """The shard body of each shard of the HaloPartition ``part`` on h's
+    device, one shard after another, its [h_local | halo] taken by
+    indexing the full ``h`` (slot (o, p) of shard s's halo is row o * nps
+    + send_idx[o, s, p], zero where unsent) and its tables from
+    ``ShardArrays``; ``edge_attr`` in slab order.  Returns the shards'
+    outputs concatenated; autograd carries each halo row's cotangent back
+    to the row it was taken from, as the exchange's backward does."""
+    from csmpn_torch.parallel.edge_partition import (
+        ShardArrays, egcl_shard_body)
+
+    n, nps, e2 = part.n_shards, part.nodes_per_shard, part.e_shard
+    base = torch.arange(n, device=h.device)[:, None] * nps
+    outs = []
+    for s in range(n):
+        tabs = ShardArrays(part, s, n, h.device)
+        rows = base + torch.from_numpy(part.send_idx[:, s]).to(h.device)
+        sent = torch.from_numpy(part.send_mask[:, s]).to(h.device)
+        halo = torch.where(sent.reshape(-1, 1, 1),
+                           h.index_select(0, rows.reshape(-1)), 0.0)
+        own = slice(s * nps, (s + 1) * nps)
+        src, dst, mask = tabs.local.chunk(0)
+        outs.append(egcl_shard_body(
+            egcl, h[own], torch.cat([h[own], halo.to(h.dtype)]), src, dst,
+            mask, None if node_attr is None else node_attr[own],
+            None if edge_attr is None else edge_attr[s * e2:(s + 1) * e2]))
+    return torch.cat(outs)
+
+
+def compare_grads(tag, got, ref, tol):
+    """Output, d(h) and every parameter gradient of ``got`` against
+    ``ref`` (each (out, dh, [grads])); prints whether each is bitwise
+    equal."""
+    same = [torch.equal(got[0], ref[0]), torch.equal(got[1], ref[1]),
+            all(torch.equal(a, b) for a, b in zip(got[2], ref[2]))]
+    print(f"  {tag}: bitwise equal: output {same[0]}, d(h) {same[1]}, "
+          f"parameter gradients {same[2]}")
+    check(f"{tag}: output", got[0], ref[0], tol["out"])
+    check(f"{tag}: d(h)", got[1], ref[1], tol["h_grad"])
+    worst = max(rel_err(a, b)[1] for a, b in zip(got[2], ref[2]))
+    ok = worst <= tol["param_grad"] and all(
+        torch.isfinite(a).all().item() for a in got[2])
+    print(f"  {tag}: parameter gradients, worst rel {worst:.3e}  tol "
+          f"{tol['param_grad']:.0e}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: parameter gradients {worst}")
+    return all(same)
+
+
+def sharded_compare(dev, counters, mode):
+    """World 1 on the card, in ``mode``: the halo and all-gather layers
+    against the flat EGCL layer, the two streamed forms against
+    streaming_egcl_apply on the same chunks, then the shard bodies of a
+    4-shard halo partition on one card against the world-1 halo layer;
+    the launches of each form's step."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.nn.egcl import EGCL
+    from csmpn_torch.nn.modules import init_parameters
+    from csmpn_torch.ops.segment import set_aggregation_mode
+    from csmpn_torch.parallel import edge_partition as ep
+
+    set_aggregation_mode(mode)
+    tol = SHARD_TOL[mode]
+    ei = ep.make_synthetic_complex(SH_NODES, SH_DEGREE, seed=0)
+    layer = EGCL(get_algebra((1.0, 1.0, 1.0)), S_HID, S_HID, S_HID,
+                 aggr="mean")
+    init_parameters(layer, torch.Generator().manual_seed(3))
+    layer = layer.to(dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    h = torch.randn((SH_NODES, S_HID, 8), generator=gen, device=dev)
+    g = torch.randn((SH_NODES, S_HID, 8), generator=gen, device=dev)
+
+    def grads(run, want=None, tag=""):
+        for c in counters.values():
+            c.reset()
+        hh = h.clone().requires_grad_(True)
+        layer.zero_grad(set_to_none=True)
+        out = run(hh)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        per_step = {k: c.count for k, c in counters.items()}
+        if want is not None:
+            print(f"  {tag}: launches of a step {per_step} (expected "
+                  f"{want})")
+            if per_step != want:
+                raise AssertionError(f"{tag}: launches {per_step} != "
+                                     f"{want}")
+        return (out.detach(), hh.grad,
+                [p.grad.clone() for p in layer.parameters()])
+
+    ei_t = torch.from_numpy(ei).to(dev)
+    flat = grads(lambda hh: layer(hh, ei_t))
+    forms = {"halo": (ep.partition_edges_halo, ep.sharded_egcl_apply_halo),
+             "allgather": (ep.partition_edges, ep.sharded_egcl_apply)}
+    bitwise = {}
+    halo1 = None
+    for form, (build, apply) in forms.items():
+        part = build(ei, SH_NODES, 1)
+        arrays = ep.ShardArrays(part, 0, 1, dev)
+        got = grads(lambda hh: apply(layer, hh, part, arrays=arrays),
+                    SHARD_PER_STEP, f"{mode} {form}")
+        bitwise[form] = compare_grads(f"{mode} {form} vs the flat layer",
+                                      got, flat, tol)
+        halo1 = got if form == "halo" else halo1
+        del got, arrays
+    del flat
+    part = ep.partition_edges(ei, SH_NODES, SH_CHUNKS)
+    arrays = ep.StreamArrays.of(part, dev)
+    streamed = grads(lambda hh: ep.streaming_egcl_apply(layer, hh, part,
+                                                        arrays=arrays))
+    del arrays
+    stream_forms = {
+        "stream_halo": (lambda: ep.partition_edges_halo_stream(
+            ei, SH_NODES, 1, SH_CHUNKS), ep.sharded_streaming_egcl_apply),
+        "stream_allgather": (lambda: ep.partition_edges(
+            ei, SH_NODES, SH_CHUNKS),
+            ep.sharded_streaming_egcl_apply_allgather)}
+    for form, (build, apply) in stream_forms.items():
+        part = build()
+        arrays = ep.ShardArrays(part, 0, 1, dev)
+        got = grads(lambda hh: apply(layer, hh, part, arrays=arrays),
+                    STREAM_CMP_PER_STEP[mode], f"{mode} {form}")
+        bitwise[form] = compare_grads(
+            f"{mode} {form} vs streaming_egcl_apply", got, streamed,
+            SHARD_TOL["exact"])
+        del got, arrays
+    del streamed
+    part = ep.partition_edges_halo(ei, SH_NODES, SH_SHARDS)
+    print(f"  {SH_SHARDS} shards on one card: h_max {part.h_max}, "
+          f"{int(part.send_mask.sum())} halo rows")
+    got = grads(lambda hh: shards_on_one_card(layer, hh, part))
+    bitwise["4 shards"] = compare_grads(
+        f"{mode} {SH_SHARDS} shards on one card vs the world-1 halo layer",
+        got, halo1, tol if mode == "fast" else SHARD_TOL["exact"])
+    return bitwise
+
+
+def exchange_us(dev, h, part, group=None):
+    """The device ops of one exchange of ``h`` over the partition's tables
+    alone, under the profiler: µs by name (NCCL kernels, copies, the
+    halo's gathers and scatters)."""
+    from torch.profiler import ProfilerActivity, profile
+    from csmpn_torch.parallel import edge_partition as ep
+
+    arrays = ep.ShardArrays(part, 0, 1, dev)
+    ep.exchange(h, arrays, group)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ep.exchange(h, arrays, group)
+        torch.cuda.synchronize()
+    return {e.key[:50]: round(e.self_device_time_total, 2)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("nccl:")}
+
+
+def phase_sharded(dev, counters):
+    """S5c in an NCCL group of one (this process, rank 0 of 1): the
+    world-1 comparisons in both modes, then the entry points: the mesh
+    sweep (mesh size 1) in both exchanges, and run_sharded_streaming at
+    the reference's 10M-simplex, 80M-edge workload (its line, host times,
+    peak, launches a step, a profiled step, the exchanges' NCCL device
+    time); then the 8 x 8 host tables of the 10M complex at locality
+    4096.  The group is destroyed at the end.  Returns (the launches of
+    the entry points, the streamed step's launches, the comparisons'
+    bitwise flags)."""
+    import numpy as np
+    import torch.distributed as dist
+    from csmpn_torch import bench_scaling
+    from csmpn_torch.parallel import edge_partition as ep
+    from csmpn_torch.parallel.mesh import Mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        print(f"sharded (S5c): world 1 in an NCCL group of one; {SH_NODES} "
+              f"simplices, in-degree {SH_DEGREE}, hidden {S_HID}")
+        bitwise = {m: sharded_compare(dev, counters, m)
+                   for m in ("exact", "fast")}
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        sweeps = {}
+        for ex in ("halo", "allgather"):
+            print(f"the mesh sweep via csmpn_torch.bench_scaling.main "
+                  f"{' '.join(SWEEP_ARGV)} --exchange {ex}")
+            sweeps[ex] = bench_scaling.main(SWEEP_ARGV + ["--exchange", ex])
+            torch.cuda.synchronize()
+        print(f"sharded streaming via csmpn_torch.bench_scaling."
+              f"run_sharded_streaming {' '.join(STREAM_ARGV)} (fwd+bwd, "
+              f"fast, halo)")
+        args = bench_scaling.parse_args(STREAM_ARGV)
+        res = bench_scaling.run_sharded_streaming(args, Mesh(0, 1, dev))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {k: c.count for k, c in counters.items()}
+        print(f"  {card_line()}")
+        print(f"  launches during the entry points ({run_s:.1f} s): "
+              f"{launches}")
+        for k in counters:
+            if launches[k] <= 0:
+                raise AssertionError(f"kernel {k} never launched on the "
+                                     f"sharded path")
+        for ex, sw in sweeps.items():
+            line = sw["sizes"][1]["line"]
+            print(f"  sweep {ex}: {line['value']} edges/s, step "
+                  f"{sw['sizes'][1]['step_s']:.4f} s, peak "
+                  f"{sw['sizes'][1]['peak_gb']} GiB, loss "
+                  f"{float(sw['sizes'][1]['loss']):.8f}")
+            for c in counters.values():
+                c.reset()
+            sw["sizes"][1]["step"]()
+            torch.cuda.synchronize()
+            per = {k: c.count for k, c in counters.items()}
+            print(f"  sweep {ex}: launches a step {per} (expected "
+                  f"{SWEEP_PER_STEP})")
+            if per != SWEEP_PER_STEP:
+                raise AssertionError(f"sweep {ex}: launches {per}")
+        # the same layer, h and route: the exchanges differ in where the
+        # source rows lie
+        losses = [float(sw["sizes"][1]["loss"]) for sw in sweeps.values()]
+        print(f"  sweep losses, halo / allgather: {losses}")
+        if not (math.isfinite(losses[0])
+                and abs(losses[0] - losses[1]) <= 1e-6 * abs(losses[0])):
+            raise AssertionError(f"the sweep's losses differ: {losses}")
+        del sweeps
+        torch.cuda.empty_cache()
+        print(f"  host: complex {res['complex_s']:.2f} s, partition "
+              f"{res['partition_s']:.2f} s; first step "
+              f"{res['first_step_s']:.2f} s")
+        print(f"  step {res['step_s']:.4f} s, {res['line']['value']} "
+              f"edges/s, peak {res['peak_gb']} GiB (max_memory_allocated)")
+        step = res["step"]
+        for c in counters.values():
+            c.reset()
+        step()
+        torch.cuda.synchronize()
+        per_step = {k: c.count for k, c in counters.items()}
+        print(f"  launches per step: {per_step} (expected "
+              f"{STREAM_PER_STEP})")
+        if per_step != STREAM_PER_STEP:
+            raise AssertionError(f"sharded streaming launches a step "
+                                 f"{per_step} != {STREAM_PER_STEP}")
+        grads = [p.grad for p in res["egcl"].parameters()]
+        if not all(torch.isfinite(gr).all().item() for gr in grads):
+            raise AssertionError("sharded streaming parameter gradients "
+                                 "not finite")
+        busy_ms, wall_ms, kernels, runs = phase_profile(step, steps=1)
+        n_nccl, nccl_us = nccl_per_step(kernels, runs)
+        names = [n[:60] for n in runs if re.search(NCCL_KERNEL, n)]
+        print(f"  NCCL kernels in the profiled step: {n_nccl:.0f}, "
+              f"{nccl_us:.2f} us ({names})")
+        h = res["h"]
+        # an edge-less partition of the nodes: the all-gather's tables
+        for ex, part in (("halo", res["part"]),
+                         ("allgather", ep.partition_edges(
+                             np.zeros((2, 0), np.int64), h.shape[0], 1))):
+            us = exchange_us(dev, h, part)
+            nccl = sum(v for k, v in us.items() if re.search(NCCL_KERNEL, k))
+            print(f"  the {ex} exchange of the 10M h alone: "
+                  f"{sum(us.values()):.2f} us of device ops, "
+                  f"{nccl:.2f} of them NCCL kernels: {us}")
+        del res, step, grads, h
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    n, deg, loc, shards, chunks = HOST_ARGS
+    t0 = time.perf_counter()
+    ei = ep.make_synthetic_complex(n, deg, seed=0, locality=loc)
+    t1 = time.perf_counter()
+    part = ep.partition_edges_halo_stream(ei, n, shards, chunks)
+    t2 = time.perf_counter()
+    rows = int(part.send_mask.sum())
+    slots = shards * shards * part.h_max
+    print(f"host tables: {shards} shards x {chunks} chunks of {n} simplices "
+          f"at locality {loc}: complex {t1 - t0:.2f} s, partition "
+          f"{t2 - t1:.2f} s; {rows} halo rows, {slots} padded slots "
+          f"(h_max {part.h_max}, e_chunk {part.e_chunk}); the reference's "
+          f"record {HOST_REFERENCE[0]} and {HOST_REFERENCE[1]}")
+    del ei, part
+    return launches, per_step, bitwise
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA card "
@@ -3656,6 +3994,7 @@ def main() -> int:
     runs["bench_cl4"] = phase_bench(cl4_counters, 4, BENCH_CL4_PER_STEP,
                                     idle=cl5_pair)[:2]
     runs["stream"] = phase_streaming(dev, counters)[:2]
+    runs["sharded"] = phase_sharded(dev, counters)[:2]
     # each kernel's launches on the path that runs it (the bench for
     # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2), the bench at
     # Cl(2), Cl(5) and Cl(4) for K4/K5 at Cl(2), K4p/K5p and the Cl(4)

@@ -1,4 +1,4 @@
 """Scale-out: data parallel over a ``torch.distributed`` process group, one
 process per card (``mesh``), and the partition of a complex's edges by
-target node with the one-card streaming path over its chunks
-(``edge_partition``)."""
+target node with the one-card streaming path over its chunks and the
+edge-partitioned layers across ranks (``edge_partition``)."""

@@ -28,7 +28,10 @@ between ``backward`` and the optimizer step, which is what
   collective on the card (inside a captured step too).  Over one rank
   AVG multiplies by 1.0, so the card's check at world 1 cannot tell a
   right reduction from a wrong one; the AVG branch at world > 1 is
-  unmeasured (the CPU tests run the gloo branch at world 2).
+  unmeasured (the CPU tests run the gloo branch at world 2).  With
+  ``reduce="sum"`` it sums instead (one SUM over either backend): the
+  gradient of edge-partitioned message passing, whose loss is the sum of
+  the ranks' terms.
 
 ``batch_sharding``, ``replicated`` and ``shard_stacked`` build JAX
 ``NamedSharding``s and have no counterpart: a process's tensors live on
@@ -124,27 +127,36 @@ def replicate(model: torch.nn.Module, mesh: Mesh) -> None:
 
 @torch.no_grad()
 def all_reduce_grads(params: Iterable[torch.Tensor], mesh: Mesh,
-                     loss: Optional[torch.Tensor] = None):
+                     loss: Optional[torch.Tensor] = None,
+                     reduce: str = "mean", group=None):
     """Averages the gradients of ``params`` over the ranks in place, and
     with them the scalar ``loss`` if one is given; returns the averaged
-    loss (a view of the flat buffer) or None.
+    loss (a view of the flat buffer) or None.  ``reduce="sum"`` sums them
+    instead: the gradient of a loss that is the sum of the ranks' terms,
+    as in edge-partitioned message passing, where each rank
+    backpropagates its own term through replicated parameters.
+    ``group``: the process group of ``mesh`` (the default group when
+    None).
 
     Each dtype's gradients (the loss among them) go into one flat buffer,
     which one all-reduce averages over the ranks (module docstring).
     Every rank must hold a gradient for the same parameters.  Under CUDA
     graph capture the buffer comes from the graph's pool, so a replay
     reduces into the same memory."""
+    if reduce not in ("mean", "sum"):
+        raise ValueError(f"reduce is 'mean' or 'sum', not {reduce!r}")
     grads = [p.grad for p in params if p.grad is not None]
     extra = [] if loss is None else [loss.detach().reshape(1)]
-    avg = dist.get_backend() == "nccl"
+    avg = reduce == "mean" and dist.get_backend(group) == "nccl"
     out = None
     for tensors in _by_dtype(grads + extra).values():
         flat = _flat(tensors)
         if avg:
-            dist.all_reduce(flat, op=dist.ReduceOp.AVG)
+            dist.all_reduce(flat, op=dist.ReduceOp.AVG, group=group)
         else:
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-            flat.div_(mesh.world)
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+            if reduce == "mean":
+                flat.div_(mesh.world)
         if extra and tensors[-1] is extra[0]:
             out = flat[-1]
             tensors = tensors[:-1]

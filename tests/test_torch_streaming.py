@@ -17,8 +17,8 @@ on the CPU.
     backward of the fused kernels a chunk;
   * the wrappers of K1, K2/K3 and K4/K5 raise before any launch on a call
     past the counts their kernels index correctly;
-  * ``python -m csmpn_torch.bench_scaling``'s line, its unported modes and
-    its default device.
+  * ``python -m csmpn_torch.bench_scaling``'s line, its refusals outside a
+    process group and its default device.
 
 Tolerances are tests/test_parallel.py's: forward rtol 2e-4 / atol 2e-5,
 gradients rtol 5e-4 / atol 1e-5, a ``chunk_reduce`` value rtol 1e-5.
@@ -533,12 +533,13 @@ def test_bench_scaling_prints_its_line(capsys, extra):
 
 
 @pytest.mark.parametrize("argv,exc", [
-    (SMALL[:1] + ["--simplices", "64"], NotImplementedError),
-    (SMALL + ["--devices", "2"], NotImplementedError),
+    (SMALL[:1] + ["--simplices", "64"], RuntimeError),
+    (SMALL + ["--devices", "2"], ValueError),
     (SMALL[1:], RuntimeError)])
 def test_bench_scaling_refuses(monkeypatch, argv, exc):
-    """No --stream (the mesh sweep) and --devices > 1 are not ported; the
-    default device needs a card."""
+    """Outside a process group: the mesh sweep (no --stream) needs one,
+    and --devices must be the world size (1); the default device needs a
+    card."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(exc):
         bench_scaling.main(argv)
