@@ -48,8 +48,17 @@
    Cl(2) and K4p/K5p at Cl(5) and Cl(4) at the bench shape of their
    algebra (K4p/K5p held to the composed route there, their plain
    versions timed on the cut graph);
-5. checks the full-width motion model on the card against the same model
-   on the CPU (loss and every gradient, exact mode);
+5. the layer options (phase_layer_options), exact and fast, each on the
+   card against the CPU with its launches counted: a default CEMLP at the
+   motion edge block widths launches K2 and K3 once a block; the same
+   CEMLP with normalization_init=None or fused=False launches none, and
+   with fused=True and normalization_init=None raises ValueError; an EGCL
+   on a motion-size flat graph launches K4/K5 (fast) by default and none
+   of K2-K5 with fused_mlp=False; the flat EGCL at the bench shape with
+   normalization_init=None launches none of K2-K5; MVSiLU("norm") and the
+   SGP with every option at Cl(3) and Cl(5) (no kernel); then checks the
+   full-width motion model on the card against the same model on the CPU
+   (loss and every gradient, exact mode);
 6. runs the motion task through its entry point (fire -> run_task ->
    Trainer.fit) at the configs/motion.yaml widths for 8 training steps in
    the default fast precision, shows that K1, K2 and K3 ran, counts their
@@ -57,7 +66,12 @@
    steps' device time, in which K2 is its row tile kernel
    (``cemlp_fwd_tile_kernel`` after ``pack_tparams_kernel``, never the
    exact-mode ``cemlp_fwd_kernel``; so at NBA, MD17 and the Cl(3) and
-   Cl(2) benches);
+   Cl(2) benches); then starts the same task from its sweep file
+   (phase_sweep: ``build_commands`` of csmpn_torch/configs/motion.yaml
+   with the same overrides), once in-process through fire (K1-K3 counted,
+   its losses against the direct run's) and once through ``python -m
+   csmpn_torch.engineer.sweep`` as a child process (its printed losses
+   against the in-process run's);
 7. the hulls path (Cl(5,0), configs/hulls.yaml widths: hidden 28, 3 EGCL
    layers, batch 16) on a dataset cut to 512/256/256 samples: K1 at
    D = 896 on a real batch's ids; K2p and K3p (the pair-form block
@@ -176,7 +190,9 @@
     ``launches_per_step_stream`` for the streaming run; ``launches_dp``
     and ``launches_dp_graph`` for the data-parallel runs;
     ``launches_sharded`` for the sharded entry points and
-    ``launches_per_step_sharded`` for a sharded streaming step) and,
+    ``launches_per_step_sharded`` for a sharded streaming step;
+    ``launches_sweep`` for the sweep's in-process run and
+    ``launches_layer_options`` for each case of phase_layer_options) and,
     last, the device JSON line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -200,6 +216,7 @@ import time
 
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12        # H100 SXM HBM3, bytes/s
 FP32_PEAK = 67e12       # FP32 outside the tensor cores, FLOP/s
 BF16_PEAK = 989e12      # bf16 tensor cores, dense, FLOP/s
@@ -2104,6 +2121,324 @@ def phase_model(dev, dataroot):
         spec=ds.spec, num_hidden=HID, num_layers=4), "motion", 8)
 
 
+# ------------------------------------------------- the layer options (S7)
+
+# card against the CPU (fp32, the composed layers), relative to max |CPU|:
+# (output, worst parameter or input gradient).  Exact: fp32 summation
+# order through the kernels or the composed layers (TF32 off), the models'
+# limits.  Fast: the block kernels round their products' operands to bf16,
+# and the EGCL's composed route on the card stores h and the messages in
+# bf16 (the gathers, the first linear's einsum, K1's rows), where the CPU
+# computes fp32 throughout: bf16-sized (a CPU emulation of the bf16 input
+# of a composed CEMLP read 5.9e-3 / 7.7e-3)
+LO_TOL = {"exact": (1e-4, 1e-3), "fast": (5e-2, 5e-2)}
+# an EGCL's d(h) in fast mode: where a message input is exactly zero (a
+# self-loop of the bench's random graph without edge attributes: h_i - h_i)
+# MVLayerNorm's gradient is ~1/EPS-sized, and the target and source
+# gathers carry it with opposite signs into two gradient sums that the
+# card stores in bf16 (h is bf16 there), so they cancel only to bf16
+# precision.  A CPU run that stores h in bf16 as the card does read 0.136
+# against the fp32 CPU at the bench shape, as the card did (PERF.md §6)
+LO_EGCL_DH_FAST = 0.2
+LO_KEYS = ("k1", "k2", "k3", "k4", "k5")
+LO_CPU = {}     # (case, seed) -> the CPU's output, d(input), g, gradients
+
+
+def lo_case(name, make, inputs, counters, dev, mode, want, seed,
+            dx_tol=None):
+    """One layer option: the module ``make()`` builds, its parameters from
+    ``seed``, forward and backward of sum(out * g) on the CPU (exact, fp32)
+    and then on the card in ``mode`` with every count set to 0 just before
+    and read just after; the card against the CPU (LO_TOL) and the counts
+    of K2-K5 against ``want`` (kernel -> launches; a kernel not named must
+    be 0; K1's count is read, not held).
+    ``inputs``: CPU tensors, the first of which takes a gradient; integer
+    tensors and None pass as they are.  ``dx_tol``: the limit of that
+    gradient where it is not LO_TOL's.  Returns the counts."""
+    from csmpn_torch.nn.modules import init_parameters
+    from csmpn_torch.ops.segment import set_aggregation_mode
+
+    cpu = make()
+    init_parameters(cpu, torch.Generator().manual_seed(seed))
+    card = make()
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev)
+
+    def run(m, args, g=None):
+        x = args[0].clone().requires_grad_(True)
+        out = m(x, *args[1:])
+        if g is None:
+            g = torch.randn(out.shape, generator=torch.Generator()
+                            .manual_seed(seed + 1))
+        (out.float() * g.to(out.device)).sum().backward()
+        return out.detach().float(), x.grad, g
+
+    set_aggregation_mode("exact")
+    key = (name, seed)
+    if key not in LO_CPU:       # both modes hold the card to one CPU run
+        LO_CPU[key] = run(cpu, inputs) + (
+            [p.grad for p in cpu.parameters()],)
+    ref, dx_ref, g, cpu_grads = LO_CPU[key]
+    on_card = [t.to(dev) if isinstance(t, torch.Tensor) else t
+               for t in inputs]
+    set_aggregation_mode(mode)
+    try:
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        out, dx, _ = run(card, on_card, g)
+        torch.cuda.synchronize()
+        got = {k: c.count for k, c in counters.items()}
+    finally:
+        set_aggregation_mode("exact")
+    tol_out, tol_grad = LO_TOL[mode]
+    check(f"{name} [{mode}] out", out.cpu(), ref, tol_out)
+    check(f"{name} [{mode}] d(input)", dx.cpu(), dx_ref, dx_tol or tol_grad)
+    errs = [(rel_err(pg.grad.cpu(), gc)[1], k) for gc, (k, pg) in
+            zip(cpu_grads, card.named_parameters())]
+    worst = max(errs)
+    ok = worst[0] <= tol_grad
+    print(f"  {name + f' [{mode}] grads':<44s} worst rel {worst[0]:.3e} "
+          f"({worst[1]}) of {len(errs)}  tol {tol_grad:.0e}  "
+          f"{'ok' if ok else 'FAIL'};  launches {got}")
+    if not ok:
+        raise AssertionError(f"{name} [{mode}]: gradient rel err "
+                             f"{worst[0]:.3e} > {tol_grad:.0e}")
+    for k in LO_KEYS[1:]:
+        if got[k] != want.get(k, 0):
+            raise AssertionError(f"{name} [{mode}]: {k} launched {got[k]} "
+                                 f"times, expected {want.get(k, 0)}")
+    return got
+
+
+def egcl_bf16_dh(egcl, h, ei, g):
+    """d(h) of sum(out * g) for the EGCL's composed route on the CPU with h
+    stored in bf16 before the gathers, as the card stores it in fast mode
+    (the card also rounds K1's message rows, this does not)."""
+    from csmpn_torch.ops.segment import take_rows, take_rows_sorted_idx
+
+    x = h.clone().requires_grad_(True)
+    hs = x.to(torch.bfloat16)
+    msg = egcl.message(take_rows_sorted_idx(hs, ei[1]),
+                       take_rows(hs, ei[0]), None)
+    agg = egcl.aggregate(msg, ei[1], h.shape[0], None).to(h.dtype)
+    (egcl.update(x, agg) * g).sum().backward()
+    return x.grad
+
+
+def lo_graph(n, e, c, ca, seed):
+    """A flat graph of ``n`` nodes and ``e`` edges sorted by target (the
+    bench's generator), h (n, c, 8) and edge attributes (e, ca, 8) or
+    None, on the CPU."""
+    import numpy as np
+    from csmpn_torch.bench import synthetic_edges
+
+    rng = np.random.RandomState(seed)
+    ei = synthetic_edges(rng, n, e)
+    h = torch.from_numpy(rng.randn(n, c, 8).astype(np.float32))
+    attr = (torch.from_numpy(rng.randn(e, ca, 8).astype(np.float32))
+            if ca else None)
+    return h, torch.from_numpy(ei.astype(np.int64)), attr
+
+
+def phase_layer_options(dev, counters):
+    """The layer options on the card, exact and fast (Cl(3,0)).
+
+    1. CEMLPs at the motion edge block widths (34 -> 28 -> 28, 23,200
+       rows): the default (K2 and K3 once a block), normalization_init=None
+       and fused=False (the composed layers: no launch), each against the
+       CPU; fused=True with normalization_init=None must raise ValueError.
+    2. EGCLs on a flat graph of the motion task's size (5,600 nodes, 23,200
+       edges, hidden 28, 6 attribute channels): the default (fast: K4/K5
+       for the edge side, K2/K3 for the node blocks; exact: K2/K3 for all
+       four blocks) and fused_mlp=False (composed: no K2-K5; K1 sums the
+       aggregation and the gathers' backward).
+    3. The flat EGCL at the bench shape (8,192 nodes, 131,072 edges, hidden
+       32) with normalization_init=None: no K2-K5, the CPU's result.
+    4. Standalone MVSiLU("norm") and the SGP with each option at Cl(3) and
+       Cl(5) (2,048 rows, 28 channels): plain PyTorch on the card against
+       the CPU, no kernel.
+    Returns {kernel: {case: launches}}."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.nn.egcl import EGCL
+    from csmpn_torch.nn.modules import (CEMLP, MVSiLU,
+                                        SteerableGeometricProductLayer)
+
+    alg = get_algebra((1.0, 1.0, 1.0))
+    gen = torch.Generator().manual_seed(19)
+    x = torch.randn(E_TOT, HID + 6, 8, generator=gen)
+    print(f"layer options on the card against the CPU (Cl(3,0); CEMLP "
+          f"{HID + 6} -> {HID} -> {HID} at {E_TOT} rows; tolerances "
+          f"{LO_TOL})")
+    blocks = {"k2": 2, "k3": 2}
+    out = {k: {} for k in LO_KEYS}
+
+    def record(case, got):
+        for k in LO_KEYS:
+            out[k][case] = got[k]
+
+    h, ei, ea = lo_graph(N_TOT, E_TOT, HID, 6, 5)
+    hb, eib, _ = lo_graph(BN, BE, BH, 0, 6)
+    alg5 = get_algebra((1.0,) * 5)
+    xs = torch.randn(2048, HID, 8, generator=gen)
+    x5 = torch.randn(2048, HID, 32, generator=gen)
+    for mode in ("exact", "fast"):
+        dh_tol = LO_EGCL_DH_FAST if mode == "fast" else None
+        record(f"cemlp default {mode}", lo_case(
+            "CEMLP default", lambda: CEMLP(alg, HID + 6, HID, HID), [x],
+            counters, dev, mode, blocks, 1))
+        record(f"cemlp normalization_init=None {mode}", lo_case(
+            "CEMLP normalization_init=None", lambda: CEMLP(
+                alg, HID + 6, HID, HID, normalization_init=None), [x],
+            counters, dev, mode, {}, 2))
+        record(f"cemlp fused=False {mode}", lo_case(
+            "CEMLP fused=False", lambda: CEMLP(alg, HID + 6, HID, HID,
+                                               fused=False), [x],
+            counters, dev, mode, {}, 3))
+        bad = CEMLP(alg, HID + 6, HID, HID, normalization_init=None,
+                    fused=True).to(dev)
+        try:
+            bad(x[:64].to(dev))
+        except ValueError as err:
+            print(f"  CEMLP fused=True normalization_init=None [{mode}]: "
+                  f"ValueError ({str(err)[:60]}...), as it must")
+        else:
+            raise AssertionError("CEMLP(fused=True, normalization_init="
+                                 "None) did not raise ValueError")
+        # the default EGCL: fast, K4/K5 for the edge side and K2/K3 for
+        # the node blocks; exact, the composed edge side on K2/K3 too
+        record(f"egcl default {mode}", lo_case(
+            "EGCL default, motion-size graph", lambda: EGCL(
+                alg, HID, HID, HID, edge_attr_features=6), [h, ei, ea],
+            counters, dev, mode, {"k2": 2, "k3": 2, "k4": 1, "k5": 1}
+            if mode == "fast" else {"k2": 4, "k3": 4}, 4, dh_tol))
+        record(f"egcl fused_mlp=False {mode}", lo_case(
+            "EGCL fused_mlp=False, motion-size graph", lambda: EGCL(
+                alg, HID, HID, HID, edge_attr_features=6, fused_mlp=False),
+            [h, ei, ea], counters, dev, mode, {}, 5, dh_tol))
+        bench_none = "EGCL bench shape, normalization_init=None"
+        record(f"egcl bench normalization_init=None {mode}", lo_case(
+            bench_none, lambda: EGCL(alg, BH, BH, BH,
+                                     normalization_init=None), [hb, eib],
+            counters, dev, mode, {}, 6, dh_tol))
+        if mode == "fast":      # LO_EGCL_DH_FAST's reading, on the CPU
+            from csmpn_torch.nn.modules import init_parameters
+
+            m = EGCL(alg, BH, BH, BH, normalization_init=None)
+            init_parameters(m, torch.Generator().manual_seed(6))
+            ref, dx_ref, g, _ = LO_CPU[(bench_none, 6)]
+            _, rel = rel_err(egcl_bf16_dh(m, hb, eib, g), dx_ref)
+            print(f"  {bench_none}: d(h) of a CPU run storing h in bf16 as "
+                  f"the card does, against the fp32 CPU: rel {rel:.3e}")
+        record(f"mvsilu norm {mode}", lo_case(
+            "MVSiLU invariant=norm", lambda: MVSiLU(alg, HID,
+                                                    invariant="norm"),
+            [xs], counters, dev, mode, {}, 7))
+        for a, xa in ((alg, xs), (alg5, x5)):
+            for first in (True, False):
+                for norm in (0.0, None):
+                    for impl in ("dense", "pair"):
+                        tag = (f"SGP Cl({a.dim}) first={first} "
+                               f"norm={norm} {impl}")
+                        record(f"{tag} {mode}", lo_case(
+                            tag, lambda: SteerableGeometricProductLayer(
+                                a, HID, include_first_order=first,
+                                normalization_init=norm, impl=impl),
+                            [xa], counters, dev, mode, {}, 8))
+    return out
+
+
+# ------------------------------------------------ the sweep runner (S7)
+
+# the sweep's in-process run against phase_task's run of the same config,
+# per step, relative: the same launches and Adam, only the order of the
+# models' atomic sums (index_select's backward) may differ between two
+# runs, which in fast precision flips bf16 roundings (G_TOL's
+# ("fast", "capturable") bound and reasons).  The child's printed losses
+# (4 decimals) are held to the in-process run's at the same bound plus
+# half a unit of the last printed digit
+SWEEP_TOL = 1e-2
+SWEEP_FILE = "csmpn_torch/configs/motion.yaml"
+
+
+def sweep_losses(text):
+    return [float(line.rsplit(":", 1)[1]) for line in text.splitlines()
+            if "(Training) Loss:" in line]
+
+
+def phase_sweep(dataroot, counters, direct):
+    """The motion task started from its sweep file, as a user starts it:
+    ``build_commands`` of csmpn_torch/configs/motion.yaml with
+    chip_smoke's overrides (TASK_OVERRIDES: 8 steps, --device=cuda) after
+    the file's grid.  The one command run in-process through fire (every
+    count set to 0 just before, read just after: K1-K3 must run; its
+    per-step losses against the fit of ``direct``, phase_task's trainer,
+    SWEEP_TOL),
+    then through ``python -m csmpn_torch.engineer.sweep`` (``main`` ->
+    ``sweep_local``, which runs the command in a shell) as a child process
+    with the same DATAROOT: its printed losses against the in-process
+    run's.  Returns (the in-process run's launches, None)."""
+    import importlib
+    import shlex
+
+    import yaml
+    from csmpn_torch.engineer.sweep import build_commands
+
+    with open(os.path.join(ROOT, SWEEP_FILE)) as f:
+        cfg = yaml.safe_load(f)
+    cmds = build_commands(cfg, TASK_OVERRIDES)
+    if len(cmds) != 1:
+        raise AssertionError(f"{SWEEP_FILE} expands to {len(cmds)} commands")
+    print(f"sweep: {SWEEP_FILE} + {TASK_OVERRIDES} -> {cmds[0]}")
+    words = shlex.split(cmds[0])
+    module = words[words.index("-m") + 1]
+    argv = [module.replace(".", "/") + ".py",
+            *words[words.index("-m") + 2:]]
+    main = importlib.import_module(module).main
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    tr, text = fire_quiet(main, argv, dataroot)
+    dt = time.perf_counter() - t0
+    launches = {k: c.count for k, c in counters.items()}
+    # the direct run's fit is its trainer's first 8 losses (phase_graph
+    # times more steps on that trainer afterwards)
+    got, want = tr.step_losses, direct.step_losses[:8]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"  in-process (fire): {len(got)} steps in {dt:.1f} s, launches "
+          f"{launches}; losses {[round(v, 6) for v in got]}; against the "
+          f"direct run: {'bitwise' if got == want else f'max rel {rel:.3e}'}"
+          f"  tol {SWEEP_TOL:.0e}")
+    if (len(got) != 8 or len(want) != 8 or rel > SWEEP_TOL
+            or "Stopping due to max_steps." not in text
+            or any(launches[k] <= 0 for k in ("k1", "k2", "k3"))):
+        raise AssertionError("the sweep's in-process run failed")
+    env = dict(os.environ, DATAROOT=dataroot,
+               RUNDIR=os.path.join(dataroot, "runs_sweep"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "csmpn_torch.engineer.sweep", SWEEP_FILE,
+         *TASK_OVERRIDES], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    child = sweep_losses(proc.stdout)
+    printed = sweep_losses(text)
+    diff = max((abs(a - b) for a, b in zip(child, printed)), default=0.0)
+    print(f"  child (sweep_local): rc {proc.returncode} in {dt:.1f} s, "
+          f"losses {child}; the in-process run printed {printed}; max "
+          f"|diff| {diff:.1e}")
+    ok = (proc.returncode == 0 and len(child) == 8
+          and f"Running: {cmds[0]}" in proc.stdout
+          and "Stopping due to max_steps." in proc.stdout
+          and all(abs(a - b) <= SWEEP_TOL * abs(b) + 5e-5
+                  for a, b in zip(child, got)))
+    if not ok:
+        print(proc.stdout[-3000:])
+        print(proc.stderr[-3000:])
+        raise AssertionError("the sweep's child run failed")
+    return launches, None
+
+
 # ------------------------------------------------------- the task itself
 
 # K2/K3 launches a motion training step: 4 EGCL layers of two edge and two
@@ -2192,15 +2527,23 @@ def phase_motion_k128(main, argv, dataroot, counters, eager, steps=256):
     return launches, {k: round(v) for k, v in per_step.items()}
 
 
+# the overrides of every task run here (8 steps on the card), after the
+# modules and before the task's own flags; phase_sweep appends them to the
+# sweep file's command, whose own max_steps and val_check_interval they
+# override (the parser keeps a repeated flag's last value)
+TASK_OVERRIDES = ["--trainer.max_steps=8", "--trainer.val_check_interval=4",
+                  "--trainer.limit_val_batches=1",
+                  "--trainer.print_interval=1", "--trainer.log_interval=4",
+                  "--device=cuda"]
+
+
 def task_argv(task, model, dataset, extra):
     return [f"csmpn_torch/tasks/{task}.py",
             "--trainer.module=csmpn_torch.engineer.Trainer",
             f"--dataset.module=csmpn_torch.data.{dataset}",
             "--optimizer.module=csmpn_torch.engineer.optim.adam",
             f"--model.module=csmpn_torch.models.{model}",
-            "--trainer.max_steps=8", "--trainer.val_check_interval=4",
-            "--trainer.limit_val_batches=1", "--trainer.print_interval=1",
-            "--trainer.log_interval=4", "--device=cuda", *extra]
+            *TASK_OVERRIDES, *extra]
 
 
 def check_per_step(per_step, want, tag):
@@ -3970,6 +4313,7 @@ def main() -> int:
         phase_fused_pair_cl4(dev, gen, results)
         phase_fused_time(dev, results, 4, ("k4p_cl4", "k5p_cl4"))
         phase_block_cl4(dev, gen, results)
+        runs["layer_options"] = (phase_layer_options(dev, counters), None)
         phase_model(dev, dataroot)
         for tag, (res, graph) in (
                 ("motion", phase_task(dataroot, motion_counters, runs)),
@@ -3983,6 +4327,8 @@ def main() -> int:
             runs[f"{tag}_graph"] = graph[:2]
             graph_times[tag] = (res[2:5], graph[2:])
             if tag == "motion":
+                runs["sweep"] = phase_sweep(dataroot, motion_counters,
+                                            res[6])
                 runs["dp"], runs["dp_graph"] = phase_data_parallel(
                     dataroot, motion_counters, res)[:2]
         phase_tile_instances(dev, gen, results)
@@ -4018,7 +4364,8 @@ def main() -> int:
         for tag, (lc, ps) in runs.items():
             if tag != own and k in lc:
                 entry[f"launches_{tag}"] = lc[k]
-                entry[f"launches_per_step_{tag}"] = ps[k]
+                if ps is not None:
+                    entry[f"launches_per_step_{tag}"] = ps[k]
         kernels.append(entry)
     print_graph_times(graph_times)
     print(f"total {time.time() - t_start:.1f} s")

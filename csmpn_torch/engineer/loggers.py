@@ -1,4 +1,5 @@
-"""Console logger with a working save directory for checkpoints."""
+"""Console and Weights & Biases loggers, each with a save directory for
+checkpoints.  ``wandb`` is imported only when a WANDBLogger is made."""
 from __future__ import annotations
 
 import os
@@ -28,3 +29,40 @@ class ConsoleLogger:
 
     def save_model(self, file: str, alias: str) -> None:
         pass
+
+
+class WANDBLogger:
+    """Logs metrics to the current wandb run (started here if there is
+    none) and saves checkpoints as model artifacts; its directory is the
+    run's."""
+
+    def __init__(self, project: Optional[str] = None,
+                 entity: Optional[str] = None, run_name: str = "run"):
+        import wandb
+
+        self._wandb = wandb
+        if wandb.run is None:
+            wandb.init(project=project, entity=entity, name=run_name)
+        self.metrics = set()
+        self.dir = wandb.run.dir
+
+    @property
+    def initialized(self) -> bool:
+        return self._wandb.run is not None
+
+    def log_metrics(self, metrics: Dict, step: int) -> None:
+        if not self.initialized:
+            return
+        for m in metrics:
+            if m not in self.metrics:
+                self._wandb.define_metric(m, summary="max,min,last")
+                self.metrics.add(m)
+        self._wandb.log(metrics, step=step)
+
+    def save_model(self, file: str, alias: str) -> None:
+        if not self.initialized:
+            return
+        name = str(self._wandb.run.id) + "-model"
+        artifact = self._wandb.Artifact(name, type="model")
+        artifact.add_file(file)
+        self._wandb.log_artifact(artifact, aliases=[alias])

@@ -30,6 +30,21 @@ def cosine_annealing_schedule(base_lr: float, max_steps: int,
     return schedule
 
 
+def cosine_cyclic_schedule(base_lr: float, max_steps: int, cycle_steps: int,
+                           lr_min: float = 1e-7):
+    """Cyclic cosine (the reference's CosineLR): ``lr_min`` at each cycle's
+    start, ``base_lr`` half a cycle on.  ``max_steps`` is unused, as
+    there.  Returns ``step -> lr``."""
+    del max_steps
+
+    def schedule(step: int) -> float:
+        return 0.5 * ((lr_min - base_lr)
+                      * math.cos(2 * math.pi * float(step) / cycle_steps)
+                      + lr_min + base_lr)
+
+    return schedule
+
+
 def set_lr(optimizer, lr: float) -> None:
     """Sets every param group's lr to ``lr``: in place where the lr is a
     tensor (a capturable optimizer's, which a CUDA graph of the step

@@ -113,7 +113,33 @@ def print_git_state() -> None:
     print(f"Message: {run('git log -1 --pretty=%B')}\n")
 
 
+def _squeue_time_limit() -> Optional[str]:
+    """This SLURM job's TimeLimit from ``squeue`` (None outside a job, or
+    where ``squeue`` is missing, fails or prints nothing), so a run without
+    ``max_time`` stops before the scheduler kills it."""
+    import subprocess
+
+    if "SLURM_JOB_ID" not in os.environ:
+        return None
+    try:
+        out = subprocess.run(
+            ["squeue", "-j", os.environ["SLURM_JOB_ID"], "-h",
+             "--Format", "TimeLimit"],
+            capture_output=True, text=True, timeout=10).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    if not lines:
+        return None
+    if len(lines) > 1:
+        print("WARNING: squeue returned multiple jobs (array job?); "
+              "using the first TimeLimit.")
+    return lines[0]
+
+
 def _parse_max_time(time_str: Optional[str]):
+    if time_str is None:
+        time_str = _squeue_time_limit()
     if time_str is None:
         return None
     days = 0

@@ -20,6 +20,12 @@ form K4p/K5p at Cl(4) and Cl(5); at Cl(1) it raises (no kernel yet).  In
 exact mode and on the CPU it composes the target gather, the edge CEMLP
 and the aggregation, as the reference keeps the composed path in exact
 mode.
+
+``fused_mlp`` is both CEMLPs' ``fused`` (None, True or False; see
+``nn.modules.cemlp_route``): False also turns the fused pass off, and so
+does ``normalization_init=None``, whose blocks no kernel computes; such a
+layer composes, its CEMLPs on the block kernels only where their own
+route allows them.
 """
 from __future__ import annotations
 
@@ -44,9 +50,10 @@ class EGCL(nn.Module):
     def __init__(self, algebra: CliffordAlgebra, in_features: int,
                  hidden_features: int, out_features: int,
                  edge_attr_features: int = 0, node_attr_features: int = 0,
-                 normalization_init: float = 0.0,
+                 normalization_init: Optional[float] = 0.0,
                  aggr: str = "mean", edges_sorted: bool = True,
-                 bf16_out: bool = False, residual: bool = True):
+                 bf16_out: bool = False, residual: bool = True,
+                 fused_mlp: Optional[bool] = None):
         super().__init__()
         self.algebra = algebra
         self.aggr = aggr
@@ -55,16 +62,18 @@ class EGCL(nn.Module):
         self.bf16_out = bf16_out
         self.edge_model = CEMLP(algebra, in_features + edge_attr_features,
                                 hidden_features, out_features,
-                                normalization_init=normalization_init)
+                                normalization_init=normalization_init,
+                                fused=fused_mlp)
         self.node_model = CEMLP(
             algebra, in_features + out_features + node_attr_features,
             hidden_features, out_features,
-            normalization_init=normalization_init)
+            normalization_init=normalization_init, fused=fused_mlp)
 
     def _use_fused_mp(self, batch_shape, x: torch.Tensor) -> bool:
-        """K4/K5 (K4p/K5p at Cl(5)) on the flat big-graph path: on the card
-        in fast mode, for the 2-block edge CEMLP with hidden == out
-        width."""
+        """K4/K5 (K4p/K5p at Cl(4) and Cl(5)) on the flat big-graph path:
+        on the card in fast mode, for the 2-block edge CEMLP with hidden ==
+        out width and its normalization layers; never with
+        ``fused_mlp=False`` (the edge CEMLP's ``fused``)."""
         if not self.edges_sorted or batch_shape is not None:
             return False
         from ..ops.fused_egcl import fused_mp_supported

@@ -1,18 +1,29 @@
 """Clifford-equivariant neural layers as torch ``nn.Module``s.
 
-Port of ``csmpn_tpu/nn/modules.py``: MVLinear, MVSiLU, NormalizationLayer,
-MVLayerNorm, SteerableGeometricProductLayer (dense form) and CEMLP, with the
-parameter names and shapes of the flax tree, so ``convert.params_from_jax``
-maps one onto the other by path.  Multivector activations are laid out as
-``(..., channels, n_blades)`` with the blade axis last.
+Port of ``csmpn_tpu/nn/modules.py``: MVLinear, MVSiLU (``invariant`` "mag2"
+or "norm"), NormalizationLayer, MVLayerNorm, SteerableGeometricProductLayer
+(``include_first_order``, ``normalization_init`` or None, ``impl`` "dense" or
+"pair") and CEMLP (``normalization_init``, ``fused``), with the parameter
+names and shapes of the flax tree, so ``convert.params_from_jax`` maps one
+onto the other by path: a submodule an option leaves out (an SGP's
+``normalization`` or ``linear_left``) is missing from both.
+Multivector activations are laid out as ``(..., channels, n_blades)`` with
+the blade axis last.
 
-On a CUDA tensor a CEMLP runs each of its blocks as one hand-written kernel
-(``ops/cemlp_kernel.py``); on the CPU it composes the layers below, as the
-reference package does off the TPU.
+A CEMLP takes one of two routes, decided by ``cemlp_route`` from its own
+options and the input's device: the block kernels (``ops/cemlp_kernel.py``:
+one hand-written kernel a block on the card, their plain versions on the
+CPU), or the layers below composed.  ``fused=None`` takes the kernels on a
+CUDA tensor when every block has its normalization layer (the block the
+kernels compute) and composes otherwise; ``fused=True`` always takes the
+kernels (the port's counterpart of the reference's Pallas kernel in
+interpret mode off the TPU) and raises ValueError without normalization
+layers; ``fused=False`` composes on either device.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 from torch import nn
@@ -67,12 +78,17 @@ class MVLinear(nn.Module):
 
 class MVSiLU(nn.Module):
     """Gated SiLU: sigmoid of an affine function of the per-grade
-    invariants (scalar blade passthrough, squared magnitudes above)."""
+    invariants (scalar blade passthrough; above it the squared magnitudes,
+    ``invariant="mag2"``, or the norms, ``"norm"``)."""
 
-    def __init__(self, algebra: CliffordAlgebra, channels: int):
+    def __init__(self, algebra: CliffordAlgebra, channels: int,
+                 invariant: str = "mag2"):
         super().__init__()
+        if invariant not in ("mag2", "norm"):
+            raise ValueError(f"Invariant {invariant} not recognized.")
         self.algebra = algebra
         self.channels = channels
+        self.invariant = invariant
         self.a = nn.Parameter(torch.ones(channels, algebra.dim + 1))
         self.b = nn.Parameter(torch.zeros(channels, algebra.dim + 1))
 
@@ -82,7 +98,8 @@ class MVSiLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         alg = self.algebra
-        inv = torch.cat([x[..., :1], alg.qs_cat(x)[..., 1:]], dim=-1)
+        inv = alg.qs_cat(x) if self.invariant == "mag2" else alg.norms_cat(x)
+        inv = torch.cat([x[..., :1], inv[..., 1:]], dim=-1)
         gate = self.a * inv + self.b
         return torch.sigmoid(alg.expand_per_grade(gate)) * x
 
@@ -126,24 +143,37 @@ class MVLayerNorm(nn.Module):
 
 
 class SteerableGeometricProductLayer(nn.Module):
-    """Fully parameterised geometric product ``x (x)_w normalize(W x)``
-    plus the first-order term: one weight per (channel, nonzero
-    grade-triple path), contracted with the Cayley tensor in one einsum
-    (the dense form)."""
+    """Fully parameterised geometric product ``x (x)_w normalize(W x)``,
+    one weight per (channel, nonzero grade-triple path), plus the
+    first-order term ``linear_left(x)`` and the division by sqrt(2) where
+    ``include_first_order``.  ``normalization_init=None`` drops the
+    normalisation of ``W x``.  ``impl="dense"`` contracts the weighted
+    Cayley tensor (C, nb, nb, nb) in one einsum; ``"pair"`` sums over the
+    Cayley pairs (one left blade and one sign per output j and right k),
+    nb^2 work a channel."""
 
     def __init__(self, algebra: CliffordAlgebra, features: int,
-                 normalization_init: float = 0.0):
+                 include_first_order: bool = True,
+                 normalization_init: Optional[float] = 0.0,
+                 impl: str = "dense"):
         super().__init__()
+        if impl not in ("dense", "pair"):
+            raise ValueError(f"impl must be 'dense' or 'pair', got {impl!r}")
         self.algebra = algebra
         self.features = features
+        self.include_first_order = include_first_order
+        self.normalization_init = normalization_init
+        self.impl = impl
         self.weight = nn.Parameter(torch.empty(features,
                                                algebra.n_product_paths))
         self.linear_right = MVLinear(algebra, features, features,
                                      use_bias=False)
-        self.normalization = NormalizationLayer(algebra, features,
-                                                normalization_init)
-        self.linear_left = MVLinear(algebra, features, features,
-                                    use_bias=True)
+        if normalization_init is not None:
+            self.normalization = NormalizationLayer(algebra, features,
+                                                    normalization_init)
+        if include_first_order:
+            self.linear_left = MVLinear(algebra, features, features,
+                                        use_bias=True)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
@@ -163,25 +193,65 @@ class SteerableGeometricProductLayer(nn.Module):
         return alg.const("cayley", self.weight) * w_blades
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x_right = self.normalization(self.linear_right(x))
-        weighted = self.weighted_cayley().to(x.dtype)
-        out = torch.einsum("...ni,nijk,...nk->...nj", x, weighted, x_right)
-        return (self.linear_left(x) + out) / math.sqrt(2)
+        alg = self.algebra
+        x_right = self.linear_right(x)
+        if self.normalization_init is not None:
+            x_right = self.normalization(x_right)
+        if self.impl == "dense":
+            weighted = self.weighted_cayley().to(x.dtype)
+            out = torch.einsum("...ni,nijk,...nk->...nj", x, weighted,
+                               x_right)
+        else:
+            # out_j = sum_k coeff[j,k] w[n, path(j,k)] x[..., i_of[j,k]] xr_k
+            path = alg.index("gp_pair_paths", x.device)
+            cw = (alg.const("pair_coeff", self.weight)
+                  * self.weight[:, path]).to(x.dtype)     # (C, nb, nb)
+            xg = x[..., alg.index("pair_i_of", x.device)]
+            out = torch.einsum("...njk,njk,...nk->...nj", xg, cw, x_right)
+        if self.include_first_order:
+            out = (self.linear_left(x) + out) / math.sqrt(2)
+        return out
+
+
+def cemlp_route(cemlp: "CEMLP", device_type: str) -> str:
+    """The route of ``cemlp`` on a tensor of ``device_type``: "kernels"
+    (``ops/cemlp_kernel.apply_fused_cemlp``: one kernel a block on the
+    card, their plain versions on the CPU) or "composed" (the layers).
+    The block kernels compute the block with its normalization layer, so
+    a CEMLP built with ``normalization_init=None`` composes, or raises
+    ValueError where ``fused=True`` asks for the kernels."""
+    if cemlp.fused is False:
+        return "composed"
+    if cemlp.normalization_init is None:
+        if cemlp.fused:
+            raise ValueError(
+                "CEMLP(fused=True) runs the block kernels, which compute the "
+                "block with its normalization layer; normalization_init=None "
+                "leaves it out (use fused=None or fused=False)")
+        return "composed"
+    if cemlp.fused or device_type == "cuda":
+        return "kernels"
+    return "composed"
 
 
 class CEMLP(nn.Module):
     """Stack of [MVLinear -> MVSiLU -> SGP -> MVLayerNorm] blocks, the
-    shared message/update network of EGCL and of the simplex embedding."""
+    shared message/update network of EGCL and of the simplex embedding.
+    ``fused``: None (the kernels on the card), True or False; see
+    ``cemlp_route``."""
 
     def __init__(self, algebra: CliffordAlgebra, in_features: int,
                  hidden_features: int, out_features: int, n_layers: int = 2,
-                 normalization_init: float = 0.0):
+                 normalization_init: Optional[float] = 0.0,
+                 fused: Optional[bool] = None):
         super().__init__()
         self.algebra = algebra
         self.in_features = in_features
         self.hidden_features = hidden_features
         self.out_features = out_features
         self.n_layers = n_layers
+        self.normalization_init = normalization_init
+        self.fused = fused
         self.widths = ([in_features] + [hidden_features] * (n_layers - 1)
                        + [out_features])
         for i in range(n_layers):
@@ -193,7 +263,7 @@ class CEMLP(nn.Module):
             setattr(self, f"norm_{i}", MVLayerNorm(algebra, f_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.is_cuda:
+        if cemlp_route(self, x.device.type) == "kernels":
             from ..ops.cemlp_kernel import apply_fused_cemlp
 
             return apply_fused_cemlp(self, x)

@@ -132,11 +132,18 @@ def _rounder(exact: bool):
 
 
 def block_params(cemlp, i: int) -> List[torch.Tensor]:
-    """The 10 parameter tensors of block ``i`` of a CEMLP module."""
+    """The 10 parameter tensors of block ``i`` of a CEMLP module; a block
+    whose SGP has no normalization layer, which the kernels do not
+    compute, raises ValueError."""
     lin = getattr(cemlp, f"linear_{i}")
     silu = getattr(cemlp, f"silu_{i}")
     gp = getattr(cemlp, f"gp_{i}")
     ln = getattr(cemlp, f"norm_{i}")
+    if not hasattr(gp, "normalization"):
+        raise ValueError(
+            f"CEMLP block {i} has no normalization layer "
+            f"(normalization_init=None): the block kernels compute the block "
+            f"with it, so this block takes the composed route")
     return [lin.weight, lin.bias, silu.a, silu.b, gp.weight,
             gp.linear_right.weight, gp.normalization.a,
             gp.linear_left.weight, gp.linear_left.bias, ln.a]

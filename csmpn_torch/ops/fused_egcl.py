@@ -491,15 +491,19 @@ def fused_mp_supported(algebra, edge_model, x: torch.Tensor) -> bool:
     """The fused kernels serve the flat EGCL path on the card in fast mode,
     for the 2-block edge CEMLP with hidden == out width: K4/K5 at Cl(2) and
     Cl(3), K4p/K5p at Cl(4) and Cl(5).  Exact mode and the CPU keep the
-    composed path.  On the card in fast mode an algebra or a width the
-    kernels are not compiled for raises, as K2/K3 do; it never falls
-    back."""
+    composed path, and so does an edge CEMLP with ``fused=False`` or
+    without normalization layers (``normalization_init=None``: a block the
+    kernels do not compute).  On the card in fast mode an algebra or a
+    width the kernels are not compiled for raises, as K2/K3 do; it never
+    falls back."""
     from .segment import aggregation_exact
 
     if not x.is_cuda or aggregation_exact():
         return False
     if edge_model.n_layers != 2 \
-            or edge_model.hidden_features != edge_model.out_features:
+            or edge_model.hidden_features != edge_model.out_features \
+            or edge_model.fused is False \
+            or edge_model.normalization_init is None:
         return False
     kern = fused_kernel(algebra.n_blades)
     if edge_model.hidden_features > kern.max_channels:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -238,3 +239,34 @@ def masked_mean(data: torch.Tensor, mask: torch.Tensor,
     total = torch.sum(data * mask, dim=axis)
     count = torch.clamp(torch.sum(mask, dim=axis), min=1.0)
     return total / count
+
+
+def knn_graph(pos: torch.Tensor, k: int,
+              exclude_self: bool = True) -> torch.Tensor:
+    """k-nearest-neighbour edge list on ``pos``'s device.  pos: (N, D).
+    Returns edge_index (2, N * k) int64, rows [source, target]: the k
+    neighbours j of each node i, nearest first, point at it.  ``k`` is
+    clamped to N - 1 (N with ``exclude_self=False``), so a large k gives
+    the complete graph."""
+    n = pos.shape[0]
+    k = min(int(k), n - 1 if exclude_self else n)
+    d2 = torch.sum((pos[:, None, :] - pos[None, :, :]) ** 2, dim=-1)
+    if exclude_self:
+        eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+        d2 = d2.masked_fill(eye, float("inf"))
+    nbrs = torch.topk(-d2, k, dim=1, sorted=True).indices      # (N, k)
+    target = torch.arange(n, device=pos.device).repeat_interleave(k)
+    return torch.stack([nbrs.reshape(-1), target])
+
+
+def sort_edges_by_target(edge_index, *edge_payloads):
+    """Sort an edge list by (target, source) so segment reductions can use
+    ``indices_are_sorted=True``.  Host-side (numpy) preprocessing: returns
+    the sorted (2, E) array, and with payloads a tuple of it and each
+    payload's rows in the same order."""
+    ei = np.asarray(edge_index)
+    order = np.lexsort((ei[0], ei[1]))
+    out = [ei[:, order]]
+    for p in edge_payloads:
+        out.append(np.asarray(p)[order])
+    return out[0] if not edge_payloads else tuple(out)
