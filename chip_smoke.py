@@ -108,8 +108,10 @@
     through the entry point (``--trainer.steps_per_dispatch=8
     --trainer.device_data=True --trainer.eval_batches_per_dispatch=2``,
     16 steps, a profile window over the second group), with the eager
-    step's profile first holding the kernel names that each launch
-    counter stands for (``KERNEL_OF``) to the wrappers' counts: the graph
+    step's forward and backward first captured once into a CUDA graph
+    whose kernel nodes (``graph_kernels``: libcuda's graph API, which
+    loses nothing) hold the kernel names that each launch counter stands
+    for (``KERNEL_OF``) to the wrappers' counts: the graph
     runs' losses against eager K = 1 runs from the same seed (exact
     precision, the graph both copying host batches and gathering them in
     the graph with device_data: all 16 within 1e-5 of an eager run with
@@ -119,15 +121,18 @@
     captured step after 3 eager warm-up steps, the lr written before the
     last replay, the eval graph replayed, the trace written; the step
     times of both modes in turns (4 x 32 steps each: median, p10, p90); a
-    profile of graph groups (no wrapper called in it, each kernel run as
-    often a step as the eager step launches it, busy share, the
-    hand-written kernels' device times beside the eager profile's, K2's
-    row tile kernel); motion also trains 256 steps at
-    ``steps_per_dispatch=128 eval_batches_per_dispatch=20 device_data``,
-    the form of the reference's long runs: the wrappers' K3 launches only
-    the warm-up's and the capture's, and the trainer's own trace of the
-    second group's 128 replayed steps holding each kernel's runs a step to
-    the eager step's launches;
+    profile of graph groups (no wrapper called in it, the captured step's
+    kernel nodes times the replays held exactly to the eager step's
+    launches times the replays, busy share, the hand-written kernels'
+    device times beside the eager profile's, K2's row tile kernel); motion
+    also trains 256 steps at ``steps_per_dispatch=128
+    eval_batches_per_dispatch=20 device_data``, the form of the
+    reference's long runs: the wrappers' K3 launches only the warm-up's
+    and the capture's, and the captured step's kernel nodes times the
+    window's 128 replays held to the eager step's launches times 128.
+    Every exact launch count rests on the wrappers' counters or on
+    captured kernel nodes; a profile's trace is read for times and busy
+    shares alone, and each check prints what the trace read and lost;
     After the task phases, the data-parallel path (S5b): the motion task
     through its entry point with ``--data_parallel=true`` in an NCCL
     process group of one that ``engineer.fire`` joins from torchrun's
@@ -135,10 +140,27 @@
     all-reduce of the gradients and the loss inside the captured step):
     under ``torch.use_deterministic_algorithms`` the final parameters and
     losses bitwise equal to the same runs without data parallel; then,
-    without it, its launches counted, a profile of each mode holding one
-    NCCL all-reduce kernel a step besides K1, K2 and K3, and the step
+    without it, its launches counted, one NCCL all-reduce kernel a step
+    besides K1, K2 and K3 (the captured step's kernel nodes; on the eager
+    path the wrappers' launches and the step's forward, backward and
+    all-reduce captured once), a profile of each mode, and the step
     times with and without the all-reduce in turns, with the
     all-reduce's device time a step;
+9b. the wide blocks: K2w/K3w (``csrc/cemlp_wide.cuh``, the dense
+    block at the widths K2/K3 of cemlp.cu do not take, C <= 128, Cin <=
+    320)
+    against their plain versions at WIDE_SHAPES, Cl(3) and Cl(2), exact
+    and fast, the output and every gradient within TOL's K2/K3 limits of
+    the algebra, two launches bitwise equal, each shape's launches (every
+    Cl(3) shape on K2w/K3w), and their times at WIDE_TIMED with the bounds
+    against fp32 FFMA (data sheet and envelope) and the bf16 tensor
+    cores; the MD17 (Cl(3)) and NBA (Cl(2)) models at hidden 64 card vs
+    CPU; motion, MD17 and NBA through their entry points at
+    ``--model.num_hidden=128``, 8 fast steps each, finite losses, the
+    launches a step WIDE_PER_STEP predicts (no block on the Cl(3) K2/K3), each eager step's kernel nodes held to the wrappers; motion
+    there at ``steps_per_dispatch=8`` against its eager run within G_TOL,
+    its replays' kernel nodes held to the eager step's launches; the
+    phases' seconds are printed;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -183,10 +205,12 @@
     last the host tables of 8 shards x 8 chunks of the 10M complex at
     locality 4096 beside the reference's record;
 13. prints each task's eager and graph step times beside the aims, the
-    kernels JSON line (twenty kernels; beside each kernel's own path, its
+    kernels JSON line (twenty-four kernels, K2w/K3w at Cl(3) and Cl(2)
+    with their launches on the tasks at hidden 128; beside each kernel's
+    own path, its
     launches on the others: for a graph run the wrappers' launches in the
-    run and, as ``launches_per_step_<task>_graph``, its runs a step in
-    the profile of replays; ``launches_stream`` and
+    run and, as ``launches_per_step_<task>_graph``, the captured step's
+    kernel nodes by kernel (each runs once a replay); ``launches_stream`` and
     ``launches_per_step_stream`` for the streaming run; ``launches_dp``
     and ``launches_dp_graph`` for the data-parallel runs;
     ``launches_sharded`` for the sharded entry points and
@@ -2503,28 +2527,31 @@ def phase_motion_k128(main, argv, dataroot, counters, eager, steps=256):
     dt = time.perf_counter() - t0
     launches = {k: c.count for k, c in counters.items()}
     window = steps - 128
+    # the window's 128 replays ran the captured step's kernel nodes each
+    nodes = launches_of(graph_kernels(tr.train_graph.graph), counters)
+    ran = {k: n * window for k, n in nodes.items()}
+    want = {k: eager[k] * window for k in eager}
     with open(os.path.join(prof_dir, f"trace_steps_128_{steps}.json")) as f:
         names = collections.Counter(e["name"] for e in json.load(f)[
             "traceEvents"] if e.get("cat") == "kernel")
-    per_step = profiled_launches({k: n / window for k, n in names.items()},
-                                 counters)
     losses = tr.step_losses
     print(f"motion at steps_per_dispatch=128 eval_batches_per_dispatch=20 "
           f"device_data: {steps} steps in {dt:.1f} s (entry point, set-up "
           f"and capture included), losses {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, {tr.train_graph.replays} replays, wrapper "
-          f"launches {launches}, kernel runs a step in the trace of steps "
-          f"128-{steps - 1} {per_step}, median step "
+          f"launches {launches}, kernel runs in the {window} replays of "
+          f"steps 128-{steps - 1} (the captured step's kernel nodes x "
+          f"{window}) {ran}, {trace_read(names, ran)}, median step "
           f"{statistics.median(tr.step_seconds[128:]) * 1e3:.3f} ms "
           f"(second group, under the profiler)")
     ok = (len(losses) == steps and all(math.isfinite(v) for v in losses)
           and tr.train_graph.replays == steps - WARMUP_STEPS
           and launches["k3"] == (WARMUP_STEPS + 1) * eager["k3"]
-          and all(abs(per_step[k] - eager[k]) < 1e-9 for k in eager)
-          and "Stopping due to max_steps." in text)
+          and ran == want and "Stopping due to max_steps." in text)
     if not ok:
-        raise AssertionError("motion at steps_per_dispatch=128 failed")
-    return launches, {k: round(v) for k, v in per_step.items()}
+        raise AssertionError(f"motion at steps_per_dispatch=128 failed "
+                             f"(kernel runs {ran}, want {want})")
+    return launches, nodes
 
 
 # the overrides of every task run here (8 steps on the card), after the
@@ -2615,12 +2642,23 @@ def run_entry(main, argv, dataroot, counters, ds, steps=8):
     per_step = {k: c.count for k, c in counters.items()}
     print(f"  launches per training step: {per_step}")
     busy_ms, wall_ms, kernels, runs = phase_profile(step)
-    # KERNEL_OF is the map the graph phase reads replays through: hold it
-    # to the wrappers' counts on the eager step
-    seen = profiled_launches(runs, per_step)
-    if seen != per_step:
-        raise AssertionError(f"kernel runs a profiled step {seen} != the "
-                             f"wrappers' launches {per_step}")
+
+    # KERNEL_OF is the map through which a captured step's kernel nodes
+    # are read: hold it to the wrappers' counts on the eager step, whose
+    # forward and backward are captured once (not replayed) for their nodes
+    def fwd_bwd():
+        loss, _ = model(batch)
+        loss.backward()
+
+    names, called = captured_kernels(fwd_bwd, counters)
+    opt.zero_grad()
+    seen = launches_of(names, per_step)
+    print(f"  the eager step captured: kernel nodes {seen}, wrapper "
+          f"launches {called}; {trace_read(runs, per_step)}")
+    if seen != per_step or called != per_step:
+        raise AssertionError(f"the eager step's kernel nodes {seen} or the "
+                             f"wrappers' launches in its capture {called} "
+                             f"!= the wrappers' launches {per_step}")
     return launches, per_step, step_ms, busy_ms, wall_ms, kernels, trainer
 
 
@@ -2669,14 +2707,133 @@ KERNEL_OF = {
     **dict.fromkeys(("k3", "k3_cl2"), r"\bcemlp_bwd(_tile)?_kernel<"),
     "k2p": r"\bcemlp_pair_fwd(_tile)?_kernel<",
     "k3p": r"\bcemlp_pair_bwd(_tile)?_kernel<",
+    **dict.fromkeys(("k2w", "k2w_cl2"), r"\bcemlp_wide_fwd_kernel<"),
+    **dict.fromkeys(("k3w", "k3w_cl2"), r"\bcemlp_wide_bwd_kernel<"),
 }
 
 
-def profiled_launches(runs, keys):
-    """Launches a step by counter key, from a profile's runs by kernel
-    name (``phase_profile``'s last result)."""
+def launches_of(runs, keys):
+    """Launches by counter key, from runs by kernel name: a captured
+    graph's kernel nodes (``graph_kernels``) or a profile's runs a step
+    (``phase_profile``'s last result)."""
     return {k: sum(n for name, n in runs.items()
                    if re.search(KERNEL_OF[k], name)) for k in keys}
+
+
+def trace_read(runs, exact, scale=1):
+    """What a profile's trace read of the exact launches (runs a step
+    times ``scale``) and how many records it lost, for the log: the
+    trace is read for times and busy shares alone."""
+    read = {k: v * scale for k, v in launches_of(runs, exact).items()}
+    lost = {k: round(exact[k] - read[k], 3) for k in exact}
+    return (f"the profile's trace read {read} of them (records lost: "
+            f"{lost})")
+
+
+def demangled(sym: str) -> str:
+    """The kernel name of a mangled symbol: the last component of its
+    (nested) name, with '<>' where template arguments follow, the form
+    the KERNEL_OF patterns read; a symbol that is not mangled as it is."""
+    if not sym.startswith("_Z"):
+        return sym
+    i = 3 if sym[2:3] == "N" else 2
+    nested, name = i == 3, ""
+    while i < len(sym) and sym[i].isdigit():
+        j = i
+        while j < len(sym) and sym[j].isdigit():
+            j += 1
+        n = int(sym[i:j])
+        name, i = sym[j:j + n], j + n
+        if not nested:
+            break
+    if not name:
+        return sym
+    return name + ("<>" if sym[i:i + 1] == "I" else "")
+
+
+# libcuda's CU_GRAPH_NODE_TYPE_KERNEL and CUDA_KERNEL_NODE_PARAMS_v2
+CU_GRAPH_NODE_TYPE_KERNEL = 0
+
+
+def _libcuda():
+    import ctypes
+
+    global _CUDA
+    if _CUDA is None:
+        class Params(ctypes.Structure):
+            _fields_ = [("func", ctypes.c_void_p),
+                        *[(f, ctypes.c_uint) for f in (
+                            "gx", "gy", "gz", "bx", "by", "bz", "smem")],
+                        ("params", ctypes.c_void_p),
+                        ("extra", ctypes.c_void_p),
+                        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+        lib = ctypes.CDLL("libcuda.so.1")
+        P = ctypes.c_void_p
+        for name, args in (
+                ("cuGraphGetNodes", [P, P, ctypes.POINTER(ctypes.c_size_t)]),
+                ("cuGraphNodeGetType", [P, ctypes.POINTER(ctypes.c_int)]),
+                ("cuGraphKernelNodeGetParams_v2",
+                 [P, ctypes.POINTER(Params)]),
+                ("cuFuncGetName", [ctypes.POINTER(ctypes.c_char_p), P])):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
+        _CUDA = (lib, Params)
+    return _CUDA
+
+
+_CUDA = None
+
+
+def graph_kernels(graph) -> collections.Counter:
+    """The kernel nodes of a captured CUDA graph that kept its
+    cudaGraph_t (``torch.cuda.CUDAGraph(keep_graph=True)``, as the
+    trainer's StepGraph captures) by kernel name
+    (``demangled``): each runs once a replay.  Read from libcuda's
+    graph API (cuGraphGetNodes, each kernel node's function,
+    cuFuncGetName), which loses nothing, unlike a trace."""
+    import ctypes
+
+    lib, Params = _libcuda()
+    h = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+
+    def ok(err, what):
+        if err != 0:
+            raise RuntimeError(f"{what}: libcuda error {err}")
+
+    ok(lib.cuGraphGetNodes(h, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    ok(lib.cuGraphGetNodes(h, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = collections.Counter()
+    for node in nodes[:n.value]:
+        kind = ctypes.c_int()
+        ok(lib.cuGraphNodeGetType(node, ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != CU_GRAPH_NODE_TYPE_KERNEL:
+            continue
+        p = Params()
+        ok(lib.cuGraphKernelNodeGetParams_v2(node, ctypes.byref(p)),
+           "cuGraphKernelNodeGetParams")
+        sym = ctypes.c_char_p()
+        ok(lib.cuFuncGetName(ctypes.byref(sym), p.func), "cuFuncGetName")
+        names[demangled(sym.value.decode())] += 1
+    return names
+
+
+def captured_kernels(fn, counters):
+    """fn() captured once into a CUDA graph (not replayed) with every
+    launch count set to 0 just before: (the graph's kernel nodes by name,
+    the wrappers' launches in the capture)."""
+    for c in counters.values():
+        c.reset()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        fn()
+    called = {k: c.count for k, c in counters.items()}
+    names = graph_kernels(g)
+    del g
+    return names, called
 
 
 def check_k2_profile(kernels, tag):
@@ -2898,16 +3055,23 @@ def phase_graph(tag, main, argv, dataroot, counters, ds, eager, k2=True):
 
     for c in counters.values():
         c.reset()
+    r0 = tr.train_graph.replays
     busy_ms, wall_ms, kernels, runs = phase_profile(group, steps=2,
                                                     per_call=G_K)
+    replays = tr.train_graph.replays - r0
     called = {k: c.count for k, c in counters.items()}
-    per_step = profiled_launches(runs, counters)
-    print(f"  launches per training step under replay (kernel runs in the "
-          f"profile): {per_step} (eager {eager[1]}); wrapper calls "
-          f"{called}")
-    if per_step != eager[1] or any(called.values()):
-        raise AssertionError(f"{tag}: kernel runs a step under replay "
-                             f"{per_step} != eager launches {eager[1]}, or "
+    per_step = launches_of(graph_kernels(tr.train_graph.graph), counters)
+    ran = {k: n * replays for k, n in per_step.items()}
+    print(f"  launches per training step under replay (the captured "
+          f"step's kernel nodes): {per_step} (eager {eager[1]}); over the "
+          f"{replays} replays {ran}; wrapper calls {called}; "
+          f"{trace_read(runs, per_step)} a step")
+    # phase_profile runs the group once before its 2 profiled groups
+    if (per_step != eager[1] or replays != 3 * G_K
+            or any(called.values())):
+        raise AssertionError(f"{tag}: kernel nodes a step under replay "
+                             f"{per_step} != eager launches {eager[1]}, "
+                             f"{replays} replays (not {3 * G_K}), or "
                              f"wrappers called {called}")
     if k2:
         check_k2_profile(kernels, f"{tag} (graph)")
@@ -3033,20 +3197,47 @@ def phase_data_parallel(dataroot, counters, eager):
             _, _, kernels, runs = phase_profile(group, steps=2 if k > 1
                                                 else 3, per_call=k)
             called = {n: c.count for n, c in counters.items()}
-            per_step[mode] = profiled_launches(runs, counters)
-            n_ar, ar_us[mode] = nccl_per_step(kernels, runs)
-            print(f"  {mode}: all-reduce kernels a step {n_ar:.3f} "
-                  f"({ar_us[mode]:.2f} us a step: "
-                  f"{[n[:60] for n in runs if re.search(NCCL_KERNEL, n)]}); "
-                  f"K1-K3 runs a step {per_step[mode]} (eager step "
-                  f"{eager[1]}); wrapper calls {called}")
-            if abs(n_ar - 1) > 1e-9 or per_step[mode] != eager[1]:
+            # the exact counts of a step: the captured step's kernel nodes
+            # (graph); on the eager path the wrappers' launches a step,
+            # and the NCCL kernels of the step's forward, backward and
+            # all-reduce captured once (not replayed)
+            if mode == "graph":
+                nodes = graph_kernels(tr.train_graph.graph)
+                eager_calls = {}
+            else:
+                batch = tr._batch(items[0])
+
+                def body():
+                    loss, _ = tr.model(batch)
+                    loss.backward()
+                    tr._reduce(loss)
+
+                nodes, _ = captured_kernels(body, counters)
+                tr.optimizer.zero_grad()
+                eager_calls = {n: v / 4 for n, v in called.items()}
+            per_step[mode] = launches_of(nodes, counters)
+            n_ar = sum(v for n, v in nodes.items()
+                       if re.search(NCCL_KERNEL, n))
+            n_trace, ar_us[mode] = nccl_per_step(kernels, runs)
+            print(f"  {mode}: all-reduce kernels a step {n_ar} (kernel "
+                  f"nodes of the captured step; the trace read "
+                  f"{n_trace:.3f}), {ar_us[mode]:.2f} us a step: "
+                  f"{[n[:60] for n in nodes if re.search(NCCL_KERNEL, n)]}"
+                  f"; K1-K3 kernel nodes a step {per_step[mode]} (eager "
+                  f"step {eager[1]}); wrapper calls {called}"
+                  f"{'' if mode == 'graph' else ' over 4 steps'}; "
+                  f"{trace_read(runs, per_step[mode])} a step")
+            if n_ar != 1 or per_step[mode] != eager[1]:
                 raise AssertionError(
                     f"data parallel {mode}: {n_ar} all-reduce kernels a "
-                    f"step, kernel runs {per_step[mode]} != {eager[1]}")
+                    f"step, kernel nodes {per_step[mode]} != {eager[1]}")
             if mode == "graph" and any(called.values()):
                 raise AssertionError(f"wrappers called under replay: "
                                      f"{called}")
+            if mode == "eager" and eager_calls != eager[1]:
+                raise AssertionError(f"data parallel eager: wrapper "
+                                     f"launches a step {eager_calls} != "
+                                     f"{eager[1]}")
 
         # step times in turns: eager steps of one trainer with its mesh
         # and with the mesh taken away (the step without the all-reduce),
@@ -3175,16 +3366,17 @@ def phase_k1_task(dev, gen, ds, results, d, tag):
     results["k1"].update(time_k1(tag, data, dst, n))
 
 
-def check_block_form(dev, gen, alg, shapes, keys):
+def check_block_form(dev, gen, alg, shapes, keys, tol_keys=None):
     """Holds one form of the block kernels (K2/K3 or K2p/K3p) to their
     plain versions at every launch shape (name, rows, Cin, C, launches per
     step), exact and fast: the output, dx and all 10 gradients, two
     launches bitwise equal.  Returns the worst error per kernel and mode;
     ``keys`` name the forward and backward kernels (their tolerances are
-    TOL[f"{key}_{mode}"])."""
+    TOL[f"{key}_{mode}"], or those of ``tol_keys``)."""
     from csmpn_torch.ops import cemlp_kernel as ck
 
     kf, kb = keys
+    tf, tb = tol_keys or keys
     nb = alg.n_blades
     errs = {k: {"exact": [], "fast": []} for k in keys}
     for name, rows, cin, c, _ in shapes:
@@ -3195,7 +3387,7 @@ def check_block_form(dev, gen, alg, shapes, keys):
             again = ck.block_forward(x, params, alg, exact)
             ref = ck.block_forward_plain(x, params, alg, exact)
             errs[kf][mode].append(check(f"{kf} {name} {mode}", out, ref,
-                                        TOL[f"{kf}_{mode}"]))
+                                        TOL[f"{tf}_{mode}"]))
             if not torch.equal(out, again):
                 raise AssertionError(f"{kf} {name} {mode}: two launches "
                                      f"differ")
@@ -3207,7 +3399,7 @@ def check_block_form(dev, gen, alg, shapes, keys):
                                      [dx] + grads, [dx2] + grads2,
                                      [rdx] + rgrads):
                 errs[kb][mode].append(check(f"{kb} {name} {mode} {pn}", g,
-                                            rg, TOL[f"{kb}_{mode}"]))
+                                            rg, TOL[f"{tb}_{mode}"]))
                 if not torch.equal(g, g2):
                     raise AssertionError(f"{kb} {name} {mode} {pn}: two "
                                          f"launches differ")
@@ -3339,6 +3531,24 @@ M_B, M_HID, M_LAYERS, M_DIS, M_TRAIN, M_EVAL = 100, 32, 5, 3, 500, 200
 MD17_PER_STEP = {"k2": 24, "k3": 24}
 
 
+def nba_argv():
+    """The NBA task at configs/nba.yaml widths on the stand-in data."""
+    return task_argv("nba", "nba.NBAModel", "nba.NBADataset", [
+        f"--model.num_hidden={N_HID}", f"--model.num_layers={N_LAYERS}",
+        f"--dataset.batch_size={N_B}", f"--dataset.synth_plays={N_PLAYS}",
+        "--optimizer.lr=5e-3"])
+
+
+def md17_argv():
+    """The MD17 task (aspirin) at configs/md17.yaml widths, cut samples."""
+    return task_argv("md17", "md17.MD17Model", "md17.MD17Dataset", [
+        f"--model.num_hidden={M_HID}", f"--model.num_layers={M_LAYERS}",
+        f"--dataset.batch_size={M_B}", "--dataset.molecule_type=aspirin",
+        f"--dataset.dis={M_DIS}", f"--dataset.num_train_samples={M_TRAIN}",
+        f"--dataset.num_eval_samples={M_EVAL}", "--optimizer.lr=3e-3",
+        "--optimizer.weight_decay=1e-6"])
+
+
 def nba_dataset(dataroot):
     from csmpn_torch.data.nba import NBADataset
 
@@ -3449,10 +3659,7 @@ def phase_nba(dev, gen, results, dataroot, counters):
           f"16): card vs CPU, exact")
     phase_task_model(dev, ds, lambda: NBAModel(
         spec=ds.spec, num_hidden=N_HID, num_layers=N_LAYERS), "nba", 16)
-    argv = task_argv("nba", "nba.NBAModel", "nba.NBADataset", [
-        f"--model.num_hidden={N_HID}", f"--model.num_layers={N_LAYERS}",
-        f"--dataset.batch_size={N_B}", f"--dataset.synth_plays={N_PLAYS}",
-        "--optimizer.lr=5e-3"])
+    argv = nba_argv()
     print(f"NBA task via fire -> run_task -> Trainer.fit: Cl(2,0), hidden "
           f"{N_HID}, {N_LAYERS} layers, batch {N_B}, Adam 5e-3, 8 steps, "
           f"fast precision; stand-in data at {N_PLAYS} plays "
@@ -3481,12 +3688,7 @@ def phase_md17(dev, gen, results, dataroot, counters):
     phase_task_model(dev, ds, lambda: MD17Model(
         spec=ds.spec, n_vertices=n0, num_hidden=M_HID,
         num_layers=M_LAYERS), "md17", 16)
-    argv = task_argv("md17", "md17.MD17Model", "md17.MD17Dataset", [
-        f"--model.num_hidden={M_HID}", f"--model.num_layers={M_LAYERS}",
-        f"--dataset.batch_size={M_B}", "--dataset.molecule_type=aspirin",
-        f"--dataset.dis={M_DIS}", f"--dataset.num_train_samples={M_TRAIN}",
-        f"--dataset.num_eval_samples={M_EVAL}", "--optimizer.lr=3e-3",
-        "--optimizer.weight_decay=1e-6"])
+    argv = md17_argv()
     print(f"MD17 task via fire -> run_task -> Trainer.fit: aspirin, "
           f"Cl(3,0), hidden {M_HID}, {M_LAYERS} layers, batch {M_B}, Adam "
           f"3e-3, 8 steps, fast precision; samples cut to {M_TRAIN}/"
@@ -3496,6 +3698,255 @@ def phase_md17(dev, gen, results, dataroot, counters):
     check_k2_profile(res[5], "MD17")
     return res, phase_graph("MD17", main, argv, dataroot, counters, ds,
                             res)
+
+
+# --------------------------------- K2w/K3w: the dense block at wide widths
+
+# (name, rows, Cin, C) at which the wide block kernels are held to their
+# plain versions, both modes: every hidden-wide block of the three tasks at
+# hidden 128 and 64 (edge C + 6 and node 2C + 3 inputs; the embeddings'
+# 4, 6, 60 and 90 inputs), at CEMLP_SHAPES' rows (E_TOT edge rows, N_TOT
+# node rows), a 282 -> 128 block (2C + 26 inputs), and the edges of the
+# range: C = 33 (one past the Cl(3) row kernels' 32), C = 65 (one past
+# the Cl(2) lanes' 64), C = 128 and Cin = 320.  Every Cl(3) shape runs
+# K2w/K3w in both modes; at Cl(2) a launch that K2/K3 take in one mode
+# stays theirs (each shape's launches are printed)
+WIDE_SHAPES = {
+    3: [("edge_h128", E_TOT, 134, 128), ("node_h128", N_TOT, 259, 128),
+        ("in282_h128", N_TOT, 282, 128), ("embed_2_h128", N_TOT, 90, 128),
+        ("embed_1_h128", B * 16 * 2, 4, 128), ("edge_h64", E_TOT, 70, 64),
+        ("node_h64", N_TOT, 131, 64), ("c33", 1001, 34, 33),
+        ("cin320", 1001, 320, 128), ("cin320_c33", 1001, 320, 33)],
+    2: [("node_h128", N_TOT, 259, 128), ("edge_h128", E_TOT, 134, 128),
+        ("embed_2a_h128", N_TOT, 60, 128), ("node_h64", N_TOT, 131, 64),
+        ("edge_h64", E_TOT, 70, 64), ("c65", 1001, 40, 65),
+        ("cin320", 1001, 320, 128)],
+}
+# the timed shapes: the motion edge block at hidden 128 (and MD17's, the
+# same widths), a 282 -> 128 block; at Cl(2) NBA's node and edge blocks
+WIDE_TIMED = {3: [("edge_h128", E_TOT, 134, 128), ("in282_h128", E_TOT, 282,
+                                                   128)],
+              2: [("node_h128", E_TOT, 259, 128),
+                  ("edge_h128", E_TOT, 134, 128)]}
+WIDE_HID = 128
+# launches a training step at --model.num_hidden=128, predicted from the
+# models' CEMLPs before the first run (PERF.md): every block with a
+# 128-wide output on K2w/K3w; NBA's two 20-wide embedding blocks (embed_1
+# 40 -> 20, embed_2.b 128 -> 20) on K2/K3 at Cl(2)
+WIDE_PER_STEP = {"motion": {"k2w": 19, "k3w": 19},
+                 "md17": {"k2w": 24, "k3w": 24},
+                 "nba": {"k2w_cl2": 13, "k3w_cl2": 13, "k2_cl2": 2,
+                         "k3_cl2": 2}}
+
+
+def wide_bound(rows, cin, c, params, backward, nb):
+    """block_bound() of one wide launch (the fast mode's bf16-rounded
+    operands at the bf16 tensor-core rate, held against the fast time),
+    and the least ms of the same work at the fp32 FFMA rate (the exact
+    mode's operand type, held against the exact time)."""
+    pbytes = sum(p.numel() for p in params) * 4
+    f2 = block_flops(rows, cin, c, nb)
+    by = (rows * (2 * cin + c) * nb * 4 + 2 * pbytes if backward
+          else rows * (cin + c) * nb * 4 + pbytes)
+    fl = 3 * f2 if backward else f2
+    return (*block_bound(rows, cin, c, params, backward, nb),
+            max(by / MEM_BW, fl / FP32_PEAK) * 1e3)
+
+
+def phase_wide_blocks(dev, gen, results, counters):
+    """K2w/K3w against their plain versions at WIDE_SHAPES, Cl(3) and
+    Cl(2), exact and fast, the output and every gradient, two launches
+    bitwise equal (TOL's K2/K3 limits of the algebra); which kernels each
+    shape's launches took; then the times at WIDE_TIMED with both
+    bounds."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    for dim, keys, tols, metric in (
+            (3, ("k2w", "k3w"), ("k2", "k3"), (1.0, 1.0, 1.0)),
+            (2, ("k2w_cl2", "k3w_cl2"), ("k2_cl2", "k3_cl2"), (1.0, 1.0))):
+        alg = get_algebra(metric)
+        print(f"K2w/K3w at Cl({dim}) vs plain (TOL {tols[0]}/{tols[1]})")
+        errs = {k: {"exact": [], "fast": []} for k in keys}
+        for name, rows, cin, c in WIDE_SHAPES[dim]:
+            for cnt in counters.values():
+                cnt.reset()
+            e = check_block_form(dev, gen, alg, [(name, rows, cin, c, 0)],
+                                 keys, tols)
+            took = {k: cnt.count for k, cnt in counters.items()
+                    if cnt.count}
+            print(f"    {name} {cin} -> {c}: launches {took}")
+            # both modes: 2 forwards and 2 backwards each
+            if dim == 3 and took != {"k2w": 4, "k3w": 4}:
+                raise AssertionError(f"Cl(3) {name}: launches {took}, not "
+                                     f"K2w/K3w alone")
+            if dim == 2 and (took.get("k2w_cl2", 0) + took.get("k2_cl2", 0)
+                             != 4 or took.get("k3w_cl2", 0)
+                             + took.get("k3_cl2", 0) != 4):
+                raise AssertionError(f"Cl(2) {name}: launches {took}")
+            for k in keys:
+                for m in ("exact", "fast"):
+                    errs[k][m].append(e[k][m])
+        times = {}
+        for name, rows, cin, c in WIDE_TIMED[dim]:
+            x, params, dout = block_inputs(rows, cin, c, gen, dev,
+                                           nb=alg.n_blades)
+            # (key, backward, the kernel in a mode, the plain fast version)
+            for k, backward, run, plain in (
+                    (keys[0], False,
+                     lambda e: ck.block_forward(x, params, alg, e),
+                     lambda: ck.block_forward_plain(x, params, alg, False)),
+                    (keys[1], True,
+                     lambda e: ck.block_backward(x, dout, params, alg, e),
+                     lambda: ck.block_backward_plain(x, dout, params, alg,
+                                                     False))):
+                iters = 10 if backward else 20
+                ms = time_ms(lambda: run(False), iters=iters)
+                ms_exact = time_ms(lambda: run(True), iters=iters)
+                plain_ms = time_ms(plain, iters=3, warmup=1)
+                b, by, benv, bffma = wide_bound(rows, cin, c, params,
+                                                backward, alg.n_blades)
+                print(f"  time {k} {name} rows={rows} {cin} -> {c}: fast "
+                      f"{ms * 1e3:.1f} us against its bound {b * 1e3:.1f} "
+                      f"us ({by}, bf16 tensor cores at the data sheet's "
+                      f"989 TFLOP/s; {benv * 1e3:.1f} us at the measured "
+                      f"envelope); exact {ms_exact * 1e3:.1f} us against "
+                      f"{bffma * 1e3:.1f} us (fp32 FFMA at 67 TFLOP/s); "
+                      f"plain {plain_ms * 1e3:.1f} us")
+                times.setdefault(k, []).append(dict(
+                    shape=f"{name}: rows={rows} Cin={cin} C={c} "
+                          f"nb={alg.n_blades} fast", ms=ms, exact_ms=ms_exact,
+                    plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                    bound_env_ms=benv, bound_exact_ffma_ms=bffma))
+            del x, params, dout
+            torch.cuda.empty_cache()
+        src = (ck.WIDE if dim == 3 else ck.WIDE_CL2).source
+        for k, line, fn in ((keys[0], 430, "fwd"), (keys[1], 519, "bwd")):
+            first, second = times[k]
+            results[k] = dict(
+                name=f"cemlp_wide{'_cl2' if dim == 2 else ''}_{fn}",
+                route="cuda", source=f"csmpn_torch/csrc/{src}.cu",
+                replaces=f"csmpn_tpu/ops/cemlp_kernel.py:{line}",
+                max_abs_err=max(errs[k]["exact"]),
+                max_abs_err_fast=max(errs[k]["fast"]),
+                library_ms=None, **first,
+                **{f"{second['shape'].split(':')[0]}_{f}": second[f]
+                   for f in ("ms", "exact_ms", "plain_ms", "bound_ms",
+                             "bound_env_ms", "bound_exact_ffma_ms")})
+
+
+def wide_task(tag, dataroot):
+    """(entry point, argv at WIDE_HID, dataset) of a task at the widths
+    of its earlier phase but --model.num_hidden=WIDE_HID."""
+    os.environ["DATAROOT"] = dataroot
+    if tag == "motion":
+        from csmpn_torch.data.motion import MotionDataset
+        from csmpn_torch.tasks.motion import main
+
+        argv = motion_argv()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ds = MotionDataset(batch_size=B, num_training_samples=200)
+    elif tag == "md17":
+        from csmpn_torch.data.md17 import MD17Dataset
+        from csmpn_torch.tasks.md17 import main
+
+        argv = md17_argv()
+        with contextlib.redirect_stdout(io.StringIO()):
+            ds = MD17Dataset(batch_size=M_B, molecule_type="aspirin",
+                             dis=M_DIS, num_train_samples=M_TRAIN,
+                             num_eval_samples=M_EVAL)
+    else:
+        from csmpn_torch.tasks.nba import main
+
+        argv = nba_argv()
+        ds = nba_dataset(dataroot)
+    argv = [a for a in argv if not a.startswith("--model.num_hidden=")]
+    return main, argv + [f"--model.num_hidden={WIDE_HID}"], ds
+
+
+def phase_wide_tasks(dev, dataroot, counters):
+    """The wide widths on the main path: the MD17 (Cl(3)) and NBA (Cl(2))
+    models at hidden 64, card against CPU (their models' limits); motion,
+    MD17 and NBA through their entry points at --model.num_hidden=128 for
+    8 fast steps, each step's launches as WIDE_PER_STEP predicts and no
+    block on the Cl(3) K2/K3; then motion at steps_per_dispatch=8
+    against its eager run (G_TOL), its replays counted from the captured
+    step's kernel nodes.  Returns the runs' (launches, launches a step)
+    by tag."""
+    from csmpn_torch.models.md17 import MD17Model
+    from csmpn_torch.models.nba import NBAModel
+
+    out = {}
+    for tag in ("md17", "nba"):
+        _, _, ds = wide_task(tag, dataroot)
+        algebra = "Cl(3,0)" if tag == "md17" else "Cl(2,0)"
+        print(f"{tag} model at hidden 64 ({algebra}, wide blocks): card vs "
+              f"CPU, exact")
+        if tag == "md17":
+            phase_task_model(dev, ds, lambda: MD17Model(
+                spec=ds.spec, n_vertices=ds.model_kwargs["n_vertices"],
+                num_hidden=64, num_layers=M_LAYERS), "md17", 16)
+        else:
+            phase_task_model(dev, ds, lambda: NBAModel(
+                spec=ds.spec, num_hidden=64, num_layers=N_LAYERS), "nba", 16)
+    dense = {k: counters[k] for k in ("k2", "k3")}
+    for tag in ("motion", "md17", "nba"):
+        main, argv, ds = wide_task(tag, dataroot)
+        want = WIDE_PER_STEP[tag]
+        keys = {"k1": counters["k1"], **{k: counters[k] for k in want}}
+        print(f"{tag} task at --model.num_hidden={WIDE_HID} via fire -> "
+              f"run_task -> Trainer.fit, 8 steps, fast precision; predicted "
+              f"launches a step {want}")
+        for c in dense.values():
+            c.reset()
+        res = run_entry(main, argv, dataroot, keys, ds)
+        check_per_step(res[1], want, f"{tag} hidden {WIDE_HID}")
+        if any(c.count for c in dense.values()):
+            ran = {k: c.count for k, c in dense.items()}
+            raise AssertionError(f"{tag} hidden {WIDE_HID}: the Cl(3) "
+                                 f"K2/K3 launched {ran}")
+        out[f"{tag}_h{WIDE_HID}"] = res[:2]
+        if tag == "motion":
+            out[f"motion_h{WIDE_HID}_graph"] = wide_graph(
+                main, argv, dataroot, keys, res)
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_graph(main, argv, dataroot, counters, eager):
+    """A task at steps_per_dispatch=G_K (device_data) against its eager
+    run with the graph's capturable Adam, fast precision, within G_TOL;
+    the wrappers' launches in the run, the captured step's kernel nodes
+    held to the eager step's launches and the replays to their number.
+    Returns (the wrappers' launches, kernel nodes a step)."""
+    from csmpn_torch.engineer.trainer import WARMUP_STEPS
+
+    ref, _ = fire_quiet(main, graph_argv(argv, "fast", [
+        "--optimizer.capturable=True"]), dataroot)
+    for c in counters.values():
+        c.reset()
+    tr, text = fire_quiet(main, graph_argv(argv, "fast", G_KNOBS), dataroot)
+    launches = {k: c.count for k, c in counters.items()}
+    tol, n = G_TOL["fast", "capturable"]
+    a, b = tr.step_losses[:n], ref.step_losses[:n]
+    rel = [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    nodes = launches_of(graph_kernels(tr.train_graph.graph), counters)
+    replays = tr.train_graph.replays
+    print(f"  under CUDA graphs ({' '.join(k[2:] for k in G_KNOBS)}, "
+          f"{G_STEPS} steps): losses vs eager (capturable Adam) worst rel "
+          f"{max(rel):.2e} (tol {tol:.0e}); {replays} replays of kernel "
+          f"nodes {nodes} a step (eager {eager[1]}), kernel runs "
+          f"{ {k: v * replays for k, v in nodes.items()} }; wrapper "
+          f"launches {launches}")
+    if (len(a) != n or not max(rel) <= tol or nodes != eager[1]
+            or replays != G_STEPS - WARMUP_STEPS
+            or "Stopping due to max_steps." not in text):
+        raise AssertionError(f"graph run at hidden {WIDE_HID}: losses {a} "
+                             f"vs {b}, kernel nodes a step {nodes} vs eager "
+                             f"{eager[1]}, {replays} replays, not "
+                             f"{G_STEPS - WARMUP_STEPS}")
+    return launches, nodes
 
 
 # ------------------------------------------------------- the bench path
@@ -4298,6 +4749,13 @@ def main() -> int:
                     "k4p_cl4": fe.PAIR_CL4_FWD_LAUNCHES,
                     "k5p_cl4": fe.PAIR_CL4_BWD_LAUNCHES}
     cl5_pair = {k: c for k, c in cl5_counters.items() if k != "k1"}
+    wide_counters = {"k1": sk.LAUNCHES, "k2": ck.FWD_LAUNCHES,
+                     "k3": ck.BWD_LAUNCHES, "k2_cl2": ck.CL2_FWD_LAUNCHES,
+                     "k3_cl2": ck.CL2_BWD_LAUNCHES,
+                     "k2w": ck.WIDE_FWD_LAUNCHES,
+                     "k3w": ck.WIDE_BWD_LAUNCHES,
+                     "k2w_cl2": ck.WIDE_CL2_FWD_LAUNCHES,
+                     "k3w_cl2": ck.WIDE_CL2_BWD_LAUNCHES}
     runs = {"envelope": (phase_envelope(dev, results), None)}
     graph_times = {}
     with tempfile.TemporaryDirectory() as dataroot:
@@ -4331,6 +4789,14 @@ def main() -> int:
                                             res[6])
                 runs["dp"], runs["dp_graph"] = phase_data_parallel(
                     dataroot, motion_counters, res)[:2]
+        t_wide = time.time()
+        phase_wide_blocks(dev, gen, results, {
+            k: c for k, c in wide_counters.items() if k != "k1"})
+        runs.update(phase_wide_tasks(dev, dataroot, wide_counters))
+        wide_s = time.time() - t_wide
+        print(f"the wide-block phases (K2w/K3w checks and times, the models "
+              f"at hidden 64, the tasks at hidden {WIDE_HID}): {wide_s:.1f} "
+              f"s of this run")
         phase_tile_instances(dev, gen, results)
         phase_pair_tile_instances(dev, gen, results)
         phase_pair_fused_instances(dev, gen, results)
@@ -4351,11 +4817,14 @@ def main() -> int:
             "k4p": "bench_cl5", "k5p": "bench_cl5",
             **{k: "bench_cl4" for k in ("k2p_cl4", "k3p_cl4", "k4p_cl4",
                                         "k5p_cl4")},
-            "p1": "envelope", "p2": "envelope", "p3": "envelope"}
+            "p1": "envelope", "p2": "envelope", "p3": "envelope",
+            "k2w": f"motion_h{WIDE_HID}", "k3w": f"motion_h{WIDE_HID}",
+            "k2w_cl2": f"nba_h{WIDE_HID}", "k3w_cl2": f"nba_h{WIDE_HID}"}
     kernels = []
     for k in ("k1", "k2", "k3", "k4", "k5", "k2p", "k3p", "k2_cl2",
               "k3_cl2", "k4_cl2", "k5_cl2", "k4p", "k5p", "k2p_cl4",
-              "k3p_cl4", "k4p_cl4", "k5p_cl4", "p1", "p2", "p3"):
+              "k3p_cl4", "k4p_cl4", "k5p_cl4", "p1", "p2", "p3", "k2w",
+              "k3w", "k2w_cl2", "k3w_cl2"):
         entry = dict(results[k])
         own = home.get(k, "bench")
         entry["launches"] = runs[own][0][k]
@@ -4368,7 +4837,8 @@ def main() -> int:
                     entry[f"launches_per_step_{tag}"] = ps[k]
         kernels.append(entry)
     print_graph_times(graph_times)
-    print(f"total {time.time() - t_start:.1f} s")
+    print(f"total {time.time() - t_start:.1f} s, of which the wide-block "
+          f"phases {wide_s:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -494,10 +494,14 @@ size_t bwd_smem_bytes(int cin, int c) {
           (size_t)(cin + 2 * c) * A::NG * c + (size_t)Loc<A>::N * c);
 }
 
+// The row kernels' shared-memory bytes a launch needs, 0 where the widths
+// are not supported or the bytes exceed one CTA's.
 template <class A>
 size_t smem_bytes(int cin, int c, int backward) {
   if (!widths_ok<A>(cin, c)) return 0;
-  return backward ? bwd_smem_bytes<A>(cin, c) : fwd_smem_bytes<A>(cin, c);
+  const size_t n =
+      backward ? bwd_smem_bytes<A>(cin, c) : fwd_smem_bytes<A>(cin, c);
+  return n > kMaxSmem ? 0 : n;
 }
 
 // The kernel instance of a launch: whole x tiles at the weight-gradient

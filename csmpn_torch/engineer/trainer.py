@@ -217,16 +217,19 @@ class StepGraph:
     """One captured CUDA graph of ``body(static input)``, the capture's
     host seconds, the device memory its private pool holds
     (``torch.cuda.memory_reserved`` after the capture less before it), and
-    the number of replays."""
+    the number of replays.  The graph keeps its ``cudaGraph_t`` after
+    instantiation (``graph.raw_cuda_graph()``), so that a caller can read
+    the captured step's kernel nodes."""
 
     def __init__(self, body, static_in, stream: torch.cuda.Stream):
         device = stream.device
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
         t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph, stream=stream):
             self.out = body(static_in)
+        self.graph.instantiate()
         self.capture_seconds = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.static_in = static_in

@@ -26,10 +26,16 @@ two forms:
     product a thread per (row, channel, group of output blades) over the
     Cayley terms of ``csrc/pair_terms.cuh``, unrolled at compile time).
 
-Cl(1) (nb = 2), which the reference's dense form also serves, has no
-kernel yet and raises.  Widths whose block does not fit in one CTA's
-shared memory raise too.  On a CUDA tensor the wrappers launch the kernels
-(or raise); on a CPU tensor they compute the plain versions:
+At the widths whose dense block does not fit in one CTA of those kernels
+(``_smem``, the lanes of a warp), every C <= 128 output and Cin <= 320
+input channels, a dense block runs K2w/K3w (``csrc/cemlp_wide.cuh``, FFMA
+products of weight panels streamed through shared memory from a parameter
+image, the backward's weight gradients a kernel of their own over the
+rows' cotangents); ``block_route`` picks a launch's kernels.  Wider dense
+blocks raise NotImplementedError, as Cl(1) (nb = 2), which the
+reference's dense form also serves, still does.  On a CUDA tensor the
+wrappers launch the kernels (or raise); on a CPU tensor they compute the
+plain versions:
 
   * ``block_forward_plain`` — the block in PyTorch, written per grade
     (the same function as ``_post_linear_math`` and the composed layers);
@@ -74,6 +80,10 @@ PAIR_FWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_fwd")
 PAIR_BWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_bwd")
 PAIR_CL4_FWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_cl4_fwd")
 PAIR_CL4_BWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_cl4_bwd")
+WIDE_FWD_LAUNCHES = _build.LaunchCounter("cemlp_wide_fwd")
+WIDE_BWD_LAUNCHES = _build.LaunchCounter("cemlp_wide_bwd")
+WIDE_CL2_FWD_LAUNCHES = _build.LaunchCounter("cemlp_wide_cl2_fwd")
+WIDE_CL2_BWD_LAUNCHES = _build.LaunchCounter("cemlp_wide_cl2_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -111,6 +121,14 @@ PAIR_CL4 = BlockKernel("K2p/K3p at Cl(4)", "cemlp_pair_cl4",
                        "csmpn_cemlp_pair_cl4", "Cl(4,0) (16 blades)", 16, 5,
                        35, 0, 16, 8, PAIR_CL4_FWD_LAUNCHES,
                        PAIR_CL4_BWD_LAUNCHES, form="pair")
+
+# the widths K2w/K3w take are their library's (block_route asks it)
+WIDE = BlockKernel("K2w/K3w", "cemlp_wide", "csmpn_cemlp_wide",
+                   "Cl(3) (8 blades)", 8, 4, 20, 0, 8, 8,
+                   WIDE_FWD_LAUNCHES, WIDE_BWD_LAUNCHES)
+WIDE_CL2 = BlockKernel("K2w/K3w at Cl(2)", "cemlp_wide_cl2",
+                       "csmpn_cemlp_wide_cl2", "Cl(2) (4 blades)", 4, 3, 10,
+                       0, 8, 8, WIDE_CL2_FWD_LAUNCHES, WIDE_CL2_BWD_LAUNCHES)
 
 
 def block_kernel(nb: int) -> BlockKernel:
@@ -308,7 +326,30 @@ def check_block_params(params, cin: int, c: int, device,
             f"take at most {kern.max_channels} output channels, got {c}")
 
 
-def _check_block(x, params):
+def block_route(kern: BlockKernel, cin: int, c: int, backward: bool,
+                exact: bool) -> Tuple[BlockKernel, int]:
+    """(The kernels of one launch of ``kern``'s algebra at cin -> c, the
+    launch's shared-memory bytes where they are ``kern``'s own, else 0):
+    ``kern``'s own where their plan takes the widths in this direction
+    and mode (``_smem``), else for the dense form K2w/K3w where their
+    library's ``smem_bytes`` entry takes them; NotImplementedError beyond
+    (naming the range of the library's ``range`` entry), and where the
+    pair form's plan does not take the widths."""
+    try:
+        return kern, _smem(kern, cin, c, backward, exact)
+    except NotImplementedError:
+        if kern.form != "dense":
+            raise
+    wide = WIDE if kern.n_blades == 8 else WIDE_CL2
+    if _wide_size(wide, "smem_bytes", cin, c, int(backward)):
+        return wide, 0
+    max_c, max_cin = _wide_range(wide)
+    raise NotImplementedError(
+        f"{kern.label}: {cin} -> {c} channels; the dense block kernels take "
+        f"at most {max_c} output and {max_cin} input channels")
+
+
+def _check_block(x, params, backward: bool, exact: bool):
     nb = x.shape[-1] if x.dim() == 3 else -1
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError(f"x must be (rows, Cin, nb) float32, got "
@@ -320,8 +361,9 @@ def _check_block(x, params):
             f"at most {_build.MAX_COUNT}")
     cin = x.shape[1]
     c = params[0].shape[0]
+    kern, smem = block_route(kern, cin, c, backward, exact)
     check_block_params(params, cin, c, x.device, kern)
-    return kern, cin, c
+    return kern, cin, c, smem
 
 
 def _grid(rows: int, device, smem_bytes: int, rows_per_cta: int,
@@ -363,9 +405,10 @@ def _tile_rows(kern: BlockKernel, backward: bool = True) -> int:
 
 def _smem(kern: BlockKernel, cin, c, backward, exact=True):
     """Shared-memory bytes of a launch; NotImplementedError where the
-    widths do not fit in one CTA's 227 KB (or, for the fast-mode K3 and
-    K3p, in their register tiles).  Fast mode asks the row tiles' entry of
-    the direction, exact mode the row kernels'."""
+    library's entry gives 0: the widths do not fit in one CTA's 227 KB
+    (or, for the fast-mode K3 and K3p, in their register tiles, or in a
+    warp's lanes).  Fast mode asks the row tiles' entry of the direction,
+    exact mode the row kernels'."""
     lib = _build.load(kern.source)
     if _tiled(kern, backward, exact):
         entry = "tile_smem_bytes" if backward else "fwd_tile_smem_bytes"
@@ -427,17 +470,18 @@ def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
     Cin, nb) float32 -> (rows, C, nb)."""
     if not x.is_cuda:
         return block_forward_plain(x, params, alg, exact)
-    kern, cin, c = _check_block(x, params)
+    kern, cin, c, smem = _check_block(x, params, False, exact)
     x = x.contiguous()
     params = [p.contiguous() for p in params]
     rows, nb = x.shape[0], kern.n_blades
     out = torch.empty((rows, c, nb), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out
+    if kern in (WIDE, WIDE_CL2):
+        return _wide_forward(kern, x, params, alg, exact, out)
     bc, tabs = _tables(kern, alg, x.device)
     tiled = _tiled(kern, False, exact)
     rows_cta = _tile_rows(kern, False) if tiled else kern.rows_fwd
-    smem = _smem(kern, cin, c, False, exact)
     dense = kern.form == "dense"
     per_sm, img_bytes = _fwd_tile_launch(kern, cin, c) if tiled and dense \
         else (0, 0)
@@ -484,18 +528,34 @@ def block_backward(x: torch.Tensor, dout: torch.Tensor,
     gradients of one CEMLP block."""
     if not x.is_cuda:
         return block_backward_plain(x, dout, params, alg, exact)
-    kern, cin, c = _check_block(x, params)
+    kern, cin, c, smem = _check_block(x, params, True, exact)
     x = x.contiguous()
     dout = dout.to(torch.float32).contiguous()
     params = [p.contiguous() for p in params]
     rows, nb = x.shape[0], kern.n_blades
     if dout.shape != (rows, c, nb):
         raise ValueError(f"dout shape {tuple(dout.shape)} != {(rows, c, nb)}")
-    bc, tabs = _tables(kern, alg, x.device)
     n_grad = sum(p.numel() for p in params)
+    if kern in (WIDE, WIDE_CL2):
+        flat, dx = _wide_backward(kern, x, dout, params, alg, exact, n_grad)
+    else:
+        flat, dx = _dense_backward(kern, x, dout, params, alg, exact, n_grad,
+                                   smem)
+    grads = _split_grads(flat, params)
+    # the kernel returns d/d sigmoid(normalization.a); chain to a
+    s = torch.sigmoid(params[6])
+    grads[6] = grads[6] * s * (1.0 - s)
+    return dx, grads
+
+
+def _dense_backward(kern, x, dout, params, alg, exact, n_grad, smem):
+    """K3 (K3p) with its reduction, smem bytes a CTA: (the flat gradient
+    vector, dx)."""
+    rows, cin, c = x.shape[0], x.shape[1], params[0].shape[0]
+    bc, tabs = _tables(kern, alg, x.device)
     rows_cta = _tile_rows(kern) if _tiled(kern, True, exact) \
         else kern.rows_bwd
-    grid = _grid(rows, x.device, _smem(kern, cin, c, True, exact), rows_cta)
+    grid = _grid(rows, x.device, smem, rows_cta)
     dx = torch.empty_like(x)
     partials = torch.empty((grid, _partial_floats(kern, cin, c, n_grad,
                                                   exact)),
@@ -509,11 +569,81 @@ def block_backward(x: torch.Tensor, dout: torch.Tensor,
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, f"{kern.label} backward kernel")
     kern.bwd.add()
-    grads = _split_grads(flat, params)
-    # the kernel returns d/d sigmoid(normalization.a); chain to a
-    s = torch.sigmoid(params[6])
-    grads[6] = grads[6] * s * (1.0 - s)
-    return dx, grads
+    return flat, dx
+
+
+def _wide_size(kern: BlockKernel, name: str, *args) -> int:
+    """A size entry of K2w/K3w's library (int arguments, long long)."""
+    fn = getattr(_build.load(kern.source), f"{kern.symbol}_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = [_I] * len(args)
+        fn.restype = ctypes.c_longlong
+    return int(fn(*args))
+
+
+def _wide_range(kern: BlockKernel) -> Tuple[int, int]:
+    """(The most output, the most input channels) K2w/K3w take, from
+    their library's range entry."""
+    fn = getattr(_build.load(kern.source), f"{kern.symbol}_range")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(_I)]
+        fn.restype = None
+    out = (_I * 2)()
+    fn(out)
+    return out[0], out[1]
+
+
+def _wide_forward(kern, x, params, alg, exact, out):
+    """K2w: the parameter image, then the row steps."""
+    rows, cin, c = x.shape[0], x.shape[1], out.shape[1]
+    bc, sign = _alg_tables(tuple(alg.metric.tolist()), kern.source,
+                           kern.symbol)
+    img = torch.empty(_wide_size(kern, "img_floats", cin, c, 0),
+                      dtype=torch.float32, device=x.device)
+    grid = _grid(rows, x.device, _wide_size(kern, "smem_bytes", cin, c, 0),
+                 kern.rows_fwd)
+    ptrs = [x.data_ptr(), *[p.data_ptr() for p in params], bc.ctypes.data,
+            sign.ctypes.data, out.data_ptr(), img.data_ptr()]
+    fn = _fn(f"{kern.symbol}_fwd", len(ptrs), 5, kern.source)
+    err = fn(*ptrs, rows, cin, c, 0 if exact else 1, grid,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, f"{kern.label} forward kernel")
+    kern.fwd.add()
+    return out
+
+
+def _wide_backward(kern, x, dout, params, alg, exact, n_grad):
+    """K3w: the parameter image, the row steps (dx, the cotangent rows,
+    the per-channel partials), the weight gradients over the rows, and
+    the reduction of both kinds of partials: (the flat gradients, dx)."""
+    rows, cin, nb = x.shape
+    c = params[0].shape[0]
+    dev = x.device
+    bc, sign = _alg_tables(tuple(alg.metric.tolist()), kern.source,
+                           kern.symbol)
+    grid = _grid(rows, dev, _wide_size(kern, "smem_bytes", cin, c, 1),
+                 kern.rows_bwd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = _wide_size(kern, "wgrad_splits", rows, cin, c, sms)
+    f32 = dict(dtype=torch.float32, device=dev)
+    img = torch.empty(_wide_size(kern, "img_floats", cin, c, 1), **f32)
+    scratch = torch.empty(4 * rows * c * nb, **f32)
+    lpart = torch.empty(grid * kern.rows_bwd
+                        * _wide_size(kern, "loc_floats", c), **f32)
+    wpart = torch.empty(splits * _wide_size(kern, "wpart_floats", cin, c),
+                        **f32)
+    flat = torch.empty(n_grad, **f32)
+    dx = torch.empty_like(x)
+    ptrs = [x.data_ptr(), dout.data_ptr(), *[p.data_ptr() for p in params],
+            bc.ctypes.data, sign.ctypes.data, dx.data_ptr(), img.data_ptr(),
+            scratch.data_ptr(), lpart.data_ptr(), wpart.data_ptr(),
+            flat.data_ptr()]
+    fn = _fn(f"{kern.symbol}_bwd", len(ptrs), 6, kern.source)
+    err = fn(*ptrs, rows, cin, c, 0 if exact else 1, grid, splits,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"{kern.label} backward kernels")
+    kern.bwd.add()
+    return flat, dx
 
 
 class _Block(torch.autograd.Function):

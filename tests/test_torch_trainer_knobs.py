@@ -9,6 +9,7 @@ steps), so the grouped and per-step paths do the same arithmetic and are
 compared bit for bit.  Against the reference: the training losses within
 its parity tolerance (rtol 2e-4, atol 1e-5, tests/test_train.py), the
 parameters as stated in that test."""
+import collections
 import json
 import os
 
@@ -337,11 +338,13 @@ def test_graph_mode_needs_a_capturable_optimizer(ds):
 
 
 def test_chip_smoke_counts_replays_by_kernel_name():
-    """chip_smoke counts a graph replay's launches from a profile's kernel
-    runs: each counter is the kernels its wrapper launches once a call (K2
-    and K3 in both modes, dense and pair form apart), and not the helper
-    launches beside them (the parameter image's pack, the partials'
-    reduce)."""
+    """chip_smoke counts launches by kernel name, from a captured graph's
+    kernel nodes (the exact count under replay) or a profile's kernel runs
+    (read beside it): each counter is the kernels its wrapper launches
+    once a call (K2 and K3 in both modes, dense and pair form and the wide
+    kernels apart), and not the helper launches beside them (the parameter
+    image's pack, the partials' reduce); a node's mangled symbol reads as
+    the profile's name does."""
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -360,8 +363,20 @@ def test_chip_smoke_counts_replays_by_kernel_name():
             f"void {ns}cemlp_pair_bwd_tile_kernel<{ns}A5, 16>()": 14,
             f"void {ns}cemlp_pair_bwd_kernel<{ns}A5, {ns}K>()": 1,
             "void at::native::vectorized_gather_kernel<16, long>()": 19}
-    assert cs.profiled_launches(runs, ["k1", "k2", "k3", "k2p", "k3p"]) == {
+    assert cs.launches_of(runs, ["k1", "k2", "k3", "k2p", "k3p"]) == {
         "k1": 14, "k2": 19, "k3": 19, "k2p": 15, "k3p": 15}
+    anon = "_ZN12_GLOBAL__N_1"
+    nodes = [f"{anon}18segment_sum_kernelIfLb1ELi4ELi2EEEvPKT_",
+             f"{anon}21cemlp_fwd_tile_kernelINS_3Cl3ELb0EEEvPKf",
+             f"{anon}21cemlp_wide_fwd_kernelINS_3Cl3ELb1EEEvPKf",
+             f"{anon}21cemlp_wide_bwd_kernelINS_3Cl3ELb1EEEvPKf",
+             f"{anon}23cemlp_wide_wgrad_kernelINS_3Cl3ELb1EEEvPKf",
+             f"{anon}22reduce_partials_kernelEPKfPfli",
+             "_ZN2at6native29vectorized_elementwise_kernelILi4EEEvi"]
+    names = collections.Counter(cs.demangled(n) for n in nodes)
+    assert cs.demangled(nodes[-2]) == "reduce_partials_kernel"
+    assert cs.launches_of(names, ["k1", "k2", "k3", "k2w", "k3w"]) == {
+        "k1": 1, "k2": 1, "k3": 0, "k2w": 1, "k3w": 1}
 
 
 def test_sequence_flags_parse(ds):
