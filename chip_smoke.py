@@ -161,6 +161,27 @@
     there at ``steps_per_dispatch=8`` against its eager run within G_TOL,
     its replays' kernel nodes held to the eager step's launches; the
     phases' seconds are printed;
+9c. the wide pair-form blocks: K2pw/K3pw (``csrc/cemlp_pair_wide.cuh``,
+    the pair-form block at the widths K2p/K3p do not take, C <= 64, Cin
+    <= 160, Cl(5) and Cl(4)) against their plain versions at every block
+    shape of a hulls step at hidden 36, 48 and 64 (rows from the data's
+    padding spec) and at the range's edges (160 -> 64, 160 -> 29), and at
+    Cl(4) at 83 -> 40 and 131 -> 64 (8,192 rows), exact and fast, the
+    output and every gradient within TOL's K2p/K3p limits, two launches
+    bitwise equal, each shape's launches (at hidden 48 and 64 none on
+    K2p/K3p); their times at the hulls edge and node blocks 0 at hidden 64
+    and at the Cl(4) shapes with the bounds against the bf16 tensor cores
+    and fp32 FFMA; a pair-form block past the range raising
+    NotImplementedError that names it; the hulls model at hidden 48 card
+    vs CPU (exact); the hulls task through its entry point at
+    ``--model.hidden_features=64``, 8 fast steps, finite losses, 15 + 15
+    K2pw/K3pw launches a step and no K2p/K3p, then at
+    ``steps_per_dispatch=8`` against its eager run within G_TOL, its
+    replays' kernel nodes held to the eager step's launches, and its eager
+    run again at ``--precision=exact``; a Cl(4)
+    CEMLP (131 -> 64 -> 64) through the Python API, card vs CPU, 2 + 2
+    launches; and, over the task phases before, no K2pw/K3pw launch at the
+    configured widths; the phases' seconds are printed;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -205,9 +226,10 @@
     last the host tables of 8 shards x 8 chunks of the 10M complex at
     locality 4096 beside the reference's record;
 13. prints each task's eager and graph step times beside the aims, the
-    kernels JSON line (twenty-four kernels, K2w/K3w at Cl(3) and Cl(2)
-    with their launches on the tasks at hidden 128; beside each kernel's
-    own path, its
+    kernels JSON line (twenty-eight kernels, K2w/K3w at Cl(3) and Cl(2)
+    with their launches on the tasks at hidden 128, K2pw/K3pw with theirs
+    on hulls at hidden 64 and, at Cl(4), on the Python API's CEMLP;
+    beside each kernel's own path, its
     launches on the others: for a graph run the wrappers' launches in the
     run and, as ``launches_per_step_<task>_graph``, the captured step's
     kernel nodes by kernel (each runs once a replay); ``launches_stream`` and
@@ -2709,6 +2731,8 @@ KERNEL_OF = {
     "k3p": r"\bcemlp_pair_bwd(_tile)?_kernel<",
     **dict.fromkeys(("k2w", "k2w_cl2"), r"\bcemlp_wide_fwd_kernel<"),
     **dict.fromkeys(("k3w", "k3w_cl2"), r"\bcemlp_wide_bwd_kernel<"),
+    **dict.fromkeys(("k2pw", "k2pw_cl4"), r"\bcemlp_pair_wide_fwd_kernel<"),
+    **dict.fromkeys(("k3pw", "k3pw_cl4"), r"\bcemlp_pair_wide_bwd_kernel<"),
 }
 
 
@@ -3327,13 +3351,13 @@ def hulls_dataset(dataroot):
                              num_val_samples=H_VAL)
 
 
-def hulls_shapes(spec):
+def hulls_shapes(spec, h=H_HID):
     """(name, rows, Cin, C, launches per step) of every CEMLP block of a
-    hulls training step at batch H_B, from the data's padding spec: the
-    edge and node models of 3 EGCL layers (edge attributes 2 x 3 simplex
-    types, node attributes 3) and the embeddings of edges (2 vertex
-    orders) and triangles (6)."""
-    counts, h = spec.counts_max, H_HID
+    hulls training step at batch H_B and hidden width h, from the data's
+    padding spec: the edge and node models of 3 EGCL layers (edge
+    attributes 2 x 3 simplex types, node attributes 3) and the embeddings
+    of edges (2 vertex orders) and triangles (6)."""
+    counts = spec.counts_max
     n, e = sum(counts), spec.e_max
     return [
         ("edge_block0", H_B * e, h + 6, h, 3),
@@ -3482,6 +3506,13 @@ def phase_block_form(dev, gen, results, shapes, metric, keys, name, src,
             **times[k])
 
 
+def hulls_argv():
+    return task_argv("hulls", "hulls.HullsModel", "hulls.ConvexHullDataset", [
+        f"--dataset.num_samples={H_TRAIN}",
+        f"--dataset.num_val_samples={H_VAL}",
+        f"--dataset.batch_size={H_B}", "--optimizer.lr=1e-3"])
+
+
 def phase_hulls(dev, gen, results, dataroot, counters):
     """The hulls path: K1 at its width, K2p/K3p at every launch shape of a
     step, the full-width model card vs CPU, then the task through its
@@ -3502,10 +3533,7 @@ def phase_hulls(dev, gen, results, dataroot, counters):
     phase_task_model(dev, ds, lambda: HullsModel(spec=ds.spec), "hulls",
                      H_B)
 
-    argv = task_argv("hulls", "hulls.HullsModel", "hulls.ConvexHullDataset", [
-        f"--dataset.num_samples={H_TRAIN}",
-        f"--dataset.num_val_samples={H_VAL}",
-        f"--dataset.batch_size={H_B}", "--optimizer.lr=1e-3"])
+    argv = hulls_argv()
     print(f"hulls task via fire -> run_task -> Trainer.fit: Cl(5,0), "
           f"hidden {H_HID}, 3 layers, batch {H_B}, Adam lr 1e-3, 8 steps, "
           f"fast precision; dataset cut to {H_TRAIN} train / {H_VAL} val / "
@@ -3753,6 +3781,66 @@ def wide_bound(rows, cin, c, params, backward, nb):
             max(by / MEM_BW, fl / FP32_PEAK) * 1e3)
 
 
+def time_wide(dev, gen, alg, shapes, keys, iters):
+    """The wide block kernels ``keys`` (forward, backward) at each (name,
+    rows, Cin, C): fast and exact times (``iters`` launches forward,
+    backward), the plain fast version's, block_bound (bf16 tensor cores,
+    as K2's and K2p's) and the fp32 FFMA bound (wide_bound).  Returns
+    {key: [fields by shape]}."""
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    times = {}
+    for name, rows, cin, c in shapes:
+        x, params, dout = block_inputs(rows, cin, c, gen, dev,
+                                       nb=alg.n_blades)
+        for k, backward, run, plain in (
+                (keys[0], False,
+                 lambda e: ck.block_forward(x, params, alg, e),
+                 lambda: ck.block_forward_plain(x, params, alg, False)),
+                (keys[1], True,
+                 lambda e: ck.block_backward(x, dout, params, alg, e),
+                 lambda: ck.block_backward_plain(x, dout, params, alg,
+                                                 False))):
+            n = iters[1] if backward else iters[0]
+            ms = time_ms(lambda: run(False), iters=n)
+            ms_exact = time_ms(lambda: run(True), iters=n)
+            plain_ms = time_ms(plain, iters=2, warmup=1)
+            b, by, benv, bffma = wide_bound(rows, cin, c, params, backward,
+                                            alg.n_blades)
+            print(f"  time {k} {name} rows={rows} {cin} -> {c}: fast "
+                  f"{ms * 1e3:.1f} us against its bound {b * 1e3:.1f} us "
+                  f"({by}, bf16 tensor cores at the data sheet's 989 "
+                  f"TFLOP/s; {benv * 1e3:.1f} us at the measured "
+                  f"envelope); exact {ms_exact * 1e3:.1f} us against "
+                  f"{bffma * 1e3:.1f} us (fp32 FFMA at 67 TFLOP/s); plain "
+                  f"{plain_ms * 1e3:.1f} us")
+            times.setdefault(k, []).append(dict(
+                shape=f"{name}: rows={rows} Cin={cin} C={c} "
+                      f"nb={alg.n_blades} fast", ms=ms, exact_ms=ms_exact,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                bound_env_ms=benv, bound_exact_ffma_ms=bffma))
+        del x, params, dout
+        torch.cuda.empty_cache()
+    return times
+
+
+def wide_entries(results, times, errs, keys, src):
+    """The kernels-line entries of a pair of wide block kernels (K2w/K3w,
+    K2pw/K3pw) of one algebra, built from csrc/{src}.cu: the first timed
+    shape's fields, the second's prefixed with its name."""
+    for k, line, fn in ((keys[0], 430, "fwd"), (keys[1], 519, "bwd")):
+        first, second = times[k]
+        results[k] = dict(
+            name=f"{src}_{fn}", route="cuda",
+            source=f"csmpn_torch/csrc/{src}.cu",
+            replaces=f"csmpn_tpu/ops/cemlp_kernel.py:{line}",
+            max_abs_err=max(errs[k]["exact"]),
+            max_abs_err_fast=max(errs[k]["fast"]), library_ms=None, **first,
+            **{f"{second['shape'].split(':')[0]}_{f}": second[f]
+               for f in ("ms", "exact_ms", "plain_ms", "bound_ms",
+                         "bound_env_ms", "bound_exact_ffma_ms")})
+
+
 def phase_wide_blocks(dev, gen, results, counters):
     """K2w/K3w against their plain versions at WIDE_SHAPES, Cl(3) and
     Cl(2), exact and fast, the output and every gradient, two launches
@@ -3787,52 +3875,9 @@ def phase_wide_blocks(dev, gen, results, counters):
             for k in keys:
                 for m in ("exact", "fast"):
                     errs[k][m].append(e[k][m])
-        times = {}
-        for name, rows, cin, c in WIDE_TIMED[dim]:
-            x, params, dout = block_inputs(rows, cin, c, gen, dev,
-                                           nb=alg.n_blades)
-            # (key, backward, the kernel in a mode, the plain fast version)
-            for k, backward, run, plain in (
-                    (keys[0], False,
-                     lambda e: ck.block_forward(x, params, alg, e),
-                     lambda: ck.block_forward_plain(x, params, alg, False)),
-                    (keys[1], True,
-                     lambda e: ck.block_backward(x, dout, params, alg, e),
-                     lambda: ck.block_backward_plain(x, dout, params, alg,
-                                                     False))):
-                iters = 10 if backward else 20
-                ms = time_ms(lambda: run(False), iters=iters)
-                ms_exact = time_ms(lambda: run(True), iters=iters)
-                plain_ms = time_ms(plain, iters=3, warmup=1)
-                b, by, benv, bffma = wide_bound(rows, cin, c, params,
-                                                backward, alg.n_blades)
-                print(f"  time {k} {name} rows={rows} {cin} -> {c}: fast "
-                      f"{ms * 1e3:.1f} us against its bound {b * 1e3:.1f} "
-                      f"us ({by}, bf16 tensor cores at the data sheet's "
-                      f"989 TFLOP/s; {benv * 1e3:.1f} us at the measured "
-                      f"envelope); exact {ms_exact * 1e3:.1f} us against "
-                      f"{bffma * 1e3:.1f} us (fp32 FFMA at 67 TFLOP/s); "
-                      f"plain {plain_ms * 1e3:.1f} us")
-                times.setdefault(k, []).append(dict(
-                    shape=f"{name}: rows={rows} Cin={cin} C={c} "
-                          f"nb={alg.n_blades} fast", ms=ms, exact_ms=ms_exact,
-                    plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                    bound_env_ms=benv, bound_exact_ffma_ms=bffma))
-            del x, params, dout
-            torch.cuda.empty_cache()
-        src = (ck.WIDE if dim == 3 else ck.WIDE_CL2).source
-        for k, line, fn in ((keys[0], 430, "fwd"), (keys[1], 519, "bwd")):
-            first, second = times[k]
-            results[k] = dict(
-                name=f"cemlp_wide{'_cl2' if dim == 2 else ''}_{fn}",
-                route="cuda", source=f"csmpn_torch/csrc/{src}.cu",
-                replaces=f"csmpn_tpu/ops/cemlp_kernel.py:{line}",
-                max_abs_err=max(errs[k]["exact"]),
-                max_abs_err_fast=max(errs[k]["fast"]),
-                library_ms=None, **first,
-                **{f"{second['shape'].split(':')[0]}_{f}": second[f]
-                   for f in ("ms", "exact_ms", "plain_ms", "bound_ms",
-                             "bound_env_ms", "bound_exact_ffma_ms")})
+        wide_entries(results, time_wide(dev, gen, alg, WIDE_TIMED[dim], keys,
+                                        (20, 10)),
+                     errs, keys, (ck.WIDE if dim == 3 else ck.WIDE_CL2).source)
 
 
 def wide_task(tag, dataroot):
@@ -3914,7 +3959,8 @@ def phase_wide_tasks(dev, dataroot, counters):
     return out
 
 
-def wide_graph(main, argv, dataroot, counters, eager):
+def wide_graph(main, argv, dataroot, counters, eager,
+               tag=f"hidden {WIDE_HID}"):
     """A task at steps_per_dispatch=G_K (device_data) against its eager
     run with the graph's capturable Adam, fast precision, within G_TOL;
     the wrappers' launches in the run, the captured step's kernel nodes
@@ -3942,11 +3988,235 @@ def wide_graph(main, argv, dataroot, counters, eager):
     if (len(a) != n or not max(rel) <= tol or nodes != eager[1]
             or replays != G_STEPS - WARMUP_STEPS
             or "Stopping due to max_steps." not in text):
-        raise AssertionError(f"graph run at hidden {WIDE_HID}: losses {a} "
+        raise AssertionError(f"graph run at {tag}: losses {a} "
                              f"vs {b}, kernel nodes a step {nodes} vs eager "
                              f"{eager[1]}, {replays} replays, not "
                              f"{G_STEPS - WARMUP_STEPS}")
     return launches, nodes
+
+
+# ------------------------ K2pw/K3pw: the pair-form block at wide widths
+
+# hulls' widths on the wide pair-form kernels: every block shape of a
+# hulls step at these hidden widths (rows from the data's padding spec)
+# is held to its plain version; at 48 and 64 K2p/K3p's plans take none of
+# them, at 36 some launches may stay theirs (each shape's launches are
+# printed)
+PW_HIDS = (36, 48, 64)
+# the range's edges: the widest input at the widest output, and past the
+# narrow plans' 28 channels at the widest input
+PW_RANGE_SHAPES = [("cin160", 1001, 160, 64, 0), ("cin160_c29", 1001, 160,
+                                                  29, 0)]
+# Cl(4): the widths of a node block 0 of the flat stack at --dim 4 (2C +
+# attributes inputs) at hidden 40 and 64, at its 8,192 node rows
+PW_CL4_SHAPES = [("node_83_40", 8192, 83, 40, 0),
+                 ("node_131_64", 8192, 131, 64, 0)]
+PW_HID = 64
+# launches a hulls training step at --model.hidden_features=64, predicted
+# from the model's CEMLPs and the libraries' entries before the first run
+# (PERF.md): all 15 + 15 blocks on K2pw/K3pw, none on K2p/K3p
+PW_PER_STEP = {"k2pw": 15, "k3pw": 15}
+# the hulls model at hidden 48 card against CPU: batch 8 of the task's 16
+# (the CPU's exact pair-form products are (rows, C, 32, 32) per block)
+PW_MODEL_HID, PW_MODEL_B = 48, 8
+
+
+def check_pair_wide(dev, gen, alg, shapes, keys, wide_keys, counters):
+    """check_block_form at each shape (TOL's K2p/K3p limits), counting the
+    launches: at each shape 4 forwards and 4 backwards (two a mode), each
+    on K2pw/K3pw or, where their plan takes it, K2p/K3p.  Returns the
+    worst errors of the wide kernels by mode and the launches by shape."""
+    errs = {k: {"exact": [], "fast": []} for k in wide_keys}
+    took_all = {}
+    for shape in shapes:
+        for cnt in counters.values():
+            cnt.reset()
+        e = check_block_form(dev, gen, alg, [shape], wide_keys, keys)
+        took = {k: cnt.count for k, cnt in counters.items() if cnt.count}
+        name, _, cin, c, _ = shape
+        print(f"    {name} {cin} -> {c}: launches {took}")
+        took_all[name] = took
+        for narrow, wide in zip(keys, wide_keys):
+            if took.get(narrow, 0) + took.get(wide, 0) != 4:
+                raise AssertionError(f"{name}: launches {took}")
+        for k in wide_keys:
+            if took.get(k):
+                for m in ("exact", "fast"):
+                    errs[k][m].append(e[k][m])
+    return errs, took_all
+
+
+def phase_pair_wide_blocks(dev, gen, results, dataroot, counters):
+    """K2pw/K3pw against their plain versions at every hulls block shape
+    at PW_HIDS and at PW_RANGE_SHAPES (Cl(5)), and at PW_CL4_SHAPES
+    (Cl(4)), exact and fast, the output and every gradient within TOL's
+    K2p/K3p limits, two launches bitwise equal, each shape's launches;
+    then their times at the hulls edge and node blocks 0 at hidden PW_HID
+    (Cl(5)) and at PW_CL4_SHAPES (Cl(4)) with both bounds."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    spec = hulls_dataset(dataroot).spec
+    alg5, alg4 = get_algebra((1.0,) * 5), get_algebra((1.0,) * 4)
+    cl5 = {k: counters[k] for k in ("k2p", "k3p", "k2pw", "k3pw")}
+    cl4 = {k: counters[k] for k in ("k2p_cl4", "k3p_cl4", "k2pw_cl4",
+                                    "k3pw_cl4")}
+    print(f"K2pw/K3pw at Cl(5) vs plain (TOL {TOL['k2p_fast']}/"
+          f"{TOL['k3p_fast']} fast, {TOL['k2p_exact']}/{TOL['k3p_exact']} "
+          f"exact) at the hulls shapes at hidden {PW_HIDS} and the range's "
+          f"edges")
+    shapes = [(f"{n}_h{h}", rows, cin, c, k) for h in PW_HIDS
+              for n, rows, cin, c, k in hulls_shapes(spec, h)]
+    errs, took = check_pair_wide(dev, gen, alg5, shapes + PW_RANGE_SHAPES,
+                                 ("k2p", "k3p"), ("k2pw", "k3pw"), cl5)
+    narrow = sorted(n for n, t in took.items() if t.get("k2p")
+                    or t.get("k3p"))
+    print(f"  shapes where K2p/K3p's plan took a launch: {narrow or 'none'}")
+    if any(n.endswith(("_h48", "_h64")) for n in narrow):
+        raise AssertionError(f"K2p/K3p launched at hidden 48 or 64: "
+                             f"{narrow}")
+    edge, node = (s for s in hulls_shapes(spec, PW_HID)
+                  if s[0] in ("edge_block0", "node_block0"))
+    wide_entries(results, time_wide(
+        dev, gen, alg5, [(f"{n}_h{PW_HID}", r, ci, c)
+                         for n, r, ci, c, _ in (edge, node)],
+        ("k2pw", "k3pw"), (20, 5)), errs, ("k2pw", "k3pw"),
+        ck.PAIR_WIDE.source)
+    print(f"K2pw/K3pw at Cl(4) vs plain (TOL as K2p/K3p)")
+    errs4, _ = check_pair_wide(dev, gen, alg4, PW_CL4_SHAPES,
+                               ("k2p_cl4", "k3p_cl4"),
+                               ("k2pw_cl4", "k3pw_cl4"), cl4)
+    wide_entries(results, time_wide(
+        dev, gen, alg4, [s[:4] for s in PW_CL4_SHAPES],
+        ("k2pw_cl4", "k3pw_cl4"), (20, 5)), errs4, ("k2pw_cl4", "k3pw_cl4"),
+        ck.PAIR_WIDE_CL4.source)
+
+
+def pair_wide_beyond_range(dev):
+    """A pair-form block past K2pw/K3pw's range raises NotImplementedError
+    naming the range of the library's entry, in both directions; no
+    launch."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.ops import cemlp_kernel as ck
+
+    max_c, max_cin = ck._wide_range(ck.PAIR_WIDE)
+    gen = torch.Generator().manual_seed(5)
+    alg = get_algebra((1.0,) * 5)
+    for cin, c in ((max_cin + 1, max_c), (8, max_c + 1)):
+        x, params, dout = block_inputs(16, cin, c, gen, dev, nb=32)
+        for what, run in (("forward", lambda: ck.block_forward(
+                x, params, alg, False)), ("backward", lambda: ck.
+                block_backward(x, dout, params, alg, False))):
+            try:
+                run()
+            except NotImplementedError as err:
+                want = (f"at most {max_c} output and {max_cin} input "
+                        f"channels")
+                if want not in str(err):
+                    raise AssertionError(f"{cin} -> {c} {what}: {err}")
+                print(f"  {cin} -> {c} {what}: NotImplementedError: {err}")
+            else:
+                raise AssertionError(f"{cin} -> {c} {what}: no error past "
+                                     f"the range")
+
+
+def phase_cemlp_cl4_api(dev, counters):
+    """K2pw/K3pw at Cl(4) through the Python API: a CEMLP (Cl(4,0),
+    131 -> 64 -> 64, two blocks) at 8,192 rows on the card, forward and
+    backward, exact, its launches counted (2 + 2), against the same module
+    on the CPU (the composed layers): the output and every gradient within
+    LO_TOL's exact limits.  Returns (launches, launches a pass)."""
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.nn.modules import CEMLP, init_parameters
+    from csmpn_torch.ops.segment import aggregation_exact, set_aggregation_mode
+
+    mode = "exact" if aggregation_exact() else "fast"
+    alg = get_algebra((1.0,) * 4)
+    cpu = CEMLP(alg, 131, 64, 64, n_layers=2)
+    init_parameters(cpu, torch.Generator().manual_seed(11))
+    card = CEMLP(alg, 131, 64, 64, n_layers=2)
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(dev)
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn(8192, 131, 16, generator=gen)
+    g = torch.randn(8192, 64, 16, generator=gen)
+    set_aggregation_mode("exact")
+    xc = x.clone().requires_grad_(True)
+    out_c = cpu(xc)
+    out_c.backward(g)
+    for c in counters.values():
+        c.reset()
+    xg = x.to(dev).requires_grad_(True)
+    out_g = card(xg)
+    out_g.backward(g.to(dev))
+    torch.cuda.synchronize()
+    launches = {k: c.count for k, c in counters.items()}
+    set_aggregation_mode(mode)
+    tol_out, tol_grad = LO_TOL["exact"]
+    _, e_out = rel_err(out_g.detach().cpu(), out_c.detach())
+    e_grad = max([rel_err(xg.grad.cpu(), xc.grad)[1]] + [
+        rel_err(pg.grad.cpu(), pc.grad)[1] for pc, pg in
+        zip(cpu.parameters(), card.parameters())])
+    print(f"CEMLP at Cl(4,0), 131 -> 64 -> 64, 8,192 rows (the Python API, "
+          f"exact): card vs CPU output {e_out:.2e} (tol {tol_out:.0e}), "
+          f"worst gradient {e_grad:.2e} (tol {tol_grad:.0e}); launches "
+          f"{launches}")
+    if e_out > tol_out or e_grad > tol_grad:
+        raise AssertionError(f"Cl(4) CEMLP card vs CPU: {e_out}, {e_grad}")
+    if launches != {"k2pw_cl4": 2, "k3pw_cl4": 2}:
+        raise AssertionError(f"Cl(4) CEMLP launches {launches}")
+    return launches, dict(launches)
+
+
+def phase_pair_wide_tasks(dev, dataroot, counters):
+    """The wide pair-form widths on the main path: the hulls model at
+    hidden PW_MODEL_HID card vs CPU (the hulls limits); the hulls task
+    through its entry point at --model.hidden_features=PW_HID, 8 fast
+    steps, finite losses, PW_PER_STEP launches a step and none of
+    K2p/K3p; then the same run at steps_per_dispatch=8 against its eager
+    run (G_TOL), its replays counted from the captured step's kernel
+    nodes; and the eager run again at --precision=exact.  Returns the
+    runs' (launches, launches a step) by tag."""
+    from csmpn_torch.models.hulls import HullsModel
+    from csmpn_torch.ops.segment import aggregation_exact, set_aggregation_mode
+    from csmpn_torch.tasks.hulls import main
+
+    mode = "exact" if aggregation_exact() else "fast"
+    ds = hulls_dataset(dataroot)
+    print(f"hulls model at hidden {PW_MODEL_HID} (Cl(5,0), 3 layers, batch "
+          f"{PW_MODEL_B}; K2pw/K3pw): card vs CPU, exact")
+    phase_task_model(dev, ds, lambda: HullsModel(
+        spec=ds.spec, hidden_features=PW_MODEL_HID), "hulls", PW_MODEL_B)
+    argv = hulls_argv() + [f"--model.hidden_features={PW_HID}"]
+    keys = {k: counters[k] for k in ("k1", *PW_PER_STEP)}
+    narrow = {k: counters[k] for k in ("k2p", "k3p")}
+    print(f"hulls task at --model.hidden_features={PW_HID} via fire -> "
+          f"run_task -> Trainer.fit, 8 steps, fast precision; predicted "
+          f"launches a step {PW_PER_STEP}")
+    for c in narrow.values():
+        c.reset()
+    res = run_entry(main, argv, dataroot, keys, ds)
+    check_per_step(res[1], PW_PER_STEP, f"hulls hidden {PW_HID}")
+    if any(c.count for c in narrow.values()):
+        ran = {k: c.count for k, c in narrow.items()}
+        raise AssertionError(f"hulls hidden {PW_HID}: K2p/K3p launched "
+                             f"{ran}")
+    out = {f"hulls_h{PW_HID}": res[:2]}
+    out[f"hulls_h{PW_HID}_graph"] = wide_graph(
+        main, argv, dataroot, keys, res, f"hulls hidden {PW_HID}")
+    del res
+    print(f"hulls task at --model.hidden_features={PW_HID} as above, "
+          f"--precision=exact (K2pw/K3pw's fp32 kernels)")
+    res = run_entry(main, argv + ["--precision=exact"], dataroot, keys, ds)
+    check_per_step(res[1], PW_PER_STEP, f"hulls hidden {PW_HID} exact")
+    if any(c.count for c in narrow.values()):
+        raise AssertionError(f"hulls hidden {PW_HID} exact: K2p/K3p "
+                             f"launched")
+    out[f"hulls_h{PW_HID}_exact"] = res[:2]
+    del res
+    torch.cuda.empty_cache()
+    set_aggregation_mode(mode)   # the mode the later phases found before
+    return out
 
 
 # ------------------------------------------------------- the bench path
@@ -4756,6 +5026,16 @@ def main() -> int:
                      "k3w": ck.WIDE_BWD_LAUNCHES,
                      "k2w_cl2": ck.WIDE_CL2_FWD_LAUNCHES,
                      "k3w_cl2": ck.WIDE_CL2_BWD_LAUNCHES}
+    pw_counters = {"k1": sk.LAUNCHES, "k2p": ck.PAIR_FWD_LAUNCHES,
+                   "k3p": ck.PAIR_BWD_LAUNCHES,
+                   "k2pw": ck.PAIR_WIDE_FWD_LAUNCHES,
+                   "k3pw": ck.PAIR_WIDE_BWD_LAUNCHES,
+                   "k2p_cl4": ck.PAIR_CL4_FWD_LAUNCHES,
+                   "k3p_cl4": ck.PAIR_CL4_BWD_LAUNCHES,
+                   "k2pw_cl4": ck.PAIR_WIDE_CL4_FWD_LAUNCHES,
+                   "k3pw_cl4": ck.PAIR_WIDE_CL4_BWD_LAUNCHES}
+    pair_wide = {k: pw_counters[k] for k in ("k2pw", "k3pw", "k2pw_cl4",
+                                             "k3pw_cl4")}
     runs = {"envelope": (phase_envelope(dev, results), None)}
     graph_times = {}
     with tempfile.TemporaryDirectory() as dataroot:
@@ -4773,6 +5053,8 @@ def main() -> int:
         phase_block_cl4(dev, gen, results)
         runs["layer_options"] = (phase_layer_options(dev, counters), None)
         phase_model(dev, dataroot)
+        for c in pair_wide.values():
+            c.reset()
         for tag, (res, graph) in (
                 ("motion", phase_task(dataroot, motion_counters, runs)),
                 ("hulls", phase_hulls(dev, gen, results, dataroot,
@@ -4789,6 +5071,12 @@ def main() -> int:
                                             res[6])
                 runs["dp"], runs["dp_graph"] = phase_data_parallel(
                     dataroot, motion_counters, res)[:2]
+        ran = {k: c.count for k, c in pair_wide.items() if c.count}
+        print(f"K2pw/K3pw launches in the task phases at their configured "
+              f"widths: {ran or 'none'}")
+        if ran:
+            raise AssertionError(f"K2pw/K3pw launched at the configured "
+                                 f"widths: {ran}")
         t_wide = time.time()
         phase_wide_blocks(dev, gen, results, {
             k: c for k, c in wide_counters.items() if k != "k1"})
@@ -4797,6 +5085,17 @@ def main() -> int:
         print(f"the wide-block phases (K2w/K3w checks and times, the models "
               f"at hidden 64, the tasks at hidden {WIDE_HID}): {wide_s:.1f} "
               f"s of this run")
+        t_pw = time.time()
+        phase_pair_wide_blocks(dev, gen, results, dataroot, {
+            k: c for k, c in pw_counters.items() if k != "k1"})
+        pair_wide_beyond_range(dev)
+        runs.update(phase_pair_wide_tasks(dev, dataroot, pw_counters))
+        runs["cemlp_cl4_h64"] = phase_cemlp_cl4_api(dev, {
+            k: pw_counters[k] for k in ("k2pw_cl4", "k3pw_cl4")})
+        pw_s = time.time() - t_pw
+        print(f"the wide pair-form phases (K2pw/K3pw checks and times, the "
+              f"hulls model at hidden {PW_MODEL_HID}, the task at hidden "
+              f"{PW_HID}, the Cl(4) CEMLP): {pw_s:.1f} s of this run")
         phase_tile_instances(dev, gen, results)
         phase_pair_tile_instances(dev, gen, results)
         phase_pair_fused_instances(dev, gen, results)
@@ -4819,12 +5118,15 @@ def main() -> int:
                                         "k5p_cl4")},
             "p1": "envelope", "p2": "envelope", "p3": "envelope",
             "k2w": f"motion_h{WIDE_HID}", "k3w": f"motion_h{WIDE_HID}",
-            "k2w_cl2": f"nba_h{WIDE_HID}", "k3w_cl2": f"nba_h{WIDE_HID}"}
+            "k2w_cl2": f"nba_h{WIDE_HID}", "k3w_cl2": f"nba_h{WIDE_HID}",
+            "k2pw": f"hulls_h{PW_HID}", "k3pw": f"hulls_h{PW_HID}",
+            "k2pw_cl4": "cemlp_cl4_h64", "k3pw_cl4": "cemlp_cl4_h64"}
     kernels = []
     for k in ("k1", "k2", "k3", "k4", "k5", "k2p", "k3p", "k2_cl2",
               "k3_cl2", "k4_cl2", "k5_cl2", "k4p", "k5p", "k2p_cl4",
               "k3p_cl4", "k4p_cl4", "k5p_cl4", "p1", "p2", "p3", "k2w",
-              "k3w", "k2w_cl2", "k3w_cl2"):
+              "k3w", "k2w_cl2", "k3w_cl2", "k2pw", "k3pw", "k2pw_cl4",
+              "k3pw_cl4"):
         entry = dict(results[k])
         own = home.get(k, "bench")
         entry["launches"] = runs[own][0][k]
@@ -4838,7 +5140,7 @@ def main() -> int:
         kernels.append(entry)
     print_graph_times(graph_times)
     print(f"total {time.time() - t_start:.1f} s, of which the wide-block "
-          f"phases {wide_s:.1f} s")
+          f"phases {wide_s:.1f} s and the wide pair-form phases {pw_s:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,11 +31,17 @@ At the widths whose dense block does not fit in one CTA of those kernels
 input channels, a dense block runs K2w/K3w (``csrc/cemlp_wide.cuh``, FFMA
 products of weight panels streamed through shared memory from a parameter
 image, the backward's weight gradients a kernel of their own over the
-rows' cotangents); ``block_route`` picks a launch's kernels.  Wider dense
-blocks raise NotImplementedError, as Cl(1) (nb = 2), which the
-reference's dense form also serves, still does.  On a CUDA tensor the
-wrappers launch the kernels (or raise); on a CPU tensor they compute the
-plain versions:
+rows' cotangents); ``block_route`` picks a launch's kernels.  Likewise,
+in the pair form, at the widths K2p/K3p's plans do not take, every C <= 64
+output and Cin <= 160 input channels runs K2pw/K3pw
+(``csrc/cemlp_pair_wide.cuh``, at Cl(5,0) and Cl(4,0): a lane a blade of
+every channel, FFMA products of weight panels streamed from a parameter
+image, the Cayley pairs from the packed tables, the backward's weight and
+path-weight gradients kernels of their own over the rows' cotangents).
+Wider blocks of either form raise NotImplementedError, as Cl(1) (nb = 2),
+which the reference's dense form also serves, still does.  On a CUDA
+tensor the wrappers launch the kernels (or raise); on a CPU tensor they
+compute the plain versions:
 
   * ``block_forward_plain`` — the block in PyTorch, written per grade
     (the same function as ``_post_linear_math`` and the composed layers);
@@ -84,6 +90,10 @@ WIDE_FWD_LAUNCHES = _build.LaunchCounter("cemlp_wide_fwd")
 WIDE_BWD_LAUNCHES = _build.LaunchCounter("cemlp_wide_bwd")
 WIDE_CL2_FWD_LAUNCHES = _build.LaunchCounter("cemlp_wide_cl2_fwd")
 WIDE_CL2_BWD_LAUNCHES = _build.LaunchCounter("cemlp_wide_cl2_bwd")
+PAIR_WIDE_FWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_wide_fwd")
+PAIR_WIDE_BWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_wide_bwd")
+PAIR_WIDE_CL4_FWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_wide_cl4_fwd")
+PAIR_WIDE_CL4_BWD_LAUNCHES = _build.LaunchCounter("cemlp_pair_wide_cl4_bwd")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -100,8 +110,8 @@ class BlockKernel:
     n_grades: int
     n_paths: int
     max_channels: int     # output channels a row's warp holds (0: any)
-    rows_fwd: int         # rows per CTA tile (csrc constants)
-    rows_bwd: int
+    rows_fwd: int         # rows per CTA tile (csrc constants; 0: the
+    rows_bwd: int         # library's warps entry, a row a member)
     fwd: _build.LaunchCounter
     bwd: _build.LaunchCounter
     # "dense": Cayley signs passed from the host; "pair": the packed pair
@@ -129,6 +139,18 @@ WIDE = BlockKernel("K2w/K3w", "cemlp_wide", "csmpn_cemlp_wide",
 WIDE_CL2 = BlockKernel("K2w/K3w at Cl(2)", "cemlp_wide_cl2",
                        "csmpn_cemlp_wide_cl2", "Cl(2) (4 blades)", 4, 3, 10,
                        0, 8, 8, WIDE_CL2_FWD_LAUNCHES, WIDE_CL2_BWD_LAUNCHES)
+# the widths K2pw/K3pw take are their library's (block_route asks it)
+PAIR_WIDE = BlockKernel("K2pw/K3pw", "cemlp_pair_wide",
+                        "csmpn_cemlp_pair_wide", "Cl(5,0) (32 blades)", 32, 6,
+                        56, 0, 0, 0, PAIR_WIDE_FWD_LAUNCHES,
+                        PAIR_WIDE_BWD_LAUNCHES, form="pair")
+PAIR_WIDE_CL4 = BlockKernel("K2pw/K3pw at Cl(4)", "cemlp_pair_wide_cl4",
+                            "csmpn_cemlp_pair_wide_cl4", "Cl(4,0) (16 blades)",
+                            16, 5, 35, 0, 0, 0, PAIR_WIDE_CL4_FWD_LAUNCHES,
+                            PAIR_WIDE_CL4_BWD_LAUNCHES, form="pair")
+# the wide kernels of each form, by blade count
+WIDE_OF = {8: WIDE, 4: WIDE_CL2, 32: PAIR_WIDE, 16: PAIR_WIDE_CL4}
+_WIDE_KERNELS = tuple(WIDE_OF.values())
 
 
 def block_kernel(nb: int) -> BlockKernel:
@@ -331,21 +353,22 @@ def block_route(kern: BlockKernel, cin: int, c: int, backward: bool,
     """(The kernels of one launch of ``kern``'s algebra at cin -> c, the
     launch's shared-memory bytes where they are ``kern``'s own, else 0):
     ``kern``'s own where their plan takes the widths in this direction
-    and mode (``_smem``), else for the dense form K2w/K3w where their
-    library's ``smem_bytes`` entry takes them; NotImplementedError beyond
-    (naming the range of the library's ``range`` entry), and where the
-    pair form's plan does not take the widths."""
+    and mode (``_smem``), else the wide kernels of the same form and
+    algebra (K2w/K3w for the dense form, K2pw/K3pw for the pair form)
+    where their library's ``smem_bytes`` entry takes them;
+    NotImplementedError beyond, naming the range of the library's
+    ``range`` entry."""
     try:
         return kern, _smem(kern, cin, c, backward, exact)
     except NotImplementedError:
-        if kern.form != "dense":
-            raise
-    wide = WIDE if kern.n_blades == 8 else WIDE_CL2
+        pass
+    wide = WIDE_OF[kern.n_blades]
     if _wide_size(wide, "smem_bytes", cin, c, int(backward)):
         return wide, 0
     max_c, max_cin = _wide_range(wide)
+    form = "dense" if kern.form == "dense" else "pair-form"
     raise NotImplementedError(
-        f"{kern.label}: {cin} -> {c} channels; the dense block kernels take "
+        f"{kern.label}: {cin} -> {c} channels; the {form} block kernels take "
         f"at most {max_c} output and {max_cin} input channels")
 
 
@@ -454,10 +477,10 @@ def _fwd_tile_launch(kern: BlockKernel, cin: int, c: int) -> Tuple[int, int]:
 
 def _tables(kern: BlockKernel, alg, device) -> Tuple[np.ndarray, int]:
     """(bc host array, pointer to the kernel's table operand): the Cayley
-    signs on the host for K2/K3, the packed pair tables on the card for
-    K2p/K3p."""
+    signs on the host for the dense form (K2/K3, K2w/K3w), the packed pair
+    tables on the card for the pair form (K2p/K3p, K2pw/K3pw)."""
     metric = tuple(alg.metric.tolist())
-    bc, sign = _alg_tables(metric)
+    bc, sign = _alg_tables(metric, kern.source, kern.symbol)
     if kern.form == "pair":
         return bc, _pair_tabs(metric, device, kern.source,
                               kern.symbol).data_ptr()
@@ -477,7 +500,7 @@ def block_forward(x: torch.Tensor, params: Sequence[torch.Tensor], alg,
     out = torch.empty((rows, c, nb), dtype=torch.float32, device=x.device)
     if rows == 0:
         return out
-    if kern in (WIDE, WIDE_CL2):
+    if kern in _WIDE_KERNELS:
         return _wide_forward(kern, x, params, alg, exact, out)
     bc, tabs = _tables(kern, alg, x.device)
     tiled = _tiled(kern, False, exact)
@@ -536,7 +559,7 @@ def block_backward(x: torch.Tensor, dout: torch.Tensor,
     if dout.shape != (rows, c, nb):
         raise ValueError(f"dout shape {tuple(dout.shape)} != {(rows, c, nb)}")
     n_grad = sum(p.numel() for p in params)
-    if kern in (WIDE, WIDE_CL2):
+    if kern in _WIDE_KERNELS:
         flat, dx = _wide_backward(kern, x, dout, params, alg, exact, n_grad)
     else:
         flat, dx = _dense_backward(kern, x, dout, params, alg, exact, n_grad,
@@ -573,7 +596,8 @@ def _dense_backward(kern, x, dout, params, alg, exact, n_grad, smem):
 
 
 def _wide_size(kern: BlockKernel, name: str, *args) -> int:
-    """A size entry of K2w/K3w's library (int arguments, long long)."""
+    """A size entry of K2w/K3w's or K2pw/K3pw's library (int arguments,
+    long long)."""
     fn = getattr(_build.load(kern.source), f"{kern.symbol}_{name}")
     if fn.argtypes is None:
         fn.argtypes = [_I] * len(args)
@@ -582,8 +606,8 @@ def _wide_size(kern: BlockKernel, name: str, *args) -> int:
 
 
 def _wide_range(kern: BlockKernel) -> Tuple[int, int]:
-    """(The most output, the most input channels) K2w/K3w take, from
-    their library's range entry."""
+    """(The most output, the most input channels) K2w/K3w (K2pw/K3pw)
+    take, from their library's range entry."""
     fn = getattr(_build.load(kern.source), f"{kern.symbol}_range")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.POINTER(_I)]
@@ -593,17 +617,25 @@ def _wide_range(kern: BlockKernel) -> Tuple[int, int]:
     return out[0], out[1]
 
 
+def _wide_rows(kern: BlockKernel, cin: int, c: int, backward: bool) -> int:
+    """Rows a CTA step takes: K2w/K3w's csrc constant; for K2pw/K3pw a row
+    a member (NB lanes) of the warps their library's entry gives."""
+    if kern.form == "dense":
+        return kern.rows_bwd if backward else kern.rows_fwd
+    return (_wide_size(kern, "warps", cin, c, int(backward))
+            * (32 // kern.n_blades))
+
+
 def _wide_forward(kern, x, params, alg, exact, out):
-    """K2w: the parameter image, then the row steps."""
+    """K2w (K2pw): the parameter image, then the row steps."""
     rows, cin, c = x.shape[0], x.shape[1], out.shape[1]
-    bc, sign = _alg_tables(tuple(alg.metric.tolist()), kern.source,
-                           kern.symbol)
+    bc, tabs = _tables(kern, alg, x.device)
     img = torch.empty(_wide_size(kern, "img_floats", cin, c, 0),
                       dtype=torch.float32, device=x.device)
     grid = _grid(rows, x.device, _wide_size(kern, "smem_bytes", cin, c, 0),
-                 kern.rows_fwd)
+                 _wide_rows(kern, cin, c, False))
     ptrs = [x.data_ptr(), *[p.data_ptr() for p in params], bc.ctypes.data,
-            sign.ctypes.data, out.data_ptr(), img.data_ptr()]
+            tabs, out.data_ptr(), img.data_ptr()]
     fn = _fn(f"{kern.symbol}_fwd", len(ptrs), 5, kern.source)
     err = fn(*ptrs, rows, cin, c, 0 if exact else 1, grid,
              torch.cuda.current_stream(x.device).cuda_stream)
@@ -613,34 +645,41 @@ def _wide_forward(kern, x, params, alg, exact, out):
 
 
 def _wide_backward(kern, x, dout, params, alg, exact, n_grad):
-    """K3w: the parameter image, the row steps (dx, the cotangent rows,
-    the per-channel partials), the weight gradients over the rows, and
-    the reduction of both kinds of partials: (the flat gradients, dx)."""
+    """K3w (K3pw): the parameter image, the row steps (dx, the cotangent
+    rows, the per-channel partials), the weight gradients over the rows
+    (and for K3pw the path weights'), and the reduction of every kind of
+    partials: (the flat gradients, dx)."""
     rows, cin, nb = x.shape
     c = params[0].shape[0]
     dev = x.device
-    bc, sign = _alg_tables(tuple(alg.metric.tolist()), kern.source,
-                           kern.symbol)
-    grid = _grid(rows, dev, _wide_size(kern, "smem_bytes", cin, c, 1),
-                 kern.rows_bwd)
+    pair = kern.form == "pair"
+    bc, tabs = _tables(kern, alg, dev)
+    nrow = _wide_rows(kern, cin, c, True)
+    grid = _grid(rows, dev, _wide_size(kern, "smem_bytes", cin, c, 1), nrow)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = _wide_size(kern, "wgrad_splits", rows, cin, c, sms)
     f32 = dict(dtype=torch.float32, device=dev)
     img = torch.empty(_wide_size(kern, "img_floats", cin, c, 1), **f32)
-    scratch = torch.empty(4 * rows * c * nb, **f32)
-    lpart = torch.empty(grid * kern.rows_bwd
-                        * _wide_size(kern, "loc_floats", c), **f32)
+    # the cotangent rows z, d(y), d(yr), d(first), and the pair form's yn
+    scratch = torch.empty((5 if pair else 4) * rows * c * nb, **f32)
+    lpart = torch.empty(grid * nrow * _wide_size(kern, "loc_floats", c),
+                        **f32)
     wpart = torch.empty(splits * _wide_size(kern, "wpart_floats", cin, c),
                         **f32)
     flat = torch.empty(n_grad, **f32)
     dx = torch.empty_like(x)
     ptrs = [x.data_ptr(), dout.data_ptr(), *[p.data_ptr() for p in params],
-            bc.ctypes.data, sign.ctypes.data, dx.data_ptr(), img.data_ptr(),
-            scratch.data_ptr(), lpart.data_ptr(), wpart.data_ptr(),
-            flat.data_ptr()]
-    fn = _fn(f"{kern.symbol}_bwd", len(ptrs), 6, kern.source)
-    err = fn(*ptrs, rows, cin, c, 0 if exact else 1, grid, splits,
-             torch.cuda.current_stream(dev).cuda_stream)
+            bc.ctypes.data, tabs, dx.data_ptr(), img.data_ptr(),
+            scratch.data_ptr(), lpart.data_ptr(), wpart.data_ptr()]
+    ints = [rows, cin, c, 0 if exact else 1, grid, splits]
+    if pair:
+        psplits = _wide_size(kern, "pgrad_splits", rows, c, sms)
+        ppart = torch.empty(psplits * c * kern.n_paths, **f32)
+        ptrs.append(ppart.data_ptr())
+        ints.append(psplits)
+    ptrs.append(flat.data_ptr())
+    fn = _fn(f"{kern.symbol}_bwd", len(ptrs), len(ints), kern.source)
+    err = fn(*ptrs, *ints, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"{kern.label} backward kernels")
     kern.bwd.add()
     return flat, dx

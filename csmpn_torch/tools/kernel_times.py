@@ -18,6 +18,9 @@ device µs per launch, fast mode, and the card:
   * K2p and K3p at the hulls edge block 0 (13,184 rows, 34 -> 28,
     Cl(5,0)), and at Cl(4,0) at the bench's --dim 4 node block 0 (8,192
     rows, 56 -> 28);
+  * K2pw and K3pw (the pair form past K2p/K3p's widths) at the hulls edge
+    and node blocks 0 at hidden 64 (13,184 rows, 70 -> 64; 1,536 rows,
+    131 -> 64; Cl(5,0)) and at Cl(4,0) at 8,192 rows, 131 -> 64;
   * K4 and K5 at the bench shape (E = 131,072, N = 8,192) of each algebra
     (bench.WIDTHS): Cl(3) 32 -> 32, Cl(2) 40 -> 40, K4p/K5p at Cl(5) and
     Cl(4) 28 -> 28;
@@ -31,7 +34,8 @@ device µs per launch, fast mode, and the card:
     (512 x 256 x 2048, 32 reps).
 
 A kernel the checkout at ROOT does not have (K2p/K3p and K4p/K5p at Cl(4)
-before they were ported) is null in its line.  Run it for two trees in
+before they were ported, K2pw/K3pw before theirs: the pair-form widths
+raise NotImplementedError) is null in its line.  Run it for two trees in
 turns in one call (parent, change, change, parent): two calls may land on
 two cards.  It needs a CUDA card.
 """
@@ -105,6 +109,28 @@ def main(root: str) -> dict:
             lambda: ck.block_forward(x, params, alg, False), itf)
         out[f"{kb}_us"] = time_us(
             lambda: ck.block_backward(x, dout, params, alg, False), itb)
+        del x, dout
+
+    # K2pw/K3pw: (key, dim, rows, Cin, C, forward, backward iterations)
+    for key, dim, rows, cin, c, itf, itb in (
+            ("k2pw", 5, 13184, 70, 64, 20, 5),
+            ("k2pw_node", 5, 1536, 131, 64, 40, 10),
+            ("k2pw_cl4", 4, 8192, 131, 64, 20, 5)):
+        kb = key.replace("k2", "k3", 1)
+        alg = get_algebra((1.0,) * dim)
+        nb = alg.n_blades
+        x = torch.randn(rows, cin, nb, generator=gen).to(dev)
+        cemlp = CEMLP(alg, cin, c, c, n_layers=1)
+        init_parameters(cemlp, gen)
+        params = [p.detach().to(dev) for p in ck.block_params(cemlp, 0)]
+        dout = torch.randn(rows, c, nb, generator=gen).to(dev)
+        try:
+            out[f"{key}_us"] = time_us(
+                lambda: ck.block_forward(x, params, alg, False), itf)
+            out[f"{kb}_us"] = time_us(
+                lambda: ck.block_backward(x, dout, params, alg, False), itb)
+        except NotImplementedError:
+            out[f"{key}_us"] = out[f"{kb}_us"] = None
         del x, dout
 
     set_aggregation_mode("fast")

@@ -22,7 +22,11 @@ joined in a ``gloo`` process group on localhost.
   finish and each finds the whole library.
 
 Each launch passes ``communicate(timeout=120)`` and kills both processes
-on a timeout."""
+on a timeout.  Its rendezvous port lies below the kernel's ephemeral range
+in a run of ports of the launching pytest-xdist worker's own
+(``_free_port``), and a launch whose rank 0 finds the address taken is
+made again on the next port."""
+import itertools
 import json
 import os
 import socket
@@ -43,36 +47,72 @@ LOADER_SEED = 5
 STEPS = 3
 
 
+# A port bound to 0 and released (as this file's launches once took them)
+# can be handed to another process before rank 0 binds it: a bind to port 0
+# or a connection's local end in another pytest-xdist worker's test (the
+# gloo groups of tests/test_torch_sharded.py and others).  Rank 0 then
+# fails with EADDRINUSE and rank 1 waits on a store that is not its own.
+# The kernel hands out such ports from its ephemeral range (32768-60999 by
+# default, /proc/sys/net/ipv4/ip_local_port_range), so this file's ports
+# come from below it, a run of PORTS_PER_WORKER for each worker, each port
+# used once by its worker.
+PORT_BASE, PORTS_PER_WORKER = 20000, 400
+ADDR_TAKEN = "EADDRINUSE"
+LAUNCH_ATTEMPTS = 3
+_ports = itertools.count()
+
+
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A port no other test of this run takes: the next of this worker's
+    run that binds now."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "gw0")[2:]
+    base = PORT_BASE + PORTS_PER_WORKER * (int(worker) if worker.isdigit()
+                                           else 0)
+    for _ in range(PORTS_PER_WORKER):
+        port = base + next(_ports) % PORTS_PER_WORKER
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free port in {base}-{base + PORTS_PER_WORKER}")
 
 
 def _launch(argv_fn, env_fn, timeout=120):
     """Two processes (rank 0 and 1) of ``argv_fn(rank)`` with the
-    environment ``env_fn(rank, port)``; returns [(returncode, output)]."""
-    port = _free_port()
-    procs = []
-    for rank in range(2):
-        env = {k: v for k, v in os.environ.items() if not k.startswith(
-            ("SLURM", "TORCHELASTIC", "MASTER_", "WORLD_SIZE", "RANK",
-             "LOCAL_RANK"))}
-        env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO, **env_fn(rank, port))
-        procs.append(subprocess.Popen(
-            argv_fn(rank), cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            outs.append((p.returncode, out))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    return outs
+    environment ``env_fn(rank, port)``; returns [(returncode, output)].
+    Where rank 0 fails because its address is taken, the launch is made
+    again on another port (at most LAUNCH_ATTEMPTS launches)."""
+    for attempt in range(LAUNCH_ATTEMPTS):
+        port = _free_port()
+        procs = []
+        for rank in range(2):
+            env = {k: v for k, v in os.environ.items() if not k.startswith(
+                ("SLURM", "TORCHELASTIC", "MASTER_", "WORLD_SIZE", "RANK",
+                 "LOCAL_RANK"))}
+            env.update(OMP_NUM_THREADS="1", PYTHONPATH=REPO,
+                       **env_fn(rank, port))
+            procs.append(subprocess.Popen(
+                argv_fn(rank), cwd=REPO, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = []
+        try:
+            for p in procs:
+                out, _ = p.communicate(timeout=timeout)
+                outs.append((p.returncode, out))
+                if p is procs[0] and p.returncode != 0 and ADDR_TAKEN in out:
+                    break   # rank 1 waits on a store that is not its own
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        taken = outs[0][0] != 0 and ADDR_TAKEN in outs[0][1]
+        if not taken or attempt == LAUNCH_ATTEMPTS - 1:
+            for p in procs[len(outs):]:
+                outs.append((p.returncode, p.communicate()[0]))
+            return outs
 
 
 def torchrun_env(rank, port):

@@ -248,25 +248,6 @@ def test_block_route(monkeypatch, kern, backward, exact):
             ck.block_route(kern, cin, c, backward, exact)
 
 
-@pytest.mark.parametrize("kern", [ck.PAIR, ck.PAIR_CL4],
-                         ids=lambda k: k.label)
-def test_block_route_keeps_the_pair_form(monkeypatch, kern):
-    """The pair form has no wide kernels: its own plan decides, and where
-    it does not take the widths the launch raises."""
-    def size(cin, c, *backward):
-        return 0 if c > 28 else 1000
-
-    lib = _Lib(**{f"{kern.symbol}_{k}": _Entry(size) for k in (
-        "smem_bytes", "tile_smem_bytes", "fwd_tile_smem_bytes")})
-    monkeypatch.setattr(_build, "load", lambda name: lib)
-    for backward in (False, True):
-        for exact in (False, True):
-            assert ck.block_route(kern, 300, 28, backward, exact) == (
-                kern, 1000)
-            with pytest.raises(NotImplementedError, match="do not fit"):
-                ck.block_route(kern, 34, 40, backward, exact)
-
-
 @pytest.mark.parametrize("dim,cin,c", [(3, 34, 40), (2, 131, 64)])
 def test_cpu_wrappers_take_plain_versions_at_wide_widths(dim, cin, c):
     counters = (ck.FWD_LAUNCHES, ck.BWD_LAUNCHES, ck.CL2_FWD_LAUNCHES,
