@@ -182,6 +182,26 @@
     CEMLP (131 -> 64 -> 64) through the Python API, card vs CPU, 2 + 2
     launches; and, over the task phases before, no K2pw/K3pw launch at the
     configured widths; the phases' seconds are printed;
+9d. the wide fused message passing: K4w/K5w (``csrc/fused_egcl_wide.cuh``,
+    the dense fused edge side at the widths K4/K5 do not take, C <= 128,
+    Cm + Ca <= 320, Cl(3) and Cl(2)) against their plain versions at C =
+    33, 64, 128 (Cl(3)) and 46, 65, 128 (Cl(2)) over phase_fused's stress
+    layouts (attributes and a mask, empty windows, more windows than SMs,
+    ragged E/N, 131,072 edges in two slabs) and at the range's edge 128 +
+    192 -> 128, exact and fast, the output and every gradient within
+    TOL's K4/K5 limits of the algebra, two launches bitwise equal, masked
+    rows 0, every launch on the wide kernels; at the bench shape at
+    hidden 64 and 128 (Cl(2): 128) held to the composed route and timed,
+    fast and exact, beside plain (cut at 128), the composed route and the
+    bf16, FFMA and envelope bounds; ``csmpn_torch.bench_scaling`` at
+    ``--hidden 64`` streamed over 4 chunks (K4w/K5w 4 + 4 and K2w/K3w 16 +
+    8 a step, no K4/K5; its loss and gradients against the composed route
+    at the bench stack's limits; the peak memory), at ``--hidden 128`` in
+    one chunk and at ``--hidden 32`` (K4/K5 as before, no K4w/K5w); the
+    bench stack at ``--dim 2`` hidden 72 through ``bench.run`` (K4w/K5w
+    at Cl(2) 3 + 3 a step); no K4w/K5w launch in the phases at the
+    configured widths before it or at hidden 32 after it; the phase's
+    seconds are printed;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -226,9 +246,11 @@
     last the host tables of 8 shards x 8 chunks of the 10M complex at
     locality 4096 beside the reference's record;
 13. prints each task's eager and graph step times beside the aims, the
-    kernels JSON line (twenty-eight kernels, K2w/K3w at Cl(3) and Cl(2)
+    kernels JSON line (thirty-two kernels, K2w/K3w at Cl(3) and Cl(2)
     with their launches on the tasks at hidden 128, K2pw/K3pw with theirs
-    on hulls at hidden 64 and, at Cl(4), on the Python API's CEMLP;
+    on hulls at hidden 64 and, at Cl(4), on the Python API's CEMLP,
+    K4w/K5w with theirs on bench_scaling at hidden 64 and, at Cl(2), on
+    the bench stack at hidden 72;
     beside each kernel's own path, its
     launches on the others: for a graph run the wrappers' launches in the
     run and, as ``launches_per_step_<task>_graph``, the captured step's
@@ -1775,22 +1797,25 @@ def edge_params(cin, c, gen, dev, nb=8):
 # the kernels' names in the lines chip_smoke prints
 LABEL = {"k4": "K4", "k5": "K5", "k4_cl2": "K4 at Cl(2)",
          "k5_cl2": "K5 at Cl(2)", "k4p": "K4p", "k5p": "K5p",
-         "k4p_cl4": "K4p at Cl(4)", "k5p_cl4": "K5p at Cl(4)"}
+         "k4p_cl4": "K4p at Cl(4)", "k5p_cl4": "K5p at Cl(4)",
+         "k4w": "K4w", "k5w": "K5w", "k4w_cl2": "K4w at Cl(2)",
+         "k5w_cl2": "K5w at Cl(2)"}
 
 
-def check_fused_form(dev, gen, alg, layouts, keys):
+def check_fused_form(dev, gen, alg, layouts, keys, tol_keys=None):
     """Holds one form of the fused message-passing kernels (K4/K5 at Cl(3)
-    or Cl(2), K4p/K5p) to their plain versions over ``layouts`` (name,
-    dst, N, Cm, Ca, C, masked), exact and fast: the output, dh, dhj, dattr
-    and all 20 gradients, two launches bitwise equal, masked rows of
+    or Cl(2), K4p/K5p, K4w/K5w) to their plain versions over ``layouts``
+    (name, dst, N, Cm, Ca, C, masked), exact and fast: the output, dh, dhj,
+    dattr and all 20 gradients, two launches bitwise equal, masked rows of
     dhj/dattr exactly 0.  Returns the worst error per kernel and mode;
     ``keys`` name the forward and backward kernels (their tolerances are
-    TOL[f"{key}_{mode}"])."""
+    TOL[f"{key}_{mode}"], or those of ``tol_keys``)."""
     import torch as _t
     from csmpn_torch.ops import fused_egcl as fe
 
     nb = alg.n_blades
     kf, kb = keys
+    tf, tb = tol_keys or keys
     errs = {k: {"exact": [], "fast": []} for k in keys}
     for name, dst_np, n, cm, ca, c, masked in layouts:
         e = len(dst_np)
@@ -1812,7 +1837,7 @@ def check_fused_form(dev, gen, alg, layouts, keys):
             ref = fe.message_aggregate_plain(params, alg, hs, hjs, attrs, dst,
                                              mask, False, exact)
             errs[kf][mode].append(check(f"{LABEL[kf]} {tag}", out, ref,
-                                        TOL[f"{kf}_{mode}"]))
+                                        TOL[f"{tf}_{mode}"]))
             again = fe.mp_forward(params, alg, hs, hjs, attrs, dst, mask,
                                   exact)
             if not _t.equal(out, again):
@@ -1836,7 +1861,7 @@ def check_fused_form(dev, gen, alg, layouts, keys):
                 if g is None and w is None:
                     continue
                 errs[kb][mode].append(check(f"{LABEL[kb]} {tag} {pn}", g, w,
-                                            TOL[f"{kb}_{mode}"]))
+                                            TOL[f"{tb}_{mode}"]))
                 if not _t.equal(g, g2):
                     raise AssertionError(f"{LABEL[kb]} {tag} {pn}: two "
                                          f"launches differ")
@@ -4221,6 +4246,399 @@ def phase_pair_wide_tasks(dev, dataroot, counters):
 
 # ------------------------------------------------------- the bench path
 
+# ------------- K4w/K5w: the dense fused message passing at wide widths
+
+# the widths at which K4w/K5w are held to their plain versions, both
+# modes, over the stress layouts of phase_fused (fused_layouts()
+# indices: 1 the bench graph masked, with attributes; 2 clustered ids
+# and empty windows; 3 60 edges over 900 nodes, masked, with attributes;
+# 4 ragged E = 5,003, N = 1,001, masked; 5 the bench's 4 graphs, 131,072
+# edges: two slabs of 65,536 rows; 6 ragged E = 60,011, N = 9,001,
+# masked, with attributes; every layout has more targets, each its own
+# window here, than the card has SMs): C = 33 and 46, one past K4/K5's
+# widths at Cl(3) and at Cl(2) (Cm = C), with the slab boundary; 64 and
+# 65 over every layout but the slabs'; 128 over the smaller ones, each
+# at Cm = C (Ca = 3 where the layout has attributes); then the range's
+# edge Cm + Ca = 320 (FW_EDGE) on layout 4
+FW_CHECKS = {3: [(33, (1, 2, 3, 5)), (64, (1, 2, 3, 4, 6)),
+                 (128, (1, 2, 3, 4))],
+             2: [(46, (1, 2, 3, 5)), (65, (1, 2, 3, 4, 6)),
+                 (128, (1, 2, 3, 4))]}
+FW_EDGE = (128, 192, 128)
+# the timed shapes: the bench graph (E = 131,072, N = 8,192, Cm = C,
+# Ca = 0) at hidden 64 and 128 at Cl(3), 128 at Cl(2)
+FW_TIMED = {3: (64, 128), 2: (128,)}
+# at C = 128 the plain versions are timed on the bench graph's edges into
+# its first targets, cut to this many edges: their (E, C, nb, nb)
+# products hold 4.3 GB at the whole graph at Cl(3)
+FW_PLAIN_MAX_EDGES = 65536
+# the entry points.  bench_scaling at --hidden 64 streamed over 4 chunks
+# of a complex cut from the reference's 10M simplices to 262,144, and at
+# 128 as one chunk of the same complex (a step near 2 s on the H100); at
+# 32 as before.  Launches a step, predicted (PERF.md): a chunk's edge
+# side K4w once and K5w once, its node CEMLP (2H -> H) K2w for both
+# blocks in the forward and again in the backward's recompute, K3w for
+# both; at 32 the same on K4/K5 and K2/K3; no K1 (h needs no gradient)
+FW_H64_ARGV = ["--simplices", "262144", "--degree", "8", "--stream", "4",
+               "--hidden", "64", "--steps", "2", "--device=cuda"]
+FW_H128_ARGV = ["--simplices", "262144", "--degree", "8", "--stream", "1",
+                "--hidden", "128", "--steps", "2", "--device=cuda"]
+FW_H32_ARGV = ["--simplices", "65536", "--degree", "8", "--stream", "2",
+               "--hidden", "32", "--steps", "1", "--device=cuda"]
+FW_PER_STEP = {
+    64: {"k1": 0, "k2": 0, "k3": 0, "k2w": 16, "k3w": 8, "k4": 0, "k5": 0,
+         "k4w": 4, "k5w": 4},
+    128: {"k1": 0, "k2": 0, "k3": 0, "k2w": 4, "k3w": 2, "k4": 0, "k5": 0,
+          "k4w": 1, "k5w": 1},
+    32: {"k1": 0, "k2": 8, "k3": 4, "k2w": 0, "k3w": 0, "k4": 2, "k5": 2,
+         "k4w": 0, "k5w": 0}}
+# the bench stack at --dim 2 through bench.run at this hidden width: its
+# three layers' edge sides on K4w/K5w at Cl(2) (no task runs them)
+FW_CL2_HIDDEN = 72
+
+
+def fused_wide_layouts(c, picks):
+    """fused_layouts() ``picks`` at C channels: Cm = C, Ca as the layout
+    has (0 or 3)."""
+    base = fused_layouts()
+    return [(name, dst, n, c, ca, c, masked)
+            for name, dst, n, _, ca, _, masked in (base[i] for i in picks)]
+
+
+def check_fused_wide(dev, gen, counters):
+    """K4w/K5w against their plain versions at FW_CHECKS and FW_EDGE, both
+    modes (check_fused_form: the output and every gradient at the K4/K5
+    limits of the algebra, two launches bitwise equal, masked rows 0);
+    every call on the wide kernels, none on K4/K5.  Returns the worst
+    errors by kernel key."""
+    from csmpn_torch.algebra import get_algebra
+
+    errs = {}
+    for dim, metric in ((3, (1.0, 1.0, 1.0)), (2, (1.0, 1.0))):
+        alg = get_algebra(metric)
+        sfx = "" if dim == 3 else "_cl2"
+        keys, tols = (f"k4w{sfx}", f"k5w{sfx}"), (f"k4{sfx}", f"k5{sfx}")
+        print(f"K4w/K5w at Cl({dim}) vs plain (TOL {tols[0]}/{tols[1]})")
+        checks = [fused_wide_layouts(c, picks)
+                  for c, picks in FW_CHECKS[dim]]
+        name, dst, n, _, _, _, masked = fused_layouts()[4]
+        cm, ca, c = FW_EDGE
+        checks.append([(f"{name}, the range's edge", dst, n, cm, ca, c,
+                        masked)])
+        for layouts in checks:
+            for cnt in counters.values():
+                cnt.reset()
+            e = check_fused_form(dev, gen, alg, layouts, keys, tols)
+            took = {k: cnt.count for k, cnt in counters.items() if cnt.count}
+            want = {keys[0]: 4 * len(layouts), keys[1]: 4 * len(layouts)}
+            print(f"    C = {layouts[0][5]}: launches {took}")
+            if took != want:
+                raise AssertionError(f"Cl({dim}) C = {layouts[0][5]}: "
+                                     f"launches {took}, not {want}")
+            for k in keys:
+                for m in ("exact", "fast"):
+                    errs.setdefault(k, {}).setdefault(m, []).append(e[k][m])
+    return {k: {m: max(v) for m, v in e.items()} for k, e in errs.items()}
+
+
+def time_fused_wide(dev, dim, c, keys):
+    """K4w and K5w at the bench shape of Cl(dim) at hidden c, fast: held
+    to the composed route (gather, the edge CEMLP on K2w/K3w, the sum)
+    and bitwise twice; then the fast and exact times, the plain fast
+    versions' (at C = 128 on the first FW_PLAIN_MAX_EDGES edges), the
+    composed route's, and three bounds: the data sheet's with bf16
+    tensor-core operations (block_flops, as K2w's block_bound and K4's),
+    the fp32 FFMA rate's, and the measured envelope's.  Returns
+    {key: fields}."""
+    import ctypes
+
+    import torch as _t
+    from csmpn_torch.algebra import get_algebra
+    from csmpn_torch.bench import workload
+    from csmpn_torch.nn.egcl import EGCL
+    from csmpn_torch.nn.modules import init_parameters
+    from csmpn_torch.ops import fused_egcl as fe
+    from csmpn_torch.ops.cemlp_kernel import block_params
+    from csmpn_torch.ops.segment import (set_aggregation_mode, take_rows,
+                                         take_rows_sorted_idx)
+
+    kf, kb = keys
+    alg = get_algebra((1.0,) * dim)
+    set_aggregation_mode("fast")
+    h, ei, _ = workload(dev, hidden=c, dim=dim)
+    src, dst = ei[0], ei[1]
+    n, e, nb = h.shape[0], dst.shape[0], h.shape[2]
+    h_s = h.to(_t.bfloat16)
+    hj = take_rows(h_s, src)
+    layer = EGCL(alg, c, c, c, aggr="sum")
+    init_parameters(layer, _t.Generator().manual_seed(1))
+    layer = layer.to(dev)
+    live = block_params(layer.edge_model, 0) + block_params(
+        layer.edge_model, 1)
+    params = [p.detach() for p in live]
+    dagg = _t.randn(n, c, nb, device=dev)
+    plan = fe.make_plan(dst, None, n, c, 0, c, nb, False)
+    plan_x = fe.make_plan(dst, None, n, c, 0, c, nb, True)
+    if plan.kern is not fe.WIDE_OF[nb] or plan_x.kern is not plan.kern:
+        raise AssertionError(f"bench shape at C = {c}: routed to "
+                             f"{plan.kern.label} / {plan_x.kern.label}")
+    hj_x = take_rows(h, src)
+    cut = int(dst[FW_PLAIN_MAX_EDGES]) if c >= 128 else n
+    pd = dst[dst < cut]
+    phj = hj[: pd.shape[0]]
+
+    def composed(hh, hhj):
+        h_i = take_rows_sorted_idx(hh, dst)
+        return layer.aggregate(layer.message(h_i, hhj), dst, n)
+
+    tag = f"Cl({dim}) bench shape E={e} N={n} Cm=C={c}"
+    with _t.no_grad():
+        out = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False,
+                            plan)
+        again = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False,
+                              plan)
+        check(f"{LABEL[kf]} vs the composed route, {tag}", out,
+              composed(h_s, hj), TOL[f"k4{'' if dim == 3 else '_cl2'}_fast"])
+    if not _t.equal(out, again):
+        raise AssertionError(f"{LABEL[kf]} {tag}: two launches differ")
+    del out, again
+    got = fe.mp_backward(params, alg, h_s, hj, None, dst, None, dagg, False,
+                         plan)
+    again = fe.mp_backward(params, alg, h_s, hj, None, dst, None, dagg,
+                           False, plan)
+    hh = h_s.detach().requires_grad_(True)
+    hhj = hj.detach().requires_grad_(True)
+    want = _t.autograd.grad(composed(hh, hhj), [hh, hhj] + live, dagg)
+    names = ["dh", "dhj"] + [f"block{i} d{pn}" for i in (1, 2)
+                             for pn in BLOCK_NAMES]
+    tol = TOL[f"k5{'' if dim == 3 else '_cl2'}_fast"]
+    for pn, g, w, g2 in zip(names, [got[0], got[1]] + got[3], want,
+                            [again[0], again[1]] + again[3]):
+        check(f"{LABEL[kb]} vs the composed route, {pn}", g, w, tol)
+        if not _t.equal(g, g2):
+            raise AssertionError(f"{LABEL[kb]} {tag} {pn}: two launches "
+                                 f"differ")
+    del got, again, want, hh, hhj
+    _t.cuda.empty_cache()
+    it4, it5 = (10, 4) if c <= 64 else (5, 3)
+    k4 = time_ms(lambda: fe.mp_forward(params, alg, h_s, hj, None, dst, None,
+                                       False, plan), iters=it4)
+    k4x = time_ms(lambda: fe.mp_forward(params, alg, h, hj_x, None, dst,
+                                        None, True, plan_x), iters=it4)
+    k5 = time_ms(lambda: fe.mp_backward(params, alg, h_s, hj, None, dst, None,
+                                        dagg, False, plan), iters=it5)
+    k5x = time_ms(lambda: fe.mp_backward(params, alg, h, hj_x, None, dst,
+                                         None, dagg, True, plan_x),
+                  iters=it5)
+    k4_plain = time_ms(lambda: fe.message_aggregate_plain(
+        params, alg, h_s, phj, None, pd, None, False, False), iters=2,
+        warmup=1)
+    k5_plain = time_ms(lambda: fe.message_aggregate_grad_plain(
+        params, alg, h_s, phj, None, pd, None, dagg, False), iters=2,
+        warmup=1)
+    with _t.no_grad():
+        k4_comp = time_ms(lambda: composed(h_s, hj), iters=3)
+    hh = h_s.detach().requires_grad_(True)
+    hhj = hj.detach().requires_grad_(True)
+    out = composed(hh, hhj)
+    wrt = [hh, hhj] + list(layer.edge_model.parameters())
+    k5_comp = time_ms(lambda: _t.autograd.grad(out, wrt, dagg,
+                                               retain_graph=True), iters=3)
+    del out, hh, hhj, hj_x
+    _t.cuda.empty_cache()
+    pbytes = sum(p.numel() for p in params) * 4
+    flops = block_flops(e, c, c, nb) * 2
+    in_bytes = n * c * nb * 2 + e * c * nb * 2 + e * 4   # h, hj bf16; ids
+    by4 = in_bytes + pbytes + n * c * nb * 4
+    by5 = in_bytes + n * c * nb * 4 + 2 * pbytes + n * c * nb * 4 \
+        + e * c * nb * 2
+    b4, b4by, b4env = bound(by4, flops, BF16_PEAK)
+    b5, b5by, b5env = bound(by5, 3 * flops, BF16_PEAK)
+    f4 = max(by4 / MEM_BW, flops / FP32_PEAK) * 1e3
+    f5 = max(by5 / MEM_BW, 3 * flops / FP32_PEAK) * 1e3
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    slab = int(fe._lib_fn(plan.kern, "slab_rows", [], ctypes.c_longlong)())
+    scratch = [fe.wide_scratch_bytes(plan.kern, e, c, 0, c, b, sms) / 2**20
+               for b in (False, True)]
+    print(f"  scratch (slabs of {slab} edge rows): {LABEL[kf]} "
+          f"{scratch[0]:.1f} MiB, {LABEL[kb]} {scratch[1]:.1f} MiB")
+    plain_at = (f"the first {pd.shape[0]} edges (targets < {cut})"
+                if cut < n else "the whole graph")
+    print(f"K4w/K5w time, {tag}, fast (plain at {plain_at}):")
+    for k, ms, msx, pl, comp, b, by, benv, bf in (
+            (kf, k4, k4x, k4_plain, k4_comp, b4, b4by, b4env, f4),
+            (kb, k5, k5x, k5_plain, k5_comp, b5, b5by, b5env, f5)):
+        print(f"  {LABEL[k]} {ms * 1e3:.1f} us (exact {msx * 1e3:.1f})  "
+              f"plain {pl * 1e3:.1f} us  composed route {comp * 1e3:.1f} us"
+              f"  bound {b * 1e3:.1f} us ({by}, bf16 tensor cores at "
+              f"989 TFLOP/s; {benv * 1e3:.1f} us at the measured envelope)"
+              f"; fp32 FFMA at 67 TFLOP/s {bf * 1e3:.1f} us")
+    shape = f"E={e} N={n} Cm=C={c} nb={nb} fast"
+    fields = {}
+    for k, ms, msx, pl, comp, b, by, benv, bf in (
+            (kf, k4, k4x, k4_plain, k4_comp, b4, b4by, b4env, f4),
+            (kb, k5, k5x, k5_plain, k5_comp, b5, b5by, b5env, f5)):
+        fields[k] = dict(ms=ms, exact_ms=msx, plain_ms=pl, bound_ms=b,
+                         bound_by=by, bound_env_ms=benv,
+                         bound_ffma_ms=bf, composed_ms=comp, shape=shape,
+                         plain_shape=f"E={pd.shape[0]} N={n} ({plain_at})",
+                         scratch_mib=scratch[k == kb])
+    set_aggregation_mode("exact")
+    return fields
+
+
+def scaling_run(argv, counters, hidden, composed_check=False):
+    """csmpn_torch.bench_scaling through its main at ``argv``: its line,
+    the peak memory, then one more step with every counter at 0 just
+    before, held to FW_PER_STEP[hidden]; with ``composed_check``, a
+    profile of two steps (the device time by kernel) and the layer's loss
+    and gradients on the fused route against the same layer on the
+    composed route (the edge side gathered, its CEMLP on the block
+    kernels, the sum), at the bench stack's fused-vs-composed limits.
+    Returns (launches in the run, launches a step)."""
+    from csmpn_torch import bench_scaling
+    from csmpn_torch.ops import fused_egcl as fe
+
+    print(f"bench_scaling via csmpn_torch.bench_scaling.main "
+          f"{' '.join(argv)}; predicted launches a step "
+          f"{FW_PER_STEP[hidden]}")
+    for cnt in counters.values():
+        cnt.reset()
+    res = bench_scaling.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: cnt.count for k, cnt in counters.items()}
+    print(f"  step {res['step_s']:.4f} s, peak {res['peak_gb']} GiB, "
+          f"{res['line']['value']} edges/s; launches in the run {launches}")
+    step = res["step"]
+    for cnt in counters.values():
+        cnt.reset()
+    step()
+    torch.cuda.synchronize()
+    per_step = {k: cnt.count for k, cnt in counters.items()}
+    print(f"  launches a step {per_step}")
+    if per_step != FW_PER_STEP[hidden]:
+        raise AssertionError(f"bench_scaling --hidden {hidden}: launches a "
+                             f"step {per_step} != {FW_PER_STEP[hidden]}")
+    if not math.isfinite(float(res["loss"])):
+        raise AssertionError(f"bench_scaling --hidden {hidden}: loss "
+                             f"{res['loss']}")
+    if composed_check:
+        phase_profile(lambda: float(step()), steps=2)
+        egcl = res["egcl"]
+
+        def loss_and_grads():
+            step()
+            return (step.last["loss"].float().cpu(),
+                    [p.grad.detach().clone() for p in egcl.parameters()])
+
+        lf, gf = loss_and_grads()
+        supported = fe.fused_mp_supported
+        fe.fused_mp_supported = lambda *args: False
+        try:
+            lc, gc = loss_and_grads()
+        finally:
+            fe.fused_mp_supported = supported
+        check(f"bench_scaling --hidden {hidden}: loss on K4w/K5w vs on the "
+              f"composed route", lf, lc, TOL["bench_fused_loss"])
+        errs = sorted(((rel_err(a, b)[1], k) for a, b, (k, _) in
+                       zip(gf, gc, egcl.named_parameters())), reverse=True)
+        tol = TOL["bench_fused_grad"]
+        print(f"  gradients on K4w/K5w vs the composed route: worst of "
+              f"{len(gf)} rel {errs[0][0]:.3e} ({errs[0][1]})  tol "
+              f"{tol:.0e}")
+        if errs[0][0] > tol or not all(_finite(g) for g in gf):
+            raise AssertionError(f"bench_scaling --hidden {hidden}: "
+                                 f"gradients {errs[:3]}")
+    del res, step
+    torch.cuda.empty_cache()
+    return launches, per_step
+
+
+def _finite(t):
+    return bool(torch.isfinite(t).all().item())
+
+
+def bench_cl2_wide(counters):
+    """The bench stack at --dim 2 through bench.run at hidden
+    FW_CL2_HIDDEN (Cl(2,0), 3 layers, the bench graph, fast): a step's
+    launches, three K4w/K5w at Cl(2) and no K4/K5 at Cl(2); the losses
+    finite.  Returns (launches in the run, launches a step)."""
+    from csmpn_torch import bench
+
+    print(f"bench stack via csmpn_torch.bench.run at --dim 2, hidden "
+          f"{FW_CL2_HIDDEN} (K4w/K5w at Cl(2)), 2 steps x 1 window")
+    for cnt in counters.values():
+        cnt.reset()
+    res = bench.run("cuda", steps=2, windows=1, hidden=FW_CL2_HIDDEN, dim=2)
+    torch.cuda.synchronize()
+    launches = {k: cnt.count for k, cnt in counters.items()}
+    for cnt in counters.values():
+        cnt.reset()
+    bench.train_step(res["model"], res["optimizer"], *res["inputs"])
+    torch.cuda.synchronize()
+    per_step = {k: cnt.count for k, cnt in counters.items()}
+    print(f"  step {res['step_s'] * 1e3:.3f} ms, losses {res['losses']}; "
+          f"launches a step {per_step}")
+    want = {"k4w_cl2": 3, "k5w_cl2": 3, "k4_cl2": 0, "k5_cl2": 0}
+    if {k: per_step[k] for k in want} != want:
+        raise AssertionError(f"bench --dim 2 hidden {FW_CL2_HIDDEN}: "
+                             f"launches a step {per_step}")
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise AssertionError(f"bench --dim 2 losses {res['losses']}")
+    del res
+    torch.cuda.empty_cache()
+    return launches, per_step
+
+
+def phase_fused_wide(dev, gen, results, counters):
+    """K4w/K5w: against plain (check_fused_wide), at the bench shapes
+    (time_fused_wide), through bench_scaling at --hidden 64 (streamed,
+    held to the composed route) and 128 (one chunk), at 32 (K4/K5 as
+    before), and the bench stack at --dim 2 hidden FW_CL2_HIDDEN.  Fills
+    the kernels-line entries; returns the runs' (launches, launches a
+    step) by tag."""
+    t0 = time.time()
+    wide = {k: counters[k] for k in ("k4", "k5", "k4w", "k5w", "k4_cl2",
+                                     "k5_cl2", "k4w_cl2", "k5w_cl2")}
+    errs = check_fused_wide(dev, gen, wide)
+    t_check = time.time() - t0
+    times = {}
+    for dim, hs in FW_TIMED.items():
+        sfx = "" if dim == 3 else "_cl2"
+        for c in hs:
+            for k, f in time_fused_wide(dev, dim, c, (f"k4w{sfx}",
+                                                      f"k5w{sfx}")).items():
+                times.setdefault(k, []).append(f)
+    for k, line, fn in (("k4w", 102, "fwd"), ("k5w", 405, "bwd"),
+                        ("k4w_cl2", 102, "fwd"), ("k5w_cl2", 405, "bwd")):
+        src = "fused_egcl_wide" if k in ("k4w", "k5w") else \
+            "fused_egcl_wide_cl2"
+        first, *rest = times[k]
+        entry = dict(name=f"fused_wide_{fn}", route="cuda",
+                     source=f"csmpn_torch/csrc/{src}.cu",
+                     replaces=f"csmpn_tpu/ops/fused_egcl.py:{line}",
+                     max_abs_err=errs[k]["exact"],
+                     max_abs_err_fast=errs[k]["fast"], library_ms=None,
+                     **first)
+        for more in rest:
+            c = more["shape"].split("C=")[1].split()[0]
+            entry.update({f"h{c}_{f}": v for f, v in more.items()
+                          if f != "shape"})
+        results[k] = entry
+    runs = {}
+    sc = {k: counters[k] for k in FW_PER_STEP[64]}
+    runs["scaling_h64"] = scaling_run(FW_H64_ARGV, sc, 64,
+                                      composed_check=True)
+    runs["scaling_h128"] = scaling_run(FW_H128_ARGV, sc, 128)
+    runs["scaling_h32"] = scaling_run(FW_H32_ARGV, sc, 32)
+    runs["bench_cl2_h72"] = bench_cl2_wide(
+        {k: counters[k] for k in ("k1", "k2w_cl2", "k3w_cl2", "k4_cl2",
+                                  "k5_cl2", "k4w_cl2", "k5w_cl2")})
+    print(f"the wide fused phase: {time.time() - t0:.1f} s of this run "
+          f"(the plain checks {t_check:.1f} s)")
+    return runs
+
+
 BENCH_PER_STEP = {"k1": 2, "k2": 6, "k3": 6, "k4": 3, "k5": 3}
 BENCH_CL2_PER_STEP = {"k1": 2, "k2_cl2": 6, "k3_cl2": 6, "k4_cl2": 3,
                       "k5_cl2": 3}
@@ -5036,6 +5454,23 @@ def main() -> int:
                    "k3pw_cl4": ck.PAIR_WIDE_CL4_BWD_LAUNCHES}
     pair_wide = {k: pw_counters[k] for k in ("k2pw", "k3pw", "k2pw_cl4",
                                              "k3pw_cl4")}
+    fw_counters = dict(wide_counters, k4=fe.FWD_LAUNCHES,
+                       k5=fe.BWD_LAUNCHES, k4_cl2=fe.CL2_FWD_LAUNCHES,
+                       k5_cl2=fe.CL2_BWD_LAUNCHES, k4w=fe.WIDE_FWD_LAUNCHES,
+                       k5w=fe.WIDE_BWD_LAUNCHES,
+                       k4w_cl2=fe.WIDE_CL2_FWD_LAUNCHES,
+                       k5w_cl2=fe.WIDE_CL2_BWD_LAUNCHES)
+    fused_wide = {k: fw_counters[k] for k in ("k4w", "k5w", "k4w_cl2",
+                                              "k5w_cl2")}
+
+    def check_fused_wide_idle(what):
+        ran = {k: c.count for k, c in fused_wide.items() if c.count}
+        print(f"K4w/K5w launches in {what}: {ran or 'none'}")
+        if ran:
+            raise AssertionError(f"K4w/K5w launched in {what}: {ran}")
+
+    for c in fused_wide.values():
+        c.reset()
     runs = {"envelope": (phase_envelope(dev, results), None)}
     graph_times = {}
     with tempfile.TemporaryDirectory() as dataroot:
@@ -5096,6 +5531,12 @@ def main() -> int:
         print(f"the wide pair-form phases (K2pw/K3pw checks and times, the "
               f"hulls model at hidden {PW_MODEL_HID}, the task at hidden "
               f"{PW_HID}, the Cl(4) CEMLP): {pw_s:.1f} s of this run")
+        check_fused_wide_idle("the phases at the configured widths")
+        t_fw = time.time()
+        runs.update(phase_fused_wide(dev, gen, results, fw_counters))
+        fw_s = time.time() - t_fw
+        for c in fused_wide.values():
+            c.reset()
         phase_tile_instances(dev, gen, results)
         phase_pair_tile_instances(dev, gen, results)
         phase_pair_fused_instances(dev, gen, results)
@@ -5106,6 +5547,8 @@ def main() -> int:
                                     idle=cl5_pair)[:2]
     runs["stream"] = phase_streaming(dev, counters)[:2]
     runs["sharded"] = phase_sharded(dev, counters)[:2]
+    check_fused_wide_idle("the bench, streaming and sharded phases at "
+                          "hidden 32")
     # each kernel's launches on the path that runs it (the bench for
     # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2), the bench at
     # Cl(2), Cl(5) and Cl(4) for K4/K5 at Cl(2), K4p/K5p and the Cl(4)
@@ -5120,13 +5563,15 @@ def main() -> int:
             "k2w": f"motion_h{WIDE_HID}", "k3w": f"motion_h{WIDE_HID}",
             "k2w_cl2": f"nba_h{WIDE_HID}", "k3w_cl2": f"nba_h{WIDE_HID}",
             "k2pw": f"hulls_h{PW_HID}", "k3pw": f"hulls_h{PW_HID}",
-            "k2pw_cl4": "cemlp_cl4_h64", "k3pw_cl4": "cemlp_cl4_h64"}
+            "k2pw_cl4": "cemlp_cl4_h64", "k3pw_cl4": "cemlp_cl4_h64",
+            "k4w": "scaling_h64", "k5w": "scaling_h64",
+            "k4w_cl2": "bench_cl2_h72", "k5w_cl2": "bench_cl2_h72"}
     kernels = []
     for k in ("k1", "k2", "k3", "k4", "k5", "k2p", "k3p", "k2_cl2",
               "k3_cl2", "k4_cl2", "k5_cl2", "k4p", "k5p", "k2p_cl4",
               "k3p_cl4", "k4p_cl4", "k5p_cl4", "p1", "p2", "p3", "k2w",
               "k3w", "k2w_cl2", "k3w_cl2", "k2pw", "k3pw", "k2pw_cl4",
-              "k3pw_cl4"):
+              "k3pw_cl4", "k4w", "k5w", "k4w_cl2", "k5w_cl2"):
         entry = dict(results[k])
         own = home.get(k, "bench")
         entry["launches"] = runs[own][0][k]
@@ -5140,7 +5585,8 @@ def main() -> int:
         kernels.append(entry)
     print_graph_times(graph_times)
     print(f"total {time.time() - t_start:.1f} s, of which the wide-block "
-          f"phases {wide_s:.1f} s and the wide pair-form phases {pw_s:.1f} s")
+          f"phases {wide_s:.1f} s, the wide pair-form phases {pw_s:.1f} s "
+          f"and the wide fused phase {fw_s:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

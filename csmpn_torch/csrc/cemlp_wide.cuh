@@ -16,7 +16,9 @@
 //     geometric product, + left linear, / sqrt 2) -> MVLayerNorm,
 // the function of cemlp.cu's kernels; the wrapper
 // (ops/cemlp_kernel.block_route) sends a launch here only where their plan
-// does not take its widths.
+// does not take its widths.  fused_egcl_wide.cuh (K4w/K5w) runs the same
+// device code over gathered edge rows (a linear's input rows come from a
+// source type: XRows here, its gather there).
 //
 // Bound on this card: at the motion task's edge block at hidden 128 (134
 // -> 128 channels, 8 blades) a row costs ~2*8*128*(134 + 2*128) FLOPs of
@@ -316,27 +318,53 @@ __device__ __forceinline__ void zero_acc(float (&acc)[WS][A::NB]) {
     for (int i = 0; i < A::NB; ++i) acc[u][i] = 0.f;
 }
 
-// One linear over the step's rows, acc = row values (kn-channel chunks of
-// `rowv`, or the x rows when X) times the linear whose image rows start at
-// `w`; the panels are staged by all threads of the CTA.
-template <class A, bool FAST, bool X>
+// Where a linear's input rows come from.  A staged source loads the
+// step's rows a chunk of kn input channels at a time into xs (all threads
+// of the CTA; K2w/K3w read x in global memory, K4w gathers it), and a warp
+// reads its row there; TileRows is the warp's row already in a
+// shared-memory tile [channel][NB].
+template <class A, bool FAST>
+struct XRows {
+  const float* __restrict__ x;
+  int64_t row0;
+  int rows, cin;
+  __device__ __forceinline__ void load(float* xs, int k0, int kn) const {
+    load_x_rows<A, FAST>(x, xs, row0, rows, cin, k0, kn);
+  }
+  __device__ __forceinline__ const float* at(const float* xs, int warp,
+                                             int) const {
+    return xs + warp * KC * A::NB;
+  }
+};
+
+template <class A>
+struct TileRows {
+  const float* row;
+  __device__ __forceinline__ void load(float*, int, int) const {}
+  __device__ __forceinline__ const float* at(const float*, int,
+                                             int k0) const {
+    return row + k0 * A::NB;
+  }
+};
+
+// One linear over the step's rows, acc = the rows of `src` times the
+// linear whose image rows start at `w`; the panels are staged by all
+// threads of the CTA.
+template <class A, class Src>
 __device__ __forceinline__ void linear_rows(float (&acc)[WS][A::NB],
-                                            const float* __restrict__ x,
-                                            const float* rowv,
+                                            const Src& src,
                                             const float* __restrict__ w,
                                             const WSmem& sm, const WLayout& L,
-                                            int64_t row0, int rows, int k_in,
-                                            int warp, int lane) {
+                                            int k_in, int warp, int lane) {
   constexpr int NB = A::NB, NG = A::NG;
   zero_acc<A>(acc);
   for (int k0 = 0; k0 < k_in; k0 += KC) {
     const int kn = k_in - k0 < KC ? k_in - k0 : KC;
     __syncthreads();   // the previous panel (and x chunk) consumed
-    if (X) load_x_rows<A, FAST>(x, sm.xs, row0, rows, L.cin, k0, kn);
+    src.load(sm.xs, k0, kn);
     stage4(sm.pan, w + (int64_t)k0 * NG * L.cp, kn * NG * L.cp);
     __syncthreads();
-    mix<A>(acc, X ? sm.xs + warp * KC * NB : rowv + k0 * NB, sm.pan, kn,
-           L.cp, L.s, lane);
+    mix<A>(acc, src.at(sm.xs, warp, k0), sm.pan, kn, L.cp, L.s, lane);
   }
 }
 
@@ -362,23 +390,22 @@ __device__ __forceinline__ void wide_gates(const float (&y)[A::NB],
   }
 }
 
-// The step's block up to the right linear: y = x W1 + b1 (into ys where
-// the backward keeps it), z = MVSiLU(y) into zs (rounded in fast mode),
-// first = z WL + bL into fs; returns yr = z Wr in acc.
-template <class A, bool FAST, bool BWD>
+// The step's block up to the right linear: y = x W1 + b1 with x the rows
+// of `src` (y into ys where the backward keeps it), z = MVSiLU(y) into zs
+// (rounded in fast mode), first = z WL + bL into fs; returns yr = z Wr in
+// acc.
+template <class A, bool FAST, bool BWD, class Src>
 __device__ __forceinline__ void wide_front(float (&acc)[WS][A::NB],
-                                           const float* __restrict__ x,
+                                           const Src& src,
                                            const float* __restrict__ img,
                                            const WLayout& L,
                                            const Tabs<A>& tb, const WSmem& sm,
-                                           int64_t row0, int rows, int warp,
-                                           int lane) {
+                                           int warp, int lane) {
   constexpr int NB = A::NB, NG = A::NG;
   const int cp = L.cp;
   float* zr = sm.zs + (int64_t)warp * cp * NB;
   float* fr = sm.fs + (int64_t)warp * cp * NB;
-  linear_rows<A, FAST, true>(acc, x, nullptr, img + L.w1f, sm, L, row0, rows,
-                             L.cin, warp, lane);
+  linear_rows<A>(acc, src, img + L.w1f, sm, L, L.cin, warp, lane);
 #pragma unroll
   for (int u = 0; u < WS; ++u) {
     if (u >= L.s) continue;
@@ -394,8 +421,7 @@ __device__ __forceinline__ void wide_front(float (&acc)[WS][A::NB],
       if (BWD) sm.ys[((int64_t)warp * cp + n) * NB + i] = y[i];
     }
   }
-  linear_rows<A, FAST, false>(acc, nullptr, zr, img + L.wlf, sm, L, row0,
-                              rows, L.c, warp, lane);
+  linear_rows<A>(acc, TileRows<A>{zr}, img + L.wlf, sm, L, L.c, warp, lane);
 #pragma unroll
   for (int u = 0; u < WS; ++u) {
     if (u >= L.s) continue;
@@ -405,8 +431,7 @@ __device__ __forceinline__ void wide_front(float (&acc)[WS][A::NB],
     for (int i = 0; i < NB; ++i)
       fr[n * NB + i] = acc[u][i] + (i == 0 ? bl : 0.f);
   }
-  linear_rows<A, FAST, false>(acc, nullptr, zr, img + L.wrf, sm, L, row0,
-                              rows, L.c, warp, lane);
+  linear_rows<A>(acc, TileRows<A>{zr}, img + L.wrf, sm, L, L.c, warp, lane);
 }
 
 // The row phase's forward state of one (row, channel).
@@ -474,6 +499,33 @@ __device__ __forceinline__ void wide_post(WPost<A>& f, const float (&yr)[A::NB],
 
 // --------------------------------------------------------------- K2w
 
+// The forward's row phase after wide_front: o of each of the lane's
+// channels into acc (from yr in acc, first and z in the warp's tiles),
+// and the layer norm's mean over the row's channels (shuffles); the
+// block's output is aln / mean * o.
+template <class A, bool FAST>
+__device__ __forceinline__ float wide_out(float (&acc)[WS][A::NB],
+                                          const float* __restrict__ img,
+                                          const WLayout& L, const Tabs<A>& tb,
+                                          const WSmem& sm, int warp,
+                                          int lane) {
+  constexpr int NB = A::NB;
+  const float* fr = sm.fs + (int64_t)warp * L.cp * NB;
+  const float* zr = sm.zs + (int64_t)warp * L.cp * NB;
+  float tot = 0.f;
+#pragma unroll
+  for (int u = 0; u < WS; ++u) {
+    if (u >= L.s) continue;
+    const int n = lane + 32 * u;
+    WPost<A> f;
+    wide_post<A, FAST>(f, acc[u], fr + n * NB, zr + n * NB, img, L, tb, n);
+#pragma unroll
+    for (int i = 0; i < NB; ++i) acc[u][i] = f.o[i];
+    if (n < L.c) tot += f.nc;
+  }
+  return warp_sum(tot) / (float)L.c + EPS;
+}
+
 // A CTA walks over steps of ROWS rows: wide_front, then the row phase (a
 // warp its row: the mean over the slots by shuffles) writes the block's
 // output aln / mean * o, a lane its channels' NB floats.
@@ -490,22 +542,9 @@ cemlp_wide_fwd_kernel(const float* __restrict__ x,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int64_t row0 = (int64_t)tile * ROWS, row = row0 + warp;
     float acc[WS][NB];
-    wide_front<A, FAST, false>(acc, x, img, L, tb, sm, row0, rows, warp,
-                               lane);
-    const float* fr = sm.fs + (int64_t)warp * L.cp * NB;
-    const float* zr = sm.zs + (int64_t)warp * L.cp * NB;
-    float tot = 0.f;
-#pragma unroll
-    for (int u = 0; u < WS; ++u) {
-      if (u >= L.s) continue;
-      const int n = lane + 32 * u;
-      WPost<A> f;
-      wide_post<A, FAST>(f, acc[u], fr + n * NB, zr + n * NB, img, L, tb, n);
-#pragma unroll
-      for (int i = 0; i < NB; ++i) acc[u][i] = f.o[i];
-      if (n < c) tot += f.nc;
-    }
-    const float mean = warp_sum(tot) / (float)c + EPS;
+    wide_front<A, FAST, false>(acc, XRows<A, FAST>{x, row0, rows, L.cin},
+                               img, L, tb, sm, warp, lane);
+    const float mean = wide_out<A, FAST>(acc, img, L, tb, sm, warp, lane);
     if (row >= rows) continue;
 #pragma unroll
     for (int u = 0; u < WS; ++u) {
@@ -570,7 +609,8 @@ cemlp_wide_bwd_kernel(const float* __restrict__ x,
     const int64_t row0 = (int64_t)tile * ROWS, row = row0 + warp;
     const bool live = row < rows;
     float acc[WS][NB];
-    wide_front<A, FAST, true>(acc, x, img, L, tb, sm, row0, rows, warp, lane);
+    wide_front<A, FAST, true>(acc, XRows<A, FAST>{x, row0, rows, cin}, img,
+                              L, tb, sm, warp, lane);
 #pragma unroll
     for (int u = 0; u < WS; ++u) {
       if (u >= L.s) continue;
@@ -752,9 +792,9 @@ cemlp_wide_bwd_kernel(const float* __restrict__ x,
     }
     // ---- dx = d(y) W1^T, blocks of cp input channels
     for (int blk = 0; blk < L.nblk; ++blk) {
-      linear_rows<A, FAST, false>(acc, nullptr, yrw,
-                                  img + L.w1b + (int64_t)blk * c * NG * cp,
-                                  sm, L, row0, rows, c, warp, lane);
+      linear_rows<A>(acc, TileRows<A>{yrw},
+                     img + L.w1b + (int64_t)blk * c * NG * cp, sm, L, c, warp,
+                     lane);
       if (!live) continue;
 #pragma unroll
       for (int u = 0; u < WS; ++u) {
@@ -864,12 +904,14 @@ cemlp_wide_wgrad_kernel(const float* __restrict__ x,
 
 // The gradient vector (flax layout, wide_grad_floats) from the slabs: the
 // weight gradients summed over the wgrad splits, the per-channel ones
-// over the row kernel's warps, each in slab order.
+// over the row kernel's warps, each in slab order; with `accum` added
+// onto the vector's values (K5w sums its slabs of edge rows so, in order).
 template <class A>
 __global__ void __launch_bounds__(256)
 cemlp_wide_reduce_kernel(const float* __restrict__ wpart, int splits,
                          const float* __restrict__ lpart, int nloc,
-                         float* __restrict__ grads, int cin, int c) {
+                         float* __restrict__ grads, int cin, int c,
+                         int accum) {
   constexpr int NG = A::NG, NP = A::NP;
   using LC = Loc<A>;
   int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
@@ -907,7 +949,7 @@ cemlp_wide_reduce_kernel(const float* __restrict__ wpart, int splits,
     for (int l = 0; l < nloc; ++l)
       acc += lpart[((int64_t)l * LC::N + field) * c + n];
   }
-  grads[q] = acc;
+  grads[q] = accum ? grads[q] + acc : acc;
 }
 
 // ------------------------------------------------------------------ host
@@ -1023,7 +1065,7 @@ int wide_bwd(const float* x, const float* dout, const Params& p,
   if (err != cudaSuccess) return (int)err;
   const int64_t n = wide_grad_floats<A>(cin, c);
   cemlp_wide_reduce_kernel<A><<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      wpart, splits, lpart, grid * ROWS, grads, cin, c);
+      wpart, splits, lpart, grid * ROWS, grads, cin, c, 0);
   return (int)cudaGetLastError();
 }
 

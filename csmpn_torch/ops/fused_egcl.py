@@ -39,8 +39,20 @@ In fast mode ``_check_tile_smem`` holds the tile kernels' widths for both
 forms; at every width the exact kernels take, the fast ones take it too
 (chip_smoke.py asserts it).
 
+At the widths whose dense K4/K5 do not fit (their size entries refuse
+them in either direction: at Cl(3) above 32 channels, at Cl(2) above ~45
+where Cm = C), every C <= 128 channels and Cm + Ca <= 320 message +
+attribute channels run K4w/K5w (``csrc/fused_egcl_wide.cuh``, sources
+``fused_egcl_wide.cu`` and ``fused_egcl_wide_cl2.cu``, both modes): K2w's
+and K3w's FFMA block code over slabs of edge rows, K4w one sweep of both
+blocks' forwards a slab with the message rows to a scratch, K5w the
+target gather, block 1's forward recomputed, block 2's and block 1's
+backward on K3w's kernels, and window sums of one warp a target that
+continue from slab to slab.  ``fused_route`` picks the kernels of a call
+once for its forward and backward; past that range it raises.
+
 Cl(1) (2 blades), which the reference's dense form also serves, has no
-kernel yet and raises, as do widths whose kernels do not fit.
+kernel yet and raises, as do the pair form's widths past its kernels.
 
 On a CUDA tensor the wrappers launch the kernels (or raise); on a CPU
 tensor they compute the plain versions:
@@ -62,14 +74,15 @@ memory, so the switch has no counterpart.  Its window of 128 targets is
 ``wn`` here, per kernel: 32 for K4/K5, 4 for K4p/K5p at Cl(5) (a window
 sum takes 3.5 KB a target at 28 channels) and 16 at Cl(4) (1.75 KB a
 target; 512 windows at the bench's 8,192 targets keep the last round of
-windows short on 132 SMs); in both modes.
+windows short on 132 SMs), 1 for K4w/K5w (a warp sums a target's rows);
+in both modes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,6 +95,8 @@ from .cemlp_kernel import (
     block_kernel,
     block_params,
     check_block_params,
+    WIDE_OF as BLOCK_WIDE_OF,
+    _split_grads,
 )
 
 FWD_LAUNCHES = _build.LaunchCounter("fused_mp_fwd")
@@ -92,6 +107,10 @@ PAIR_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_fwd")
 PAIR_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_bwd")
 PAIR_CL4_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_cl4_fwd")
 PAIR_CL4_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_cl4_bwd")
+WIDE_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_wide_fwd")
+WIDE_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_wide_bwd")
+WIDE_CL2_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_wide_cl2_fwd")
+WIDE_CL2_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_wide_cl2_bwd")
 
 MAX_SMEM = 232448       # 227 KB opt-in per block (kMaxSmem there)
 
@@ -109,8 +128,9 @@ class FusedKernel:
     n_blades: int
     n_grades: int
     n_paths: int
-    max_channels: int     # output channels C the kernels take
-    wn: int               # target nodes per CTA window
+    max_channels: int     # output channels C the kernels take (0: the
+    #                       library's range entry)
+    wn: int               # target nodes per CTA window (1: a target)
     fwd: _build.LaunchCounter
     bwd: _build.LaunchCounter
     # "dense": Cayley signs passed from the host; "pair": the packed pair
@@ -136,6 +156,16 @@ PAIR_CL4 = FusedKernel("K4p/K5p at Cl(4)", "fused_egcl_pair_cl4",
                        "csmpn_fused_mp_pair_cl4", 16, 5, 35, 28, 16,
                        PAIR_CL4_FWD_LAUNCHES, PAIR_CL4_BWD_LAUNCHES,
                        form="pair")
+# the widths K4w/K5w take are their library's (fused_route asks it); their
+# window sums are a target's
+DENSE_WIDE = FusedKernel("K4w/K5w", "fused_egcl_wide", "csmpn_fused_wide", 8,
+                         4, 20, 0, 1, WIDE_FWD_LAUNCHES, WIDE_BWD_LAUNCHES)
+DENSE_WIDE_CL2 = FusedKernel("K4w/K5w at Cl(2)", "fused_egcl_wide_cl2",
+                             "csmpn_fused_wide_cl2", 4, 3, 10, 0, 1,
+                             WIDE_CL2_FWD_LAUNCHES, WIDE_CL2_BWD_LAUNCHES)
+# the wide kernels of the dense form, by blade count
+WIDE_OF = {8: DENSE_WIDE, 4: DENSE_WIDE_CL2}
+_WIDE = tuple(WIDE_OF.values())
 
 
 def fused_kernel(nb: int) -> FusedKernel:
@@ -208,10 +238,11 @@ def _lib_fn(kern: FusedKernel, name: str, argtypes, restype=ctypes.c_int):
 
 @functools.lru_cache(maxsize=None)
 def _check_smem(kern: FusedKernel, cm: int, ca: int, c: int) -> None:
-    """Raise unless the forward and backward fit in shared memory."""
+    """Raise unless the forward and the backward each fit in shared
+    memory."""
     fn = _lib_fn(kern, "smem_bytes", [_I, _I, _I, _I, _I], ctypes.c_size_t)
     sizes = [int(fn(cm, ca, c, kern.wn, b)) for b in (0, 1)]
-    if not 0 < max(sizes) <= MAX_SMEM:
+    if not (min(sizes) > 0 and max(sizes) <= MAX_SMEM):
         raise NotImplementedError(
             f"{kern.label}: the fused message-passing kernels do not fit in "
             f"shared memory at {cm} message + {ca} attribute -> {c} channels")
@@ -233,14 +264,57 @@ def _check_tile_smem(kern: FusedKernel, cm: int, ca: int, c: int,
             f"at {cm} message + {ca} attribute -> {c} channels")
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_range(kern: FusedKernel) -> Tuple[int, int]:
+    """(The most output channels, the most message + attribute channels)
+    K4w/K5w take, from their library's range entry."""
+    fn = _lib_fn(kern, "range", [ctypes.POINTER(_I)], None)
+    out = (_I * 2)()
+    fn(out)
+    return out[0], out[1]
+
+
+def fused_route(kern: FusedKernel, cm: int, ca: int, c: int,
+                exact: bool) -> FusedKernel:
+    """The kernels of a call of ``kern``'s algebra at cm message + ca
+    attribute -> c channels in the mode, one route for its forward and its
+    backward: the pair form keeps K4p/K5p (their widths are checked as
+    before); the dense form K4/K5 where their size entries take the
+    widths in both directions (the row kernels', which every call has
+    asked since K4, and in fast mode the row tiles'), else K4w/K5w where
+    their library's smem_bytes entry takes them in both directions;
+    NotImplementedError beyond, naming the range of that library's range
+    entry."""
+    if kern.form == "pair":
+        return kern
+    try:
+        _check_smem(kern, cm, ca, c)
+        if not exact:
+            _check_tile_smem(kern, cm, ca, c, backward=False)
+            _check_tile_smem(kern, cm, ca, c, backward=True)
+        return kern
+    except NotImplementedError as err:
+        why = str(err)
+    wide = WIDE_OF[kern.n_blades]
+    fn = _lib_fn(wide, "smem_bytes", [_I] * 4, ctypes.c_longlong)
+    if all(0 < int(fn(cm, ca, c, b)) <= MAX_SMEM for b in (0, 1)):
+        return wide
+    max_c, max_cin = _wide_range(wide)
+    raise NotImplementedError(
+        f"{why}; {wide.label} take at most {max_c} channels and {max_cin} "
+        f"message + attribute channels, got {cm} + {ca} -> {c}")
+
+
 @dataclass
 class _Plan:
-    """Window layout of one call, shared by its forward and backward."""
+    """Window layout of one call, shared by its forward and backward, and
+    the kernels it was made for."""
     n_win: int
     bounds: torch.Tensor          # (n_win + 1,) int64 window edge offsets
     dst: torch.Tensor             # (E,) int32
     mask: Optional[torch.Tensor]  # (E,) uint8 view of the bool mask
     grid: int
+    kern: FusedKernel
 
 
 def window_bounds(dst: torch.Tensor, n_nodes: int, wn: int) -> torch.Tensor:
@@ -267,11 +341,17 @@ def check_counts(kern: FusedKernel, n_nodes: int, n_edges: int) -> None:
 
 
 def make_plan(dst, mask, n_nodes: int, cm: int, ca: int, c: int,
-              nb: int = 8) -> _Plan:
+              nb: int = 8, exact: Optional[bool] = None) -> _Plan:
     """The window layout of a call on the card (dst on the card) for the
-    kernels of nb blades."""
-    kern = fused_kernel(nb)
-    _check_smem(kern, cm, ca, c)
+    kernels of nb blades that ``fused_route`` picks at these widths in the
+    mode (``exact``; None: the aggregation mode)."""
+    if exact is None:
+        from .segment import aggregation_exact
+
+        exact = aggregation_exact()
+    kern = fused_route(fused_kernel(nb), cm, ca, c, exact)
+    if kern.form == "pair":
+        _check_smem(kern, cm, ca, c)
     dst32 = dst.to(torch.int32).contiguous()
     bounds = window_bounds(dst32, n_nodes, kern.wn).to(torch.int64)
     n_win = bounds.shape[0] - 1
@@ -279,10 +359,22 @@ def make_plan(dst, mask, n_nodes: int, cm: int, ca: int, c: int,
          if mask is not None else None)
     props = torch.cuda.get_device_properties(dst.device)
     grid = max(1, min(n_win, props.multi_processor_count))
-    return _Plan(n_win, bounds.contiguous(), dst32, m, grid)
+    return _Plan(n_win, bounds.contiguous(), dst32, m, grid, kern)
 
 
-def _check(params, h, hj, attr, dst, mask):
+def _plan_of(kern: FusedKernel, plan: Optional[_Plan], dst, mask, n: int,
+             cm: int, ca: int, c: int, exact: bool) -> _Plan:
+    """The call's plan: the caller's, which must have been made for the
+    call's route, or a new one."""
+    if plan is None:
+        return make_plan(dst, mask, n, cm, ca, c, kern.n_blades, exact)
+    if plan.kern is not kern:
+        raise ValueError(f"a window plan made for {plan.kern.label} handed "
+                         f"to {kern.label}")
+    return plan
+
+
+def _check(params, h, hj, attr, dst, mask, exact: bool):
     nb = h.shape[2] if h.dim() == 3 else -1
     if h.dim() != 3 or hj.dim() != 3 or hj.shape[1:] != h.shape[1:]:
         raise ValueError(f"h (N, Cm, nb) and hj (E, Cm, nb) expected, got "
@@ -302,7 +394,8 @@ def _check(params, h, hj, attr, dst, mask):
         raise ValueError(f"20 block parameters expected, got {len(params)}")
     check_counts(kern, h.shape[0], e)
     c = params[0].shape[0]
-    block = block_kernel(nb)
+    kern = fused_route(kern, cm, ca, c, exact)
+    block = BLOCK_WIDE_OF[nb] if kern in _WIDE else block_kernel(nb)
     check_block_params(params[:10], cm + ca, c, h.device, block)
     check_block_params(params[10:], c, c, h.device, block)
     return kern, e, cm, ca, c
@@ -311,7 +404,9 @@ def _check(params, h, hj, attr, dst, mask):
 def _stream(t: Optional[torch.Tensor], exact: bool):
     if t is None:
         return None
-    return t.to(torch.float32 if exact else torch.bfloat16).contiguous()
+    t = t.to(torch.float32 if exact else torch.bfloat16).contiguous()
+    # K4w/K5w load 16 (fp32) or 8 (bf16) bytes at a time
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -343,10 +438,11 @@ def mp_forward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst,
         return message_aggregate_plain(params, alg, h, hj, attr, dst, mask,
                                        False, exact)
     params = [p.contiguous() for p in params]
-    kern, e, cm, ca, c = _check(params, h, hj, attr, dst, mask)
+    kern, e, cm, ca, c = _check(params, h, hj, attr, dst, mask, exact)
     n, nb = h.shape[0], kern.n_blades
-    if plan is None:
-        plan = make_plan(dst, mask, n, cm, ca, c, nb)
+    plan = _plan_of(kern, plan, dst, mask, n, cm, ca, c, exact)
+    if kern in _WIDE:
+        return _wide_forward(kern, params, alg, h, hj, attr, plan, exact, c)
     if not exact:
         _check_tile_smem(kern, cm, ca, c, backward=False)
     bc, tabs = _tables(kern, alg, h.device)
@@ -414,12 +510,14 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
         return message_aggregate_grad_plain(params, alg, h, hj, attr, dst,
                                             mask, dagg, exact)
     params = [p.contiguous() for p in params]
-    kern, e, cm, ca, c = _check(params, h, hj, attr, dst, mask)
+    kern, e, cm, ca, c = _check(params, h, hj, attr, dst, mask, exact)
     n, nb = h.shape[0], kern.n_blades
     if dagg.shape != (n, c, nb):
         raise ValueError(f"dagg shape {tuple(dagg.shape)} != {(n, c, nb)}")
-    if plan is None:
-        plan = make_plan(dst, mask, n, cm, ca, c, nb)
+    plan = _plan_of(kern, plan, dst, mask, n, cm, ca, c, exact)
+    if kern in _WIDE:
+        return _wide_backward(kern, params, alg, h, hj, attr, plan, dagg,
+                              exact, c)
     if not exact:
         _check_tile_smem(kern, cm, ca, c)
     bc, tabs = _tables(kern, alg, h.device)
@@ -466,9 +564,92 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
             dattr.to(attr.dtype) if attr is not None else None, grads)
 
 
+def wide_scratch_bytes(kern: FusedKernel, e: int, cm: int, ca: int, c: int,
+                       backward: bool, sms: int) -> int:
+    """Device scratch of a K4w (K5w) call of e edge rows on sms SMs, their
+    library's bytes: both blocks' parameter images and one slab's rows
+    (the slab's rows: its ``slab_rows`` entry)."""
+    fn = _lib_fn(kern, "scratch_bytes", [ctypes.c_longlong] + [_I] * 5,
+                 ctypes.c_longlong)
+    return int(fn(e, cm, ca, c, int(backward), sms))
+
+
+def _wide_call(kern: FusedKernel, h, backward: bool, e: int, cm: int,
+               ca: int, c: int):
+    """(SMs of the card, the call's scratch) of K4w (K5w)."""
+    sms = torch.cuda.get_device_properties(h.device).multi_processor_count
+    size = wide_scratch_bytes(kern, e, cm, ca, c, backward, sms)
+    return sms, torch.empty(size, dtype=torch.uint8, device=h.device)
+
+
+def _wide_forward(kern, params, alg, h, hj, attr, plan, exact, c):
+    """K4w: the parameter images, then per slab of edge rows the sweep of
+    both blocks and the window sums; (N, C, nb) float32."""
+    n, cm, nb = h.shape
+    e, ca = hj.shape[0], 0 if attr is None else attr.shape[1]
+    out = torch.empty((n, c, nb), dtype=torch.float32, device=h.device)
+    if n == 0:
+        return out
+    bc, tabs = _tables(kern, alg, h.device)
+    h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
+    sms, scratch = _wide_call(kern, h, False, e, cm, ca, c)
+    fn = _lib_fn(kern, "fwd", [_P] * 11 + [_I] * 7 + [_P])
+    err = fn(h_s.data_ptr(), hj_s.data_ptr(), _ptr(attr_s),
+             plan.dst.data_ptr(), _ptr(plan.mask), plan.bounds.data_ptr(),
+             _param_ptrs(params), bc.ctypes.data, tabs, out.data_ptr(),
+             scratch.data_ptr(), n, e, cm, ca, c, 0 if exact else 1, sms,
+             torch.cuda.current_stream(h.device).cuda_stream)
+    _build.check(err, f"{kern.label} forward kernels")
+    kern.fwd.add()
+    return out
+
+
+def _wide_backward(kern, params, alg, h, hj, attr, plan, dagg, exact, c):
+    """K5w: the parameter images, then per slab of edge rows the gather,
+    block 1's forward, both blocks' backward and the d(h) sums; (dh, dhj,
+    dattr or None, the 20 parameter gradients) as ``mp_backward``."""
+    n, cm, nb = h.shape
+    e, ca = hj.shape[0], 0 if attr is None else attr.shape[1]
+    dev = h.device
+    h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
+    # the kernels write every row of dh, dhj and dattr and every gradient
+    # (dst lies in [0, N), so N = 0 has no edges)
+    alloc = torch.empty if n > 0 else torch.zeros
+    dh = alloc((n, cm, nb), dtype=torch.float32, device=dev)
+    dhj = alloc(hj_s.shape, dtype=hj_s.dtype, device=dev)
+    dattr = (alloc(attr_s.shape, dtype=attr_s.dtype, device=dev)
+             if attr_s is not None else None)
+    flat = alloc(sum(p.numel() for p in params), dtype=torch.float32,
+                 device=dev)
+    if n > 0:
+        bc, tabs = _tables(kern, alg, dev)
+        dagg = _stream(dagg, True)
+        sms, scratch = _wide_call(kern, h, True, e, cm, ca, c)
+        fn = _lib_fn(kern, "bwd", [_P] * 15 + [_I] * 7 + [_P])
+        err = fn(h_s.data_ptr(), hj_s.data_ptr(), _ptr(attr_s),
+                 plan.dst.data_ptr(), _ptr(plan.mask),
+                 plan.bounds.data_ptr(), dagg.data_ptr(),
+                 _param_ptrs(params), bc.ctypes.data, tabs, dh.data_ptr(),
+                 dhj.data_ptr(), _ptr(dattr), scratch.data_ptr(),
+                 flat.data_ptr(), n, e, cm, ca, c, 0 if exact else 1, sms,
+                 torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(err, f"{kern.label} backward kernels")
+        kern.bwd.add()
+    # two of K3w's flax-layout vectors, block 1's then block 2's; each
+    # returns d/d sigmoid(normalization.a): chain to a
+    n1 = sum(p.numel() for p in params[:10])
+    grads = (_split_grads(flat[:n1], params[:10])
+             + _split_grads(flat[n1:], params[10:]))
+    for i in (6, 16):
+        s = torch.sigmoid(params[i])
+        grads[i] = grads[i] * s * (1.0 - s)
+    return (dh.to(h.dtype), dhj.to(hj.dtype),
+            dattr.to(attr.dtype) if attr is not None else None, grads)
+
+
 class _FusedMP(torch.autograd.Function):
-    """The edge side's sum, whose forward is K4 (K4p) and backward K5
-    (K5p)."""
+    """The edge side's sum, whose forward is K4 (K4w, K4p) and backward
+    K5 (K5w, K5p)."""
 
     @staticmethod
     def forward(ctx, h, hj, attr, dst, mask, plan, alg, exact, *params):
@@ -490,12 +671,14 @@ class _FusedMP(torch.autograd.Function):
 def fused_mp_supported(algebra, edge_model, x: torch.Tensor) -> bool:
     """The fused kernels serve the flat EGCL path on the card in fast mode,
     for the 2-block edge CEMLP with hidden == out width: K4/K5 at Cl(2) and
-    Cl(3), K4p/K5p at Cl(4) and Cl(5).  Exact mode and the CPU keep the
-    composed path, and so does an edge CEMLP with ``fused=False`` or
-    without normalization layers (``normalization_init=None``: a block the
-    kernels do not compute).  On the card in fast mode an algebra or a
-    width the kernels are not compiled for raises, as K2/K3 do; it never
-    falls back."""
+    Cl(3) (K4w/K5w past their widths, ``fused_route``), K4p/K5p at Cl(4)
+    and Cl(5).  Exact mode and the CPU keep the composed path, and so does
+    an edge CEMLP with ``fused=False`` or without normalization layers
+    (``normalization_init=None``: a block the kernels do not compute).  On
+    the card in fast mode an algebra or a width the kernels are not
+    compiled for raises, as K2/K3 do: here a channel count past the
+    kernels' (K4w/K5w's from their library's range entry), at the call's
+    plan a message + attribute width past it; it never falls back."""
     from .segment import aggregation_exact
 
     if not x.is_cuda or aggregation_exact():
@@ -506,10 +689,20 @@ def fused_mp_supported(algebra, edge_model, x: torch.Tensor) -> bool:
             or edge_model.normalization_init is None:
         return False
     kern = fused_kernel(algebra.n_blades)
-    if edge_model.hidden_features > kern.max_channels:
+    c = edge_model.hidden_features
+    if c <= kern.max_channels:
+        return True
+    wide = WIDE_OF.get(kern.n_blades)
+    if wide is None:
         raise NotImplementedError(
             f"{kern.label} take at most {kern.max_channels} channels, got "
-            f"{edge_model.hidden_features}")
+            f"{c}; past them the pair form is still to port (ROADMAP Queue "
+            f"2, \"Still to port\", item 1)")
+    max_c, max_cin = _wide_range(wide)
+    if c > max_c:
+        raise NotImplementedError(
+            f"{kern.label} and {wide.label} take at most {max_c} channels "
+            f"(and {max_cin} message + attribute channels), got {c}")
     return True
 
 
@@ -539,7 +732,7 @@ def fused_message_aggregate(edge_model, h: torch.Tensor, hj: torch.Tensor,
     params = block_params(edge_model, 0) + block_params(edge_model, 1)
     if plan is None and h.is_cuda:
         plan = make_plan(dst, edge_mask, n, cm, ca,
-                         edge_model.hidden_features, alg.n_blades)
+                         edge_model.hidden_features, alg.n_blades, exact)
     agg = _FusedMP.apply(h, hj, edge_attr, dst, edge_mask, plan, alg, exact,
                          *params)
     if mean:

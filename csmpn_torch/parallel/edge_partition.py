@@ -355,15 +355,18 @@ class StreamArrays:
         return got
 
     def plan(self, s: int, cm: int, ca: int, c: int, nb: int):
-        """K4/K5's window plan of chunk s (on the card), else None."""
+        """The fused kernels' window plan of chunk s (on the card), else
+        None: made for the route of these widths in the aggregation mode
+        (K4/K5 or, past their widths, K4w/K5w), and kept by both."""
         if self.device.type != "cuda":
             return None
-        key = (s, cm, ca, c, nb)
+        exact = aggregation_exact()
+        key = (s, cm, ca, c, nb, exact)
         plan = self._plans.get(key)
         if plan is None:
             _, dst, mask = self.chunk(s)
             plan = fe.make_plan(dst, mask, self.part.nodes_per_shard, cm, ca,
-                                c, nb)
+                                c, nb, exact)
             self._plans[key] = plan
         return plan
 

@@ -18,12 +18,17 @@ device µs per launch, fast mode, and the card:
   * K2p and K3p at the hulls edge block 0 (13,184 rows, 34 -> 28,
     Cl(5,0)), and at Cl(4,0) at the bench's --dim 4 node block 0 (8,192
     rows, 56 -> 28);
+  * K2w and K3w (the dense form past K2/K3's widths) at the motion edge
+    block at hidden 128 (23,200 rows, 134 -> 128, Cl(3,0)) and at NBA's
+    node block at hidden 128 (23,200 rows, 259 -> 128, Cl(2,0));
   * K2pw and K3pw (the pair form past K2p/K3p's widths) at the hulls edge
     and node blocks 0 at hidden 64 (13,184 rows, 70 -> 64; 1,536 rows,
     131 -> 64; Cl(5,0)) and at Cl(4,0) at 8,192 rows, 131 -> 64;
   * K4 and K5 at the bench shape (E = 131,072, N = 8,192) of each algebra
     (bench.WIDTHS): Cl(3) 32 -> 32, Cl(2) 40 -> 40, K4p/K5p at Cl(5) and
     Cl(4) 28 -> 28;
+  * K4w and K5w (the dense fused kernels past K4/K5's widths) at the
+    bench shape at Cl(3,0), 64 -> 64 and 128 -> 128;
   * K1 at the bench's node aggregation (E = 131,072 sorted ids over
     N = 8,192, D = 256 bf16, fast mode) and at each task's aggregation
     width and batch size (motion D = 224, E = 23,200, N = 5,600; NBA 160,
@@ -34,8 +39,8 @@ device µs per launch, fast mode, and the card:
     (512 x 256 x 2048, 32 reps).
 
 A kernel the checkout at ROOT does not have (K2p/K3p and K4p/K5p at Cl(4)
-before they were ported, K2pw/K3pw before theirs: the pair-form widths
-raise NotImplementedError) is null in its line.  Run it for two trees in
+before they were ported, K2pw/K3pw and K4w/K5w before theirs: those
+widths raise NotImplementedError) is null in its line.  Run it for two trees in
 turns in one call (parent, change, change, parent): two calls may land on
 two cards.  It needs a CUDA card.
 """
@@ -111,8 +116,11 @@ def main(root: str) -> dict:
             lambda: ck.block_backward(x, dout, params, alg, False), itb)
         del x, dout
 
-    # K2pw/K3pw: (key, dim, rows, Cin, C, forward, backward iterations)
+    # K2w/K3w and K2pw/K3pw: (key, dim, rows, Cin, C, forward, backward
+    # iterations)
     for key, dim, rows, cin, c, itf, itb in (
+            ("k2w", 3, 23200, 134, 128, 20, 5),
+            ("k2w_cl2", 2, 23200, 259, 128, 20, 5),
             ("k2pw", 5, 13184, 70, 64, 20, 5),
             ("k2pw_node", 5, 1536, 131, 64, 40, 10),
             ("k2pw_cl4", 4, 8192, 131, 64, 20, 5)):
@@ -159,6 +167,31 @@ def main(root: str) -> dict:
             ps, alg, h_s, hj, None, dst, None, False, plan), itf)
         out[f"{kb}_us"] = time_us(lambda: fe.mp_backward(
             ps, alg, h_s, hj, None, dst, None, dagg, False, plan), itb)
+        del h, h_s, hj, dagg
+        torch.cuda.empty_cache()
+    # K4w/K5w: (forward key, hidden, forward, backward iterations)
+    alg = get_algebra((1.0,) * 3)
+    for key, c, itf, itb in (("k4w_h64", 64, 10, 4), ("k4w_h128", 128, 5, 2)):
+        kb = key.replace("k4", "k5", 1)
+        h, ei, _ = workload(dev, hidden=c, dim=3)
+        src, dst = ei[0], ei[1]
+        n, nb = h.shape[0], h.shape[2]
+        h_s = h.to(torch.bfloat16)
+        hj = take_rows(h_s, src)
+        layer = EGCL(alg, c, c, c, aggr="sum")
+        init_parameters(layer, torch.Generator().manual_seed(1))
+        layer = layer.to(dev)
+        ps = [p.detach() for p in ck.block_params(layer.edge_model, 0)
+              + ck.block_params(layer.edge_model, 1)]
+        dagg = torch.randn(n, c, nb, device=dev)
+        try:
+            plan = fe.make_plan(dst, None, n, c, 0, c, nb)
+            out[f"{key}_us"] = time_us(lambda: fe.mp_forward(
+                ps, alg, h_s, hj, None, dst, None, False, plan), itf)
+            out[f"{kb}_us"] = time_us(lambda: fe.mp_backward(
+                ps, alg, h_s, hj, None, dst, None, dagg, False, plan), itb)
+        except NotImplementedError:
+            out[f"{key}_us"] = out[f"{kb}_us"] = None
         del h, h_s, hj, dagg
         torch.cuda.empty_cache()
     from csmpn_torch.ops import probe_kernels as pk, segment_kernel as sk

@@ -400,9 +400,10 @@ def test_card_block_forward_launch(monkeypatch, kern, exact, blocks, grid):
                                               (False, 0)])
 def test_card_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
     """On the card the fast K4 asks the row tile forward's entry (the
-    exact one does not) before its one launch, and raises without a launch
-    where the tile forward does not take the widths; the grid is one CTA
-    an SM at most, cut for the windows."""
+    exact one does not) before its one launch; where the tile forward does
+    not take the widths the call routes to K4w/K5w, and with their entry
+    refusing too it raises without a launch, naming both reasons; the grid
+    is one CTA an SM at most, cut for the windows."""
     alg = get_algebra((1.0,) * (3 if kern is fe.DENSE else 2))
     nb = alg.n_blades
     ng, npath = kern.n_grades, kern.n_paths
@@ -418,7 +419,8 @@ def test_card_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
            torch.randn(e, cm, nb, generator=gen),
            torch.randn(e, ca, nb, generator=gen), dst]
     on = [torch.Tensor._make_subclass(_OnCard, t) for t in ins + params]
-    calls = {"smem_bytes": [], "fwd_tile_smem_bytes": [], "fwd": []}
+    calls = {"smem_bytes": [], "fwd_tile_smem_bytes": [],
+             "tile_smem_bytes": [], "fwd": []}
 
     def fn(name, value):
         def entry(*args):
@@ -428,7 +430,14 @@ def test_card_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
 
     fns = {"smem_bytes": fn("smem_bytes", 1000),
            "fwd_tile_smem_bytes": fn("fwd_tile_smem_bytes", tile_bytes),
+           "tile_smem_bytes": fn("tile_smem_bytes", 2000),
            "fwd": fn("fwd", 0)}
+
+    def wide_range(out):
+        out[0], out[1] = 128, 320
+
+    # the wide kernels' library refuses these widths
+    wide = {"smem_bytes": lambda *a: 0, "range": wide_range}
 
     class _Props:
         multi_processor_count = 132
@@ -436,7 +445,8 @@ def test_card_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
     class _Stream:
         cuda_stream = 77
 
-    monkeypatch.setattr(fe, "_lib_fn", lambda k, name, *a: fns[name])
+    monkeypatch.setattr(fe, "_lib_fn", lambda k, name, *a: (
+        wide if k in fe._WIDE else fns)[name])
     monkeypatch.setattr(fe, "_tables", lambda k, a, d: (np.zeros(
         nb, np.float32), 0))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
@@ -444,10 +454,13 @@ def test_card_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
     fe._check_smem.cache_clear()
     fe._check_tile_smem.cache_clear()
+    fe._wide_range.cache_clear()
     before = (kern.fwd.count, kern.bwd.count)
     try:
         if tile_bytes == 0:
-            with pytest.raises(NotImplementedError, match="fast-mode forward"):
+            with pytest.raises(NotImplementedError,
+                               match="fast-mode forward.*take at most 128 "
+                                     "channels and 320"):
                 fe.mp_forward(on[4:], alg, *on[:4], None, exact)
         else:
             out = fe.mp_forward(on[4:], alg, *on[:4], None, exact)
@@ -455,6 +468,7 @@ def test_card_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
     finally:
         fe._check_smem.cache_clear()
         fe._check_tile_smem.cache_clear()
+        fe._wide_range.cache_clear()
     launched = tile_bytes != 0
     assert (kern.fwd.count, kern.bwd.count) == (before[0] + launched,
                                                 before[1])

@@ -290,12 +290,14 @@ def test_bench_width_table_and_line():
 
 # --------------------------------------------------------------- the gate
 
-def test_fused_gate_takes_the_kernels_algebras_and_widths():
+def test_fused_gate_takes_the_kernels_algebras_and_widths(monkeypatch):
     """On a stand-in card tensor in fast mode: True for K4/K5 at Cl(2)
-    (C = 40, the NBA width) and Cl(3), and for K4p/K5p at Cl(5) and Cl(4)
-    (C = 28, the hulls width); Cl(1) raises, naming the ROADMAP item, as
-    does a width above each kernel's limit; the kernel table holds each
-    algebra's own launch counters."""
+    (C = 40, the NBA width) and Cl(3), for K4w/K5w past their widths up to
+    the wide library's range (stood in: 128 channels), and for K4p/K5p at
+    Cl(5) and Cl(4) (C = 28, the hulls width); Cl(1) raises, naming the
+    ROADMAP item, as does a width above each form's limit; the kernel
+    table holds each algebra's own launch counters."""
+    monkeypatch.setattr(fe, "_wide_range", lambda kern: (128, 320))
     on_card = types.SimpleNamespace(is_cuda=True)
     seg.set_aggregation_mode("fast")
     algs = {d: get_algebra(m) for d, m in CL.items()}
@@ -306,7 +308,10 @@ def test_fused_gate_takes_the_kernels_algebras_and_widths():
                                      on_card)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fe.fused_mp_supported(algs[1], CEMLP(algs[1], 4, 4, 4), on_card)
-    for dim, c in ((2, 65), (3, 33), (4, 29), (5, 29)):
+    for dim, c in ((2, 65), (3, 33), (2, 128), (3, 128)):
+        assert fe.fused_mp_supported(algs[dim], CEMLP(algs[dim], 4, c, c),
+                                     on_card)
+    for dim, c in ((2, 129), (3, 129), (4, 29), (5, 29)):
         with pytest.raises(NotImplementedError, match="at most"):
             fe.fused_mp_supported(algs[dim], CEMLP(algs[dim], 4, c, c),
                                   on_card)

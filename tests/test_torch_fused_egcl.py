@@ -377,11 +377,15 @@ def test_cpu_dispatch_takes_plain_versions_and_counts_nothing():
     assert [cnt.count for cnt in counters] == [0] * len(counters)
 
 
-def test_fused_mp_supported_raises_on_the_card_for_other_algebras():
+def test_fused_mp_supported_raises_on_the_card_for_other_algebras(
+        monkeypatch):
     """The gate gives way to the composed path only for an edge model the
     fused pass does not compute; an algebra or a width the kernels are not
     compiled for raises on the card (a stand-in tensor says it is on it):
-    Cl(4) takes K4p/K5p at Cl(4), Cl(1) raises."""
+    Cl(4) takes K4p/K5p at Cl(4), Cl(1) raises; past K4/K5's 32 channels
+    K4w/K5w take the layer up to their library's range (stood in here: 128
+    channels), past it it raises."""
+    monkeypatch.setattr(fe, "_wide_range", lambda kern: (128, 320))
     on_card = types.SimpleNamespace(is_cuda=True)
     seg.set_aggregation_mode("fast")
     alg3, alg4 = get_algebra(CL3), get_algebra((1.0,) * 4)
@@ -393,8 +397,9 @@ def test_fused_mp_supported_raises_on_the_card_for_other_algebras():
     assert fe.fused_mp_supported(alg4, CEMLP(alg4, 4, 4, 4), on_card)
     with pytest.raises(NotImplementedError):
         fe.fused_mp_supported(alg1, CEMLP(alg1, 4, 4, 4), on_card)
-    with pytest.raises(NotImplementedError):
-        fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 40, 40), on_card)
+    assert fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 40, 40), on_card)
+    with pytest.raises(NotImplementedError, match="at most 128"):
+        fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 129, 129), on_card)
     seg.set_aggregation_mode("exact")
     assert not fe.fused_mp_supported(alg3, CEMLP(alg3, 4, 4, 4), on_card)
 
