@@ -199,9 +199,23 @@
     at the bench stack's limits; the peak memory), at ``--hidden 128`` in
     one chunk and at ``--hidden 32`` (K4/K5 as before, no K4w/K5w); the
     bench stack at ``--dim 2`` hidden 72 through ``bench.run`` (K4w/K5w
-    at Cl(2) 3 + 3 a step); no K4w/K5w launch in the phases at the
-    configured widths before it or at hidden 32 after it; the phase's
-    seconds are printed;
+    at Cl(2) 3 + 3 a step); the phase's seconds are printed;
+9e. the wide pair-form fused message passing: K4pw/K5pw
+    (``csrc/fused_egcl_pair_wide.cuh``, the pair-form fused edge side at
+    the widths K4p/K5p do not take, C <= 64, Cm + Ca <= 160, Cl(5) and
+    Cl(4)) against their plain versions at C = 29, at 28 with an
+    attribute width K4p/K5p's row kernels refuse, at 64 and at the range's
+    edge 96 + 64 -> 64 over phase_fused's layouts and one of slabs with a
+    ragged tail, exact and fast, within TOL's K4p/K5p limits of the
+    algebra, two launches bitwise equal, masked rows 0, every launch on
+    the wide kernels; at the bench shape at hidden 64 held to the composed
+    route (K2pw/K3pw) and timed, fast and exact, beside plain (cut to
+    16,384 / 65,536 edges), the composed route and the bounds; the bench
+    stack at ``--dim 5`` and ``--dim 4`` hidden 64 through ``bench.run``
+    (K4pw/K5pw 3 + 3, K2pw/K3pw 6 + 6, K1 2 a step, no K4p/K5p); no
+    K4w/K5w or K4pw/K5pw launch in the phases at the configured widths
+    before 9d or in the bench phases after 9e; the phase's seconds are
+    printed;
 10. runs the bench path through its entry point (csmpn_torch.bench.main:
     3 EGCL layers, hidden 32, E = 131,072, N = 8,192, forward + backward +
     Adam), shows that K1-K5 ran and counts their launches in one step,
@@ -246,11 +260,12 @@
     last the host tables of 8 shards x 8 chunks of the 10M complex at
     locality 4096 beside the reference's record;
 13. prints each task's eager and graph step times beside the aims, the
-    kernels JSON line (thirty-two kernels, K2w/K3w at Cl(3) and Cl(2)
+    kernels JSON line (thirty-six kernels, K2w/K3w at Cl(3) and Cl(2)
     with their launches on the tasks at hidden 128, K2pw/K3pw with theirs
     on hulls at hidden 64 and, at Cl(4), on the Python API's CEMLP,
     K4w/K5w with theirs on bench_scaling at hidden 64 and, at Cl(2), on
-    the bench stack at hidden 72;
+    the bench stack at hidden 72, K4pw/K5pw with theirs on the bench
+    stack at Cl(5) and Cl(4) at hidden 64;
     beside each kernel's own path, its
     launches on the others: for a graph run the wrappers' launches in the
     run and, as ``launches_per_step_<task>_graph``, the captured step's
@@ -1799,7 +1814,8 @@ LABEL = {"k4": "K4", "k5": "K5", "k4_cl2": "K4 at Cl(2)",
          "k5_cl2": "K5 at Cl(2)", "k4p": "K4p", "k5p": "K5p",
          "k4p_cl4": "K4p at Cl(4)", "k5p_cl4": "K5p at Cl(4)",
          "k4w": "K4w", "k5w": "K5w", "k4w_cl2": "K4w at Cl(2)",
-         "k5w_cl2": "K5w at Cl(2)"}
+         "k5w_cl2": "K5w at Cl(2)", "k4pw": "K4pw", "k5pw": "K5pw",
+         "k4pw_cl4": "K4pw at Cl(4)", "k5pw_cl4": "K5pw at Cl(4)"}
 
 
 def check_fused_form(dev, gen, alg, layouts, keys, tol_keys=None):
@@ -4341,11 +4357,15 @@ def check_fused_wide(dev, gen, counters):
     return {k: {m: max(v) for m, v in e.items()} for k, e in errs.items()}
 
 
-def time_fused_wide(dev, dim, c, keys):
-    """K4w and K5w at the bench shape of Cl(dim) at hidden c, fast: held
-    to the composed route (gather, the edge CEMLP on K2w/K3w, the sum)
-    and bitwise twice; then the fast and exact times, the plain fast
-    versions' (at C = 128 on the first FW_PLAIN_MAX_EDGES edges), the
+def time_fused_wide(dev, dim, c, keys, tols=None, plain_max=None,
+                    iters=None):
+    """K4w and K5w (K4pw and K5pw at Cl(5) and Cl(4)) at the bench shape of
+    Cl(dim) at hidden c, fast: held to the composed route (gather, the
+    edge CEMLP on K2w/K3w or K2pw/K3pw, the sum) at the TOL keys ``tols``
+    (K4's and K5's of the algebra by default) and bitwise twice; then the
+    fast and exact times (``iters``: the forward's and the backward's
+    iterations), the plain fast versions' (on the first ``plain_max``
+    edges; by default at C = 128 FW_PLAIN_MAX_EDGES, else all), the
     composed route's, and three bounds: the data sheet's with bf16
     tensor-core operations (block_flops, as K2w's block_bound and K4's),
     the fp32 FFMA rate's, and the measured envelope's.  Returns
@@ -4383,7 +4403,9 @@ def time_fused_wide(dev, dim, c, keys):
         raise AssertionError(f"bench shape at C = {c}: routed to "
                              f"{plan.kern.label} / {plan_x.kern.label}")
     hj_x = take_rows(h, src)
-    cut = int(dst[FW_PLAIN_MAX_EDGES]) if c >= 128 else n
+    if plain_max is None and c >= 128:
+        plain_max = FW_PLAIN_MAX_EDGES
+    cut = int(dst[plain_max]) if plain_max is not None else n
     pd = dst[dst < cut]
     phj = hj[: pd.shape[0]]
 
@@ -4392,13 +4414,15 @@ def time_fused_wide(dev, dim, c, keys):
         return layer.aggregate(layer.message(h_i, hhj), dst, n)
 
     tag = f"Cl({dim}) bench shape E={e} N={n} Cm=C={c}"
+    sfx = "" if dim == 3 else f"_cl{dim}"
+    tf, tb = tols or (f"k4{sfx}_fast", f"k5{sfx}_fast")
     with _t.no_grad():
         out = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False,
                             plan)
         again = fe.mp_forward(params, alg, h_s, hj, None, dst, None, False,
                               plan)
         check(f"{LABEL[kf]} vs the composed route, {tag}", out,
-              composed(h_s, hj), TOL[f"k4{'' if dim == 3 else '_cl2'}_fast"])
+              composed(h_s, hj), TOL[tf])
     if not _t.equal(out, again):
         raise AssertionError(f"{LABEL[kf]} {tag}: two launches differ")
     del out, again
@@ -4411,7 +4435,7 @@ def time_fused_wide(dev, dim, c, keys):
     want = _t.autograd.grad(composed(hh, hhj), [hh, hhj] + live, dagg)
     names = ["dh", "dhj"] + [f"block{i} d{pn}" for i in (1, 2)
                              for pn in BLOCK_NAMES]
-    tol = TOL[f"k5{'' if dim == 3 else '_cl2'}_fast"]
+    tol = TOL[tb]
     for pn, g, w, g2 in zip(names, [got[0], got[1]] + got[3], want,
                             [again[0], again[1]] + again[3]):
         check(f"{LABEL[kb]} vs the composed route, {pn}", g, w, tol)
@@ -4420,7 +4444,7 @@ def time_fused_wide(dev, dim, c, keys):
                                  f"differ")
     del got, again, want, hh, hhj
     _t.cuda.empty_cache()
-    it4, it5 = (10, 4) if c <= 64 else (5, 3)
+    it4, it5 = iters or ((10, 4) if c <= 64 else (5, 3))
     k4 = time_ms(lambda: fe.mp_forward(params, alg, h_s, hj, None, dst, None,
                                        False, plan), iters=it4)
     k4x = time_ms(lambda: fe.mp_forward(params, alg, h, hj_x, None, dst,
@@ -4464,7 +4488,8 @@ def time_fused_wide(dev, dim, c, keys):
           f"{scratch[0]:.1f} MiB, {LABEL[kb]} {scratch[1]:.1f} MiB")
     plain_at = (f"the first {pd.shape[0]} edges (targets < {cut})"
                 if cut < n else "the whole graph")
-    print(f"K4w/K5w time, {tag}, fast (plain at {plain_at}):")
+    print(f"{LABEL[kf]}/{LABEL[kb]} time, {tag}, fast (plain at "
+          f"{plain_at}):")
     for k, ms, msx, pl, comp, b, by, benv, bf in (
             (kf, k4, k4x, k4_plain, k4_comp, b4, b4by, b4env, f4),
             (kb, k5, k5x, k5_plain, k5_comp, b5, b5by, b5env, f5)):
@@ -4558,18 +4583,22 @@ def _finite(t):
     return bool(torch.isfinite(t).all().item())
 
 
-def bench_cl2_wide(counters):
-    """The bench stack at --dim 2 through bench.run at hidden
-    FW_CL2_HIDDEN (Cl(2,0), 3 layers, the bench graph, fast): a step's
-    launches, three K4w/K5w at Cl(2) and no K4/K5 at Cl(2); the losses
-    finite.  Returns (launches in the run, launches a step)."""
+def bench_wide(counters, dim, hidden, want, what):
+    """The bench stack at --dim ``dim`` through bench.run at ``hidden``
+    (Cl(dim,0), 3 layers, the bench graph, fast as bench.main sets it;
+    ``what`` names the wide kernels it runs), 2 steps x 1 window: a step's
+    launches, of which those named in ``want`` must be as given; the
+    losses finite.  Returns (launches in the run, launches a step)."""
     from csmpn_torch import bench
+    from csmpn_torch.ops.segment import set_aggregation_mode
 
-    print(f"bench stack via csmpn_torch.bench.run at --dim 2, hidden "
-          f"{FW_CL2_HIDDEN} (K4w/K5w at Cl(2)), 2 steps x 1 window")
+    set_aggregation_mode("fast")
+    print(f"bench stack via csmpn_torch.bench.run at --dim {dim}, hidden "
+          f"{hidden} ({what}), 2 steps x 1 window")
     for cnt in counters.values():
         cnt.reset()
-    res = bench.run("cuda", steps=2, windows=1, hidden=FW_CL2_HIDDEN, dim=2)
+    t0 = time.time()
+    res = bench.run("cuda", steps=2, windows=1, hidden=hidden, dim=dim)
     torch.cuda.synchronize()
     launches = {k: cnt.count for k, cnt in counters.items()}
     for cnt in counters.values():
@@ -4577,14 +4606,14 @@ def bench_cl2_wide(counters):
     bench.train_step(res["model"], res["optimizer"], *res["inputs"])
     torch.cuda.synchronize()
     per_step = {k: cnt.count for k, cnt in counters.items()}
-    print(f"  step {res['step_s'] * 1e3:.3f} ms, losses {res['losses']}; "
-          f"launches a step {per_step}")
-    want = {"k4w_cl2": 3, "k5w_cl2": 3, "k4_cl2": 0, "k5_cl2": 0}
+    print(f"  step {res['step_s'] * 1e3:.3f} ms, losses {res['losses']} "
+          f"({time.time() - t0:.1f} s with the set-up); launches a step "
+          f"{per_step}")
     if {k: per_step[k] for k in want} != want:
-        raise AssertionError(f"bench --dim 2 hidden {FW_CL2_HIDDEN}: "
-                             f"launches a step {per_step}")
+        raise AssertionError(f"bench --dim {dim} hidden {hidden}: launches "
+                             f"a step {per_step}, not {want}")
     if not all(math.isfinite(v) for v in res["losses"]):
-        raise AssertionError(f"bench --dim 2 losses {res['losses']}")
+        raise AssertionError(f"bench --dim {dim} losses {res['losses']}")
     del res
     torch.cuda.empty_cache()
     return launches, per_step
@@ -4631,11 +4660,140 @@ def phase_fused_wide(dev, gen, results, counters):
                                       composed_check=True)
     runs["scaling_h128"] = scaling_run(FW_H128_ARGV, sc, 128)
     runs["scaling_h32"] = scaling_run(FW_H32_ARGV, sc, 32)
-    runs["bench_cl2_h72"] = bench_cl2_wide(
+    runs["bench_cl2_h72"] = bench_wide(
         {k: counters[k] for k in ("k1", "k2w_cl2", "k3w_cl2", "k4_cl2",
-                                  "k5_cl2", "k4w_cl2", "k5w_cl2")})
+                                  "k5_cl2", "k4w_cl2", "k5w_cl2")}, 2,
+        FW_CL2_HIDDEN, {"k4w_cl2": 3, "k5w_cl2": 3, "k4_cl2": 0,
+                        "k5_cl2": 0}, "K4w/K5w at Cl(2)")
     print(f"the wide fused phase: {time.time() - t0:.1f} s of this run "
           f"(the plain checks {t_check:.1f} s)")
+    return runs
+
+
+# K4pw/K5pw (the pair form past K4p/K5p's widths) against their plain
+# versions, both algebras, both modes: (Cm, Ca, C) on fused_layouts()
+# picks, Ca None for the layout's own (0 or 3): C = 29, one past K4p/K5p;
+# C = 28 with an attribute width K4p/K5p's row kernels refuse (Cm + Ca =
+# 40 at Cl(5), 52 at Cl(4)); 64 -> 64; the range's edge 96 + 64 -> 64.
+# Layout 1 (32,768 edges) is two slabs at Cl(5); PFW_SLAB_LAYOUTS adds one
+# with a ragged tail: a slab and 7,617 rows at Cl(5), where the plain
+# version's (E, C, 32, 32) products stop it at ~32,768 edges, two slabs and
+# 3,011 rows at Cl(4)
+PFW_CHECKS = {5: [((29, None, 29), (1, 3, 4)), ((28, 12, 28), (3, 4)),
+                  ((64, 0, 64), (2, 4)), ((96, 64, 64), (4,))],
+              4: [((29, None, 29), (1, 3, 4)), ((28, 24, 28), (3, 4)),
+                  ((64, 0, 64), (2, 4)), ((96, 64, 64), (4,))]}
+PFW_SLAB_LAYOUTS = {5: (16384 + 7617, 3001), 4: (2 * 32768 + 3011, 9001)}
+# the bench shape's hidden width, the timed shape and the bench stack's
+PFW_HID = 64
+# the seed of the phase's own inputs
+PFW_SEED = 24
+# the K4p/K5p limits hold the wide pair kernels (the same rounding points;
+# readings in PERF.md): (forward, backward) TOL keys by algebra, beside
+# the plain cut at the bench shape (PAIR_MAX_EDGES, _CL4: its (E, C, nb,
+# nb) products hold 4.3 GB at 64 channels)
+PFW_KEYS = {5: (("k4pw", "k5pw"), ("k4p", "k5p"), PAIR_MAX_EDGES),
+            4: (("k4pw_cl4", "k5pw_cl4"), ("k4p_cl4", "k5p_cl4"),
+                PAIR_MAX_EDGES_CL4)}
+# the bench stack at hidden 64, launches a step: three layers' edge sides
+# on K4pw/K5pw, none on K4p/K5p; their node CEMLPs (128 -> 64 -> 64) on
+# K2pw/K3pw, two blocks a layer; K1 twice (the source gather's backward)
+PFW_BENCH_PER_STEP = {
+    5: {"k1": 2, "k2p": 0, "k3p": 0, "k2pw": 6, "k3pw": 6, "k4p": 0,
+        "k5p": 0, "k4pw": 3, "k5pw": 3},
+    4: {"k1": 2, "k2p_cl4": 0, "k3p_cl4": 0, "k2pw_cl4": 6, "k3pw_cl4": 6,
+        "k4p_cl4": 0, "k5p_cl4": 0, "k4pw_cl4": 3, "k5pw_cl4": 3}}
+
+
+def pair_wide_layouts(dim):
+    """(name, dst, N, Cm, Ca, C, masked) lists of the K4pw/K5pw checks at
+    Cl(dim), one a case of PFW_CHECKS[dim] (the slab layout with the
+    first)."""
+    import numpy as np
+
+    base = fused_layouts()
+    out = []
+    for i, ((cm, ca, c), picks) in enumerate(PFW_CHECKS[dim]):
+        rows = [(name, dst, n, cm, lca if ca is None else ca, c, masked)
+                for name, dst, n, _, lca, _, masked in (base[j]
+                                                        for j in picks)]
+        if i == 0:
+            e, n = PFW_SLAB_LAYOUTS[dim]
+            rng = np.random.RandomState(17)
+            rows.append((f"slabs and a ragged tail E={e} N={n}",
+                         np.sort(rng.randint(0, n, size=e)), n, cm, 3, c,
+                         True))
+        out.append(rows)
+    return out
+
+
+def check_fused_pair_wide(dev, gen, counters):
+    """K4pw/K5pw against their plain versions at PFW_CHECKS, both modes
+    (check_fused_form: the output and every gradient at the K4p/K5p
+    limits of the algebra, two launches bitwise equal, masked rows 0);
+    every call on the wide kernels, none on K4p/K5p.  Returns the worst
+    errors by kernel key."""
+    from csmpn_torch.algebra import get_algebra
+
+    errs = {}
+    for dim in (5, 4):
+        alg = get_algebra((1.0,) * dim)
+        keys, tols, _ = PFW_KEYS[dim]
+        print(f"K4pw/K5pw at Cl({dim}) vs plain (TOL {tols[0]}/{tols[1]})")
+        for layouts in pair_wide_layouts(dim):
+            for cnt in counters.values():
+                cnt.reset()
+            e = check_fused_form(dev, gen, alg, layouts, keys, tols)
+            took = {k: cnt.count for k, cnt in counters.items() if cnt.count}
+            want = {keys[0]: 4 * len(layouts), keys[1]: 4 * len(layouts)}
+            _, _, _, cm, ca, c, _ = layouts[0]
+            print(f"    Cm = {cm} Ca = {ca} C = {c}: launches {took}")
+            if took != want:
+                raise AssertionError(f"Cl({dim}) C = {c}: launches {took}, "
+                                     f"not {want}")
+            for k in keys:
+                for m in ("exact", "fast"):
+                    errs.setdefault(k, {}).setdefault(m, []).append(e[k][m])
+    return {k: {m: max(v) for m, v in e.items()} for k, e in errs.items()}
+
+
+def phase_fused_pair_wide(dev, results, counters):
+    """K4pw/K5pw: against plain (check_fused_pair_wide), at the bench
+    shape at hidden PFW_HID (time_fused_wide: held to the composed route
+    on K2pw/K3pw, timed), and the bench stack at --dim 5 and 4 through
+    bench.run at hidden PFW_HID.  Fills the kernels-line entries; returns
+    the runs' (launches, launches a step) by tag.  Its inputs come from a
+    generator of its own, so the phases after it draw what they drew
+    before it was added."""
+    t0 = time.time()
+    gen = torch.Generator().manual_seed(PFW_SEED)
+    errs = check_fused_pair_wide(dev, gen, {
+        k: counters[k] for k in ("k4p", "k5p", "k4pw", "k5pw", "k4p_cl4",
+                                 "k5p_cl4", "k4pw_cl4", "k5pw_cl4")})
+    t_check = time.time() - t0
+    times = {}
+    for dim, (keys, tols, cut) in PFW_KEYS.items():
+        times.update(time_fused_wide(
+            dev, dim, PFW_HID, keys, tuple(f"{t}_fast" for t in tols), cut,
+            iters=(3, 2)))
+    t_time = time.time() - t0 - t_check
+    for dim, (keys, _, _) in PFW_KEYS.items():
+        src = "fused_egcl_pair_wide" + ("" if dim == 5 else "_cl4")
+        for k, fn, line in zip(keys, ("fwd", "bwd"), (102, 405)):
+            results[k] = dict(name=f"fused_pair_wide_{fn}", route="cuda",
+                              source=f"csmpn_torch/csrc/{src}.cu",
+                              replaces=f"csmpn_tpu/ops/fused_egcl.py:{line}",
+                              max_abs_err=errs[k]["exact"],
+                              max_abs_err_fast=errs[k]["fast"],
+                              library_ms=None, **times[k])
+    runs = {}
+    for dim, want in PFW_BENCH_PER_STEP.items():
+        runs[f"bench_cl{dim}_h{PFW_HID}"] = bench_wide(
+            {k: counters[k] for k in want}, dim, PFW_HID, want,
+            "K4pw/K5pw" + ("" if dim == 5 else " at Cl(4)"))
+    print(f"the wide pair-form fused phase: {time.time() - t0:.1f} s of this "
+          f"run (the plain checks {t_check:.1f} s, the bench shapes "
+          f"{t_time:.1f} s)")
     return runs
 
 
@@ -5460,14 +5618,24 @@ def main() -> int:
                        k5w=fe.WIDE_BWD_LAUNCHES,
                        k4w_cl2=fe.WIDE_CL2_FWD_LAUNCHES,
                        k5w_cl2=fe.WIDE_CL2_BWD_LAUNCHES)
-    fused_wide = {k: fw_counters[k] for k in ("k4w", "k5w", "k4w_cl2",
-                                              "k5w_cl2")}
+    pfw_counters = dict(pw_counters, k4p=fe.PAIR_FWD_LAUNCHES,
+                        k5p=fe.PAIR_BWD_LAUNCHES,
+                        k4p_cl4=fe.PAIR_CL4_FWD_LAUNCHES,
+                        k5p_cl4=fe.PAIR_CL4_BWD_LAUNCHES,
+                        k4pw=fe.PAIR_WIDE_FWD_LAUNCHES,
+                        k5pw=fe.PAIR_WIDE_BWD_LAUNCHES,
+                        k4pw_cl4=fe.PAIR_WIDE_CL4_FWD_LAUNCHES,
+                        k5pw_cl4=fe.PAIR_WIDE_CL4_BWD_LAUNCHES)
+    fused_wide = {k: c for k, c in dict(fw_counters, **pfw_counters).items()
+                  if k in ("k4w", "k5w", "k4w_cl2", "k5w_cl2", "k4pw",
+                           "k5pw", "k4pw_cl4", "k5pw_cl4")}
 
     def check_fused_wide_idle(what):
         ran = {k: c.count for k, c in fused_wide.items() if c.count}
-        print(f"K4w/K5w launches in {what}: {ran or 'none'}")
+        print(f"K4w/K5w and K4pw/K5pw launches in {what}: {ran or 'none'}")
         if ran:
-            raise AssertionError(f"K4w/K5w launched in {what}: {ran}")
+            raise AssertionError(f"K4w/K5w or K4pw/K5pw launched in {what}: "
+                                 f"{ran}")
 
     for c in fused_wide.values():
         c.reset()
@@ -5535,6 +5703,9 @@ def main() -> int:
         t_fw = time.time()
         runs.update(phase_fused_wide(dev, gen, results, fw_counters))
         fw_s = time.time() - t_fw
+        t_pfw = time.time()
+        runs.update(phase_fused_pair_wide(dev, results, pfw_counters))
+        pfw_s = time.time() - t_pfw
         for c in fused_wide.values():
             c.reset()
         phase_tile_instances(dev, gen, results)
@@ -5547,13 +5718,14 @@ def main() -> int:
                                     idle=cl5_pair)[:2]
     runs["stream"] = phase_streaming(dev, counters)[:2]
     runs["sharded"] = phase_sharded(dev, counters)[:2]
-    check_fused_wide_idle("the bench, streaming and sharded phases at "
-                          "hidden 32")
+    check_fused_wide_idle("the bench (hidden 32, 40 and 28), streaming and "
+                          "sharded phases")
     # each kernel's launches on the path that runs it (the bench for
     # K1-K5, hulls for K2p/K3p, NBA for K2/K3 at Cl(2), the bench at
     # Cl(2), Cl(5) and Cl(4) for K4/K5 at Cl(2), K4p/K5p and the Cl(4)
-    # pair kernels, the probe's own run for P1-P3, which has no training
-    # step), the other paths' beside them
+    # pair kernels, the bench stack at hidden 72 and 64 for K4w/K5w at
+    # Cl(2) and K4pw/K5pw, the probe's own run for P1-P3, which has no
+    # training step), the other paths' beside them
     home = {"k2p": "hulls", "k3p": "hulls", "k2_cl2": "nba",
             "k3_cl2": "nba", "k4_cl2": "bench_cl2", "k5_cl2": "bench_cl2",
             "k4p": "bench_cl5", "k5p": "bench_cl5",
@@ -5565,13 +5737,17 @@ def main() -> int:
             "k2pw": f"hulls_h{PW_HID}", "k3pw": f"hulls_h{PW_HID}",
             "k2pw_cl4": "cemlp_cl4_h64", "k3pw_cl4": "cemlp_cl4_h64",
             "k4w": "scaling_h64", "k5w": "scaling_h64",
-            "k4w_cl2": "bench_cl2_h72", "k5w_cl2": "bench_cl2_h72"}
+            "k4w_cl2": "bench_cl2_h72", "k5w_cl2": "bench_cl2_h72",
+            "k4pw": f"bench_cl5_h{PFW_HID}", "k5pw": f"bench_cl5_h{PFW_HID}",
+            "k4pw_cl4": f"bench_cl4_h{PFW_HID}",
+            "k5pw_cl4": f"bench_cl4_h{PFW_HID}"}
     kernels = []
     for k in ("k1", "k2", "k3", "k4", "k5", "k2p", "k3p", "k2_cl2",
               "k3_cl2", "k4_cl2", "k5_cl2", "k4p", "k5p", "k2p_cl4",
               "k3p_cl4", "k4p_cl4", "k5p_cl4", "p1", "p2", "p3", "k2w",
               "k3w", "k2w_cl2", "k3w_cl2", "k2pw", "k3pw", "k2pw_cl4",
-              "k3pw_cl4", "k4w", "k5w", "k4w_cl2", "k5w_cl2"):
+              "k3pw_cl4", "k4w", "k5w", "k4w_cl2", "k5w_cl2", "k4pw",
+              "k5pw", "k4pw_cl4", "k5pw_cl4"):
         entry = dict(results[k])
         own = home.get(k, "bench")
         entry["launches"] = runs[own][0][k]
@@ -5585,8 +5761,9 @@ def main() -> int:
         kernels.append(entry)
     print_graph_times(graph_times)
     print(f"total {time.time() - t_start:.1f} s, of which the wide-block "
-          f"phases {wide_s:.1f} s, the wide pair-form phases {pw_s:.1f} s "
-          f"and the wide fused phase {fw_s:.1f} s")
+          f"phases {wide_s:.1f} s, the wide pair-form phases {pw_s:.1f} s, "
+          f"the wide fused phase {fw_s:.1f} s and the wide pair-form fused "
+          f"phase {pfw_s:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,11 @@ Cl(5,0) at hidden 28 (the hulls task) runs their pair form, K4p/K5p and
 K2p/K3p; Cl(4,0), which no task runs, at hidden 28, the width of the pair
 form's other algebra, runs K4p/K5p and K2p/K3p at Cl(4).  The graph, the
 seed and the random stream are the same; the features are (N, hidden,
-2**dim).
+2**dim).  ``run(..., hidden=H, dim=...)`` takes other widths: where the
+narrow kernels refuse them, the wide ones of the same form and algebra
+run (at Cl(2) past hidden 45 K4w/K5w; at Cl(5) and Cl(4) past 28
+K4pw/K5pw on the edge side, and K2pw/K3pw for the node side's blocks
+that K2p/K3p refuse).
 
 Times windows of 10 steps (3 with ``--quick``), each ending on a loss
 read-back, and reports the fastest of 3 windows as edges/s =

@@ -17,6 +17,9 @@
 //     -> MVLayerNorm,
 // the function of K2p/K3p; the wrapper (ops/cemlp_kernel.block_route)
 // sends a launch here only where their plan does not take its widths.
+// fused_egcl_pair_wide.cuh (K4pw/K5pw) runs the same device code over
+// gathered edge rows (a linear's input rows come from a source type:
+// PWXRows here, its gather there).
 //
 // Bound on this card: at the hulls edge block 0 at hidden 64 (13,184 rows,
 // 70 -> 64 channels, 32 blades) a row costs ~2*32*64*(70 + 2*64) FLOPs of
@@ -317,6 +320,35 @@ __device__ __forceinline__ void pw_load_x(const float* __restrict__ x,
   }
 }
 
+// Where a linear's input rows come from.  A staged source loads the
+// step's rows a chunk of kn input channels at a time into xs (all threads
+// of the CTA; K2pw/K3pw read x in global memory, K4pw gathers it), and a
+// member reads its row there; PWTileRows is the member's row already in a
+// shared-memory tile [channel][NB].
+template <class A, bool FAST>
+struct PWXRows {
+  const float* __restrict__ x;
+  int64_t row0;
+  int nrow, rows, cin;
+  __device__ __forceinline__ void load(float* xs, int k0, int kn) const {
+    pw_load_x<A, FAST>(x, xs, row0, nrow, rows, cin, k0, kn);
+  }
+  __device__ __forceinline__ const float* at(const float* xs, int slot,
+                                             int) const {
+    return xs + slot * PW_KC * A::NB;
+  }
+};
+
+template <class A>
+struct PWTileRows {
+  const float* row;
+  __device__ __forceinline__ void load(float*, int, int) const {}
+  __device__ __forceinline__ const float* at(const float*, int,
+                                             int k0) const {
+    return row + k0 * A::NB;
+  }
+};
+
 __device__ __forceinline__ void pw_zero(float (&acc)[PW_Q][4]) {
 #pragma unroll
   for (int q = 0; q < PW_Q; ++q)
@@ -350,29 +382,27 @@ __device__ __forceinline__ void pw_mix(float (&acc)[PW_Q][4], const float* v,
   }
 }
 
-// One linear over the step's rows: acc = the row's values (the x rows when
-// X, else the row tile `rowv` [n][NB]) of k_in input channels times the
-// linear whose image rows (pitch `pitch`) start at `w`, for 4 nq output
-// channels; the panels (and x chunks) are staged by all threads of the CTA.
-template <class A, bool FAST, bool X>
+// One linear over the step's rows: acc = the rows of `src` (k_in input
+// channels) times the linear whose image rows (pitch `pitch`) start at
+// `w`, for 4 nq output channels; the panels (and x chunks) are staged by
+// all threads of the CTA.
+template <class A, class Src>
 __device__ __forceinline__ void pw_linear(float (&acc)[PW_Q][4],
-                                          const float* __restrict__ x,
-                                          const float* rowv,
+                                          const Src& src,
                                           const float* __restrict__ w,
                                           int pitch, int k_in, int nq,
-                                          const PWSmem& sm, const PWLane& ln,
-                                          int64_t row0, int nrow, int rows,
-                                          int cin) {
-  constexpr int NB = A::NB, NG = A::NG;
+                                          const PWSmem& sm,
+                                          const PWLane& ln) {
+  constexpr int NG = A::NG;
   pw_zero(acc);
   for (int k0 = 0; k0 < k_in; k0 += PW_KC) {
     const int kn = k_in - k0 < PW_KC ? k_in - k0 : PW_KC;
     __syncthreads();   // the previous panel (and x chunk) consumed
-    if (X) pw_load_x<A, FAST>(x, sm.xs, row0, nrow, rows, cin, k0, kn);
+    src.load(sm.xs, k0, kn);
     pw_stage4(sm.pan, w + (int64_t)k0 * NG * pitch, kn * NG * pitch);
     __syncthreads();
-    const float* v = X ? sm.xs + ln.slot * PW_KC * NB : rowv + k0 * NB;
-    pw_mix<A>(acc, v + ln.b, sm.pan + ln.g * pitch, kn, pitch, nq);
+    pw_mix<A>(acc, src.at(sm.xs, ln.slot, k0) + ln.b, sm.pan + ln.g * pitch,
+              kn, pitch, nq);
   }
 }
 
@@ -421,23 +451,21 @@ struct PWRow {
   float *z, *yr, *yn, *gp, *sc;
 };
 
-// The step's block up to the left linear: z = MVSiLU(x W1 + b1) into
-// rw.z (rounded in fast mode); yr = z Wr (into rw.yr in the backward),
-// its normalisation, the rounded yn into rw.yn; the pair product into
-// rw.gp (in the forward the same tile as rw.yn: each group of four
-// channels is written after the member read its yn); returns z WL (no
-// bias) in acc.
-template <class A, bool FAST, bool BWD>
+// The step's block up to the left linear: z = MVSiLU(x W1 + b1), x the
+// rows of `src`, into rw.z (rounded in fast mode); yr = z Wr (into rw.yr
+// in the backward), its normalisation, the rounded yn into rw.yn; the pair
+// product into rw.gp (in the forward the same tile as rw.yn: each group of
+// four channels is written after the member read its yn); returns z WL
+// (no bias) in acc.
+template <class A, bool FAST, bool BWD, class Src>
 __device__ __forceinline__ void pw_front(float (&acc)[PW_Q][4],
-                                         const float* __restrict__ x,
+                                         const Src& src,
                                          const float* __restrict__ img,
                                          const PWLayout& L, const PWSmem& sm,
-                                         const PWRow& rw, const PWLane& ln,
-                                         int64_t row0, int nrow, int rows) {
+                                         const PWRow& rw, const PWLane& ln) {
   constexpr int NB = A::NB;
   const int c = L.c, nq = L.c4 / 4, gp = L.gp, b = ln.b;
-  pw_linear<A, FAST, true>(acc, x, nullptr, img + L.w1f, gp, L.cin, nq, sm,
-                           ln, row0, nrow, rows, L.cin);
+  pw_linear<A>(acc, src, img + L.w1f, gp, L.cin, nq, sm, ln);
 #pragma unroll
   for (int q = 0; q < PW_Q; ++q) {
     if (q < nq) {
@@ -448,8 +476,7 @@ __device__ __forceinline__ void pw_front(float (&acc)[PW_Q][4],
         rw.z[(4 * q + u) * NB + b] = rnd<FAST>(sg[u] * y[u]);
     }
   }
-  pw_linear<A, FAST, false>(acc, nullptr, rw.z, img + L.wrf, gp, c, nq, sm,
-                            ln, row0, nrow, rows, L.cin);
+  pw_linear<A>(acc, PWTileRows<A>{rw.z}, img + L.wrf, gp, c, nq, sm, ln);
 #pragma unroll
   for (int q = 0; q < PW_Q; ++q) {
     if (q < nq) {
@@ -495,8 +522,7 @@ __device__ __forceinline__ void pw_front(float (&acc)[PW_Q][4],
 #pragma unroll
     for (int u = 0; u < 4; ++u) rw.gp[(n0 + u) * NB + b] = gpv[u];
   }
-  pw_linear<A, FAST, false>(acc, nullptr, rw.z, img + L.wlf, gp, c, nq, sm,
-                            ln, row0, nrow, rows, L.cin);
+  pw_linear<A>(acc, PWTileRows<A>{rw.z}, img + L.wlf, gp, c, nq, sm, ln);
 }
 
 // o = (first + bL + gp) / sqrt 2 into acc; returns the layer norm's
@@ -576,7 +602,8 @@ cemlp_pair_wide_fwd_kernel(const float* __restrict__ x,
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int64_t row0 = (int64_t)tile * nrow, row = row0 + ln.slot;
     float acc[PW_Q][4];
-    pw_front<A, FAST, false>(acc, x, img, L, sm, rw, ln, row0, nrow, rows);
+    const PWXRows<A, FAST> xr{x, row0, nrow, rows, L.cin};
+    pw_front<A, FAST, false>(acc, xr, img, L, sm, rw, ln);
     const float m = pw_out<A, FAST>(acc, img, L, rw.gp, ln);
     if (row >= rows) continue;
 #pragma unroll
@@ -649,7 +676,8 @@ cemlp_pair_wide_bwd_kernel(const float* __restrict__ x,
     const int64_t row0 = (int64_t)tile * nrow, row = row0 + ln.slot;
     const bool live = row < rows;
     float acc[PW_Q][4];
-    pw_front<A, FAST, true>(acc, x, img, L, sm, rw, ln, row0, nrow, rows);
+    const PWXRows<A, FAST> xr{x, row0, nrow, rows, cin};
+    pw_front<A, FAST, true>(acc, xr, img, L, sm, rw, ln);
     const float m = pw_out<A, FAST>(acc, img, L, rw.gp, ln);
     if (live)
       for (int n = 0; n < c; ++n) {
@@ -791,8 +819,7 @@ cemlp_pair_wide_bwd_kernel(const float* __restrict__ x,
 #pragma unroll
         for (int u = 0; u < 4; ++u) dt[(4 * q + u) * NB + b] = acc[q][u];
     // ---- MVSiLU's backward over y recomputed: d(y) into dt
-    pw_linear<A, FAST, true>(acc, x, nullptr, img + L.w1f, gp, cin, nq, sm,
-                             ln, row0, nrow, rows, cin);
+    pw_linear<A>(acc, xr, img + L.w1f, gp, cin, nq, sm, ln);
 #pragma unroll
     for (int q = 0; q < PW_Q; ++q) {
       if (q < nq) {
@@ -828,9 +855,9 @@ cemlp_pair_wide_bwd_kernel(const float* __restrict__ x,
     for (int blk = 0; blk < L.nblk; ++blk) {
       const int left = (cin - blk * PW_BLK + 3) / 4;
       const int mq = left < PW_Q ? left : PW_Q;
-      pw_linear<A, FAST, false>(acc, nullptr, dt,
-                                img + L.w1b + (int64_t)blk * c * NG * PW_BGP,
-                                PW_BGP, c, mq, sm, ln, row0, nrow, rows, cin);
+      pw_linear<A>(acc, PWTileRows<A>{dt},
+                   img + L.w1b + (int64_t)blk * c * NG * PW_BGP, PW_BGP, c,
+                   mq, sm, ln);
       if (!live) continue;
 #pragma unroll
       for (int q = 0; q < PW_Q; ++q) {
@@ -1017,13 +1044,15 @@ cemlp_pair_wide_pgrad_kernel(const float* __restrict__ scratch,
 // The gradient vector (flax layout, pw_grad_floats) from the slabs: the
 // weight gradients summed over the wgrad splits, the path weights' over
 // the pgrad splits, the per-channel ones over the row kernel's row slots,
-// each in slab order.
+// each in slab order; with `accum` added onto the vector's values (K5pw
+// sums its slabs of edge rows so, in order).
 template <class A>
 __global__ void __launch_bounds__(256)
 cemlp_pair_wide_reduce_kernel(const float* __restrict__ wpart, int splits,
                               const float* __restrict__ ppart, int psplits,
                               const float* __restrict__ lpart, int nloc,
-                              float* __restrict__ grads, int cin, int c) {
+                              float* __restrict__ grads, int cin, int c,
+                              int accum) {
   constexpr int NG = A::NG, NP = A::NP;
   const int64_t q = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= pw_grad_floats<A>(cin, c)) return;
@@ -1063,7 +1092,7 @@ cemlp_pair_wide_reduce_kernel(const float* __restrict__ wpart, int splits,
     for (int l = 0; l < nloc; ++l)
       acc += lpart[((int64_t)l * A::NLOC + field) * c + n];
   }
-  grads[q] = acc;
+  grads[q] = accum ? grads[q] + acc : acc;
 }
 
 // ------------------------------------------------------------------ host
@@ -1209,7 +1238,7 @@ int pair_wide_bwd(const float* x, const float* dout, const Params& p,
   cemlp_pair_wide_reduce_kernel<A>
       <<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
           wpart, splits, ppart, psplits, lpart, grid * warps * A::MW, grads,
-          cin, c);
+          cin, c, 0);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,10 @@
+// K4pw and K5pw at Cl(5,0): the C entry points csmpn_fused_pair_wide_* of
+// the wide pair-form fused message-passing kernels of
+// fused_egcl_pair_wide.cuh (its header comment has the design, the bound
+// and the entries).
+
+#include "fused_egcl_pair_wide.cuh"
+
+extern "C" {
+CSMPN_FUSED_PAIR_WIDE_ENTRIES(csmpn_fused_pair_wide, Cl5)
+}  // extern "C"

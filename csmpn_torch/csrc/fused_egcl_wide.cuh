@@ -42,14 +42,15 @@
 //     input) into the warp's first-tile, runs block 2's forward from it,
 //     and writes the masked message row to the slab's scratch (bf16 in
 //     fast mode, fp32 in exact);
-//   * the window sums (`fused_wide_sum_kernel`): a warp a target, a lane a
-//     column of its (C, NB) row, the target's message rows of the slab
-//     added in edge order onto the target's sum so far (the output is
-//     zeroed first).  One owner a value: no atomics, and two launches
-//     give the same bits;
-//   * K5w, per slab: `fused_wide_gather_kernel` writes x (fp32) and the
-//     gathered cotangent d(agg)[dst] (masked, rounded in fast mode); K2w's
-//     forward recomputes block 1's output from x; K3w's row kernel, its
+//   * the window sums (`fused_wide_sum_kernel`, fused_slabs.cuh, shared
+//     with K4pw/K5pw): a warp a target, a lane a column of its (C, NB)
+//     row, the target's message rows of the slab added in edge order onto
+//     the target's sum so far (the output is zeroed first).  One owner a
+//     value: no atomics, and two launches give the same bits;
+//   * K5w, per slab (the gather and d(h) kernels in fused_slabs.cuh):
+//     `fused_wide_gather_kernel` writes x (fp32) and the gathered
+//     cotangent d(agg)[dst] (masked, rounded in fast mode); K2w's forward
+//     recomputes block 1's output from x; K3w's row kernel, its
 //     weight-gradient kernel and its reduce kernel run block 2's
 //     backward, then block 1's (the reduce adds each slab's gradients
 //     onto the slabs' before it, in slab order); `fused_wide_dh_kernel`
@@ -67,66 +68,13 @@
 
 #pragma once
 
-#include <type_traits>
-
 #include "cemlp_wide.cuh"
 #include "fused_mp.cuh"
+#include "fused_slabs.cuh"
 
 namespace {
 
-using fw_bf16 = __nv_bfloat16;
-
 constexpr int FW_SLAB = 65536;   // edge rows a slab
-
-// The scratch's message rows: bf16 in fast mode, fp32 in exact.
-template <bool FAST>
-using MsgT = typename std::conditional<FAST, fw_bf16, float>::type;
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return __ldg(reinterpret_cast<const float4*>(p));
-}
-
-__device__ __forceinline__ float4 load4(const fw_bf16* p) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(fw_bf16 v) {
-  return __bfloat162float(v);
-}
-
-template <class T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ fw_bf16 from_f<fw_bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// x = [h[dst] - hj, attr] of 4 blades from column q4 (a multiple of 4) of
-// edge row `row`'s (Cm + Ca) x NB input.
-template <class A, class T>
-__device__ __forceinline__ float4 gather4(const T* __restrict__ h,
-                                          const T* __restrict__ hj,
-                                          const T* __restrict__ attr,
-                                          const int* __restrict__ dst,
-                                          int64_t row, int q4, int cm,
-                                          int ca) {
-  constexpr int NB = A::NB;
-  const int m = q4 / NB, i = q4 % NB;
-  if (m < cm) {
-    const float4 a = load4(h + ((int64_t)dst[row] * cm + m) * NB + i);
-    const float4 b = load4(hj + (row * cm + m) * NB + i);
-    return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
-  }
-  return load4(attr + (row * ca + (m - cm)) * NB + i);
-}
 
 // K4w's block-1 input: the step's edge rows gathered, a chunk of kn input
 // channels at a time into xs [r][k][i] (rounded in fast mode), rows past
@@ -221,119 +169,6 @@ fused_wide_fwd_kernel(const T* __restrict__ h, const T* __restrict__ hj,
   }
 }
 
-// The targets of the slab [r0, r1) (dst sorted: dst[r0] .. dst[r1 - 1])
-// are taken a warp each, grid stride; target v's edge rows in the slab
-// are [lo, hi) (bounds[v]: its first edge row).
-__device__ __forceinline__ int64_t first_target(const int* __restrict__ dst,
-                                                int64_t r0) {
-  return dst[r0] + (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
-}
-
-__device__ __forceinline__ int64_t target_stride() {
-  return ((int64_t)gridDim.x * blockDim.x) >> 5;
-}
-
-__device__ __forceinline__ void slab_edges(const int64_t* __restrict__ bounds,
-                                           int64_t v, int64_t r0, int64_t r1,
-                                           int64_t& lo, int64_t& hi) {
-  lo = bounds[v] > r0 ? bounds[v] : r0;
-  hi = bounds[v + 1] < r1 ? bounds[v + 1] : r1;
-}
-
-// The window sums of K4w: out[v] += the message rows of target v in the
-// slab [r0, r1), in edge order (w = C * NB floats a row).
-template <class M>
-__global__ void __launch_bounds__(256)
-fused_wide_sum_kernel(const M* __restrict__ msg,
-                      const int* __restrict__ dst,
-                      const int64_t* __restrict__ bounds,
-                      float* __restrict__ out, int64_t r0, int64_t r1,
-                      int w) {
-  const int lane = threadIdx.x & 31;
-  const int64_t v_end = (int64_t)dst[r1 - 1] + 1;
-  for (int64_t v = first_target(dst, r0); v < v_end; v += target_stride()) {
-    int64_t lo, hi;
-    slab_edges(bounds, v, r0, r1, lo, hi);
-    for (int e = lane; e < w; e += 32) {
-      float acc = out[v * w + e];
-      for (int64_t r = lo; r < hi; ++r) acc += to_f(msg[(r - r0) * w + e]);
-      out[v * w + e] = acc;
-    }
-  }
-}
-
-// ------------------------------------------------------------------ K5w
-
-// The slab's block-1 input rows x (fp32, unrounded: K2w/K3w round on
-// load) and block 2's output cotangent, d(agg)[dst] masked (rounded in
-// fast mode), a thread 4 floats.
-template <class A, bool FAST, class T>
-__global__ void __launch_bounds__(256)
-fused_wide_gather_kernel(const T* __restrict__ h, const T* __restrict__ hj,
-                         const T* __restrict__ attr,
-                         const int* __restrict__ dst,
-                         const uint8_t* __restrict__ mask,
-                         const float* __restrict__ dagg,
-                         float* __restrict__ x, float* __restrict__ g,
-                         int64_t r0, int rows, int cm, int ca, int c) {
-  constexpr int NB = A::NB;
-  const int wx = (cm + ca) * NB / 4, wg = c * NB / 4;
-  const int64_t n = (int64_t)rows * (wx + wg);
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += stride) {
-    const int64_t lr = e / (wx + wg), row = r0 + lr;
-    const int q = (int)(e % (wx + wg));
-    if (q < wx) {
-      reinterpret_cast<float4*>(x)[lr * wx + q] =
-          gather4<A, T>(h, hj, attr, dst, row, 4 * q, cm, ca);
-    } else {
-      const int q2 = q - wx;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (mask == nullptr || mask[row]) {
-        v = __ldg(reinterpret_cast<const float4*>(dagg) +
-                  (int64_t)dst[row] * wg + q2);
-        v.x = rnd<FAST>(v.x);
-        v.y = rnd<FAST>(v.y);
-        v.z = rnd<FAST>(v.z);
-        v.w = rnd<FAST>(v.w);
-      }
-      reinterpret_cast<float4*>(g)[lr * wg + q2] = v;
-    }
-  }
-}
-
-// From block 1's dx rows of the slab [r0, r1) ((Cm + Ca) x NB each,
-// rounded in fast mode): dhj = -dx[:, :Cm] and dattr = dx[:, Cm:] of every
-// row, and dh[v] += the rows' dx[:, :Cm] of target v in edge order.
-template <bool FAST, class T>
-__global__ void __launch_bounds__(256)
-fused_wide_dh_kernel(const float* __restrict__ dx,
-                     const int* __restrict__ dst,
-                     const int64_t* __restrict__ bounds,
-                     float* __restrict__ dh, T* __restrict__ dhj,
-                     T* __restrict__ dattr, int64_t r0, int64_t r1, int wm,
-                     int wa) {
-  const int w = wm + wa, lane = threadIdx.x & 31;
-  const int64_t v_end = (int64_t)dst[r1 - 1] + 1;
-  for (int64_t v = first_target(dst, r0); v < v_end; v += target_stride()) {
-    int64_t lo, hi;
-    slab_edges(bounds, v, r0, r1, lo, hi);
-    for (int e = lane; e < wm; e += 32) {
-      float acc = dh[v * wm + e];
-      for (int64_t r = lo; r < hi; ++r) {
-        const float d = rnd<FAST>(dx[(r - r0) * w + e]);
-        acc += d;
-        dhj[r * wm + e] = from_f<T>(-d);
-      }
-      dh[v * wm + e] = acc;
-    }
-    for (int e = lane; e < wa; e += 32)
-      for (int64_t r = lo; r < hi; ++r)
-        dattr[r * wa + e] = from_f<T>(rnd<FAST>(dx[(r - r0) * w + wm + e]));
-  }
-}
-
 // ------------------------------------------------------------------ host
 
 Params fw_params(const float* const* pp) {
@@ -353,19 +188,6 @@ size_t fw_smem_bytes(int cm, int ca, int c, int backward) {
   if (!fw_ok<A>(cm, ca, c)) return 0;
   return wide_smem_bytes<A>(cm + ca, c, backward);
 }
-
-// CTAs of a row launch: every SM holds as many as its shared memory
-// allows (at most 8), each walks over steps of ROWS rows.
-inline int fw_grid(int64_t rows, int sms, size_t bytes) {
-  int per_sm = (int)((228 * 1024) / (bytes > 0 ? bytes : 1));
-  per_sm = per_sm < 1 ? 1 : per_sm > 8 ? 8 : per_sm;
-  const int64_t tiles = (rows + ROWS - 1) / ROWS;
-  const int64_t g = (int64_t)sms * per_sm < tiles ? (int64_t)sms * per_sm
-                                                   : tiles;
-  return g < 1 ? 1 : (int)g;
-}
-
-inline int64_t fw_al(int64_t floats) { return (floats + 63) / 64 * 64; }
 
 // The scratch of a call (floats from its base, each part 256-byte aligned).
 struct FwScratch {
@@ -391,7 +213,7 @@ FwScratch fw_scratch(int64_t n_edges, int cm, int ca, int c, int backward,
   if (!bwd) {
     f.msg = o; o += fw_al(s * c * NB);   // fp32 room, bf16 in fast mode
   } else {
-    const int grid = fw_grid(s, sms, wide_smem_bytes<A>(cin, c, 1));
+    const int grid = fw_grid(s, ROWS, sms, wide_smem_bytes<A>(cin, c, 1));
     const int splits1 = wide_wgrad_splits<A>((int)s, cin, c, sms);
     const int splits2 = wide_wgrad_splits<A>((int)s, c, c, sms);
     const int64_t wp1 = (int64_t)splits1 * wide_wpart_floats<A>(cin, c);
@@ -423,13 +245,6 @@ long long fw_grad_floats(int cm, int ca, int c) {
   return wide_grad_floats<A>(cm + ca, c) + wide_grad_floats<A>(c, c);
 }
 
-// The targets' sums of a slab: a warp a target, at most 8 CTAs an SM.
-inline int fw_sum_blocks(int64_t rows, int sms) {
-  const int64_t most = (int64_t)sms * 8;
-  const int64_t want = (rows + 7) / 8;
-  return (int)(want < most ? (want < 1 ? 1 : want) : most);
-}
-
 template <class A, bool FAST, class T>
 void fw_forward(const T* h, const T* hj, const T* attr, const int* dst,
                 const uint8_t* mask, const int64_t* bounds,
@@ -450,7 +265,7 @@ void fw_forward(const T* h, const T* hj, const T* attr, const int* dst,
   for (int64_t r0 = 0; r0 < n_edges; r0 += FW_SLAB) {
     const int rows = (int)(n_edges - r0 < FW_SLAB ? n_edges - r0 : FW_SLAB);
     fused_wide_fwd_kernel<A, FAST, T>
-        <<<fw_grid(rows, sms, bytes), dim3(32, ROWS), bytes, st>>>(
+        <<<fw_grid(rows, ROWS, sms, bytes), dim3(32, ROWS), bytes, st>>>(
             h, hj, attr, dst, mask, img1, img2, tb, msg, r0, rows, cm, ca,
             L1, L2);
     fused_wide_sum_kernel<MsgT<FAST>><<<fw_sum_blocks(rows, sms), 256, 0,
@@ -494,7 +309,7 @@ void fw_backward(const T* h, const T* hj, const T* attr, const int* dst,
   auto block_bwd = [&](const float* xin, const float* dout, float* dxo,
                        const float* img, const WLayout& L, size_t bytes,
                        float* gv, int rows, int accum) {
-    const int grid = fw_grid(rows, sms, bytes);
+    const int grid = fw_grid(rows, ROWS, sms, bytes);
     const int splits = wide_wgrad_splits<A>(rows, L.cin, c, sms);
     cemlp_wide_bwd_kernel<A, FAST><<<grid, dim3(32, ROWS), bytes, st>>>(
         xin, dout, img, tb, dxo, cot, lpart, rows, L);
@@ -513,7 +328,7 @@ void fw_backward(const T* h, const T* hj, const T* attr, const int* dst,
     fused_wide_gather_kernel<A, FAST, T><<<gblocks, 256, 0, st>>>(
         h, hj, attr, dst, mask, dagg, x, g, r0, rows, cm, ca, c);
     cemlp_wide_fwd_kernel<A, FAST>
-        <<<fw_grid(rows, sms, fbytes), dim3(32, ROWS), fbytes, st>>>(
+        <<<fw_grid(rows, ROWS, sms, fbytes), dim3(32, ROWS), fbytes, st>>>(
             x, img1, tb, x2, rows, L1);
     block_bwd(x2, g, dx2, img2, L2, bbytes2, grads2, rows, accum);
     block_bwd(x, dx2, dx1, img1, L1, bbytes1, grads1, rows, accum);

@@ -16,7 +16,9 @@ layer; on the CPU everything stays fp32, as in the reference off the TPU.
 The flat big-graph path (``batch_shape is None``, edges sorted by target)
 runs the edge side as one fused pass (``ops/fused_egcl.py``) on the card
 in fast mode: K4 forward and K5 backward at Cl(2) and Cl(3), their pair
-form K4p/K5p at Cl(4) and Cl(5); at Cl(1) it raises (no kernel yet).  In
+form K4p/K5p at Cl(4) and Cl(5), and past their widths the wide kernels
+of the same form, K4w/K5w and K4pw/K5pw (``fused_route``); at Cl(1) it
+raises (no kernel yet).  In
 exact mode and on the CPU it composes the target gather, the edge CEMLP
 and the aggregation, as the reference keeps the composed path in exact
 mode.
@@ -70,10 +72,11 @@ class EGCL(nn.Module):
             normalization_init=normalization_init, fused=fused_mlp)
 
     def _use_fused_mp(self, batch_shape, x: torch.Tensor) -> bool:
-        """K4/K5 (K4p/K5p at Cl(4) and Cl(5)) on the flat big-graph path:
-        on the card in fast mode, for the 2-block edge CEMLP with hidden ==
-        out width and its normalization layers; never with
-        ``fused_mlp=False`` (the edge CEMLP's ``fused``)."""
+        """K4/K5 (K4p/K5p at Cl(4) and Cl(5), the wide kernels past their
+        widths) on the flat big-graph path: on the card in fast mode, for
+        the 2-block edge CEMLP with hidden == out width and its
+        normalization layers; never with ``fused_mlp=False`` (the edge
+        CEMLP's ``fused``)."""
         if not self.edges_sorted or batch_shape is not None:
             return False
         from ..ops.fused_egcl import fused_mp_supported

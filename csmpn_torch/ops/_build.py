@@ -26,7 +26,7 @@ SOURCES = ("segment_sum", "cemlp", "cemlp_wide", "cemlp_wide_cl2",
            "cemlp_pair", "cemlp_pair_cl4", "cemlp_pair_wide",
            "cemlp_pair_wide_cl4", "fused_egcl", "fused_egcl_wide",
            "fused_egcl_wide_cl2", "fused_egcl_pair", "fused_egcl_pair_cl4",
-           "envelope")
+           "fused_egcl_pair_wide", "fused_egcl_pair_wide_cl4", "envelope")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -39,20 +39,29 @@ In fast mode ``_check_tile_smem`` holds the tile kernels' widths for both
 forms; at every width the exact kernels take, the fast ones take it too
 (chip_smoke.py asserts it).
 
-At the widths whose dense K4/K5 do not fit (their size entries refuse
+At the widths whose K4/K5 (K4p/K5p) do not fit (their size entries refuse
 them in either direction: at Cl(3) above 32 channels, at Cl(2) above ~45
-where Cm = C), every C <= 128 channels and Cm + Ca <= 320 message +
-attribute channels run K4w/K5w (``csrc/fused_egcl_wide.cuh``, sources
-``fused_egcl_wide.cu`` and ``fused_egcl_wide_cl2.cu``, both modes): K2w's
-and K3w's FFMA block code over slabs of edge rows, K4w one sweep of both
-blocks' forwards a slab with the message rows to a scratch, K5w the
-target gather, block 1's forward recomputed, block 2's and block 1's
-backward on K3w's kernels, and window sums of one warp a target that
-continue from slab to slab.  ``fused_route`` picks the kernels of a call
-once for its forward and backward; past that range it raises.
+where Cm = C, at Cl(5) and Cl(4) above 28 channels or a wider attribute
+input), the wide kernels of the same form and algebra run, in both
+modes, over slabs of edge rows, with window sums of one warp a target
+that continue from slab to slab (``csrc/fused_slabs.cuh``):
+
+  * K4w/K5w, dense form, every C <= 128 channels and Cm + Ca <= 320
+    message + attribute channels (``csrc/fused_egcl_wide.cuh``, sources
+    ``fused_egcl_wide.cu`` and ``fused_egcl_wide_cl2.cu``): K2w's and
+    K3w's FFMA block code;
+  * K4pw/K5pw, pair form, every C <= 64 and Cm + Ca <= 160
+    (``csrc/fused_egcl_pair_wide.cuh``, sources ``fused_egcl_pair_wide.cu``
+    and ``fused_egcl_pair_wide_cl4.cu``): K2pw's and K3pw's.
+
+K4w (K4pw) is one sweep of both blocks' forwards a slab with the message
+rows to a scratch; K5w (K5pw) the target gather, block 1's forward
+recomputed, block 2's and block 1's backward on K3w's (K3pw's) kernels.
+``fused_route`` picks the kernels of a call once for its forward and
+backward; past the wide range it raises.
 
 Cl(1) (2 blades), which the reference's dense form also serves, has no
-kernel yet and raises, as do the pair form's widths past its kernels.
+kernel yet and raises.
 
 On a CUDA tensor the wrappers launch the kernels (or raise); on a CPU
 tensor they compute the plain versions:
@@ -74,8 +83,8 @@ memory, so the switch has no counterpart.  Its window of 128 targets is
 ``wn`` here, per kernel: 32 for K4/K5, 4 for K4p/K5p at Cl(5) (a window
 sum takes 3.5 KB a target at 28 channels) and 16 at Cl(4) (1.75 KB a
 target; 512 windows at the bench's 8,192 targets keep the last round of
-windows short on 132 SMs), 1 for K4w/K5w (a warp sums a target's rows);
-in both modes.
+windows short on 132 SMs), 1 for K4w/K5w and K4pw/K5pw (a warp sums a
+target's rows); in both modes.
 """
 from __future__ import annotations
 
@@ -111,6 +120,12 @@ WIDE_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_wide_fwd")
 WIDE_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_wide_bwd")
 WIDE_CL2_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_wide_cl2_fwd")
 WIDE_CL2_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_wide_cl2_bwd")
+PAIR_WIDE_FWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_wide_fwd")
+PAIR_WIDE_BWD_LAUNCHES = _build.LaunchCounter("fused_mp_pair_wide_bwd")
+PAIR_WIDE_CL4_FWD_LAUNCHES = _build.LaunchCounter(
+    "fused_mp_pair_wide_cl4_fwd")
+PAIR_WIDE_CL4_BWD_LAUNCHES = _build.LaunchCounter(
+    "fused_mp_pair_wide_cl4_bwd")
 
 MAX_SMEM = 232448       # 227 KB opt-in per block (kMaxSmem there)
 
@@ -156,15 +171,24 @@ PAIR_CL4 = FusedKernel("K4p/K5p at Cl(4)", "fused_egcl_pair_cl4",
                        "csmpn_fused_mp_pair_cl4", 16, 5, 35, 28, 16,
                        PAIR_CL4_FWD_LAUNCHES, PAIR_CL4_BWD_LAUNCHES,
                        form="pair")
-# the widths K4w/K5w take are their library's (fused_route asks it); their
-# window sums are a target's
+# the widths K4w/K5w and K4pw/K5pw take are their libraries' (fused_route
+# asks them); their window sums are a target's
 DENSE_WIDE = FusedKernel("K4w/K5w", "fused_egcl_wide", "csmpn_fused_wide", 8,
                          4, 20, 0, 1, WIDE_FWD_LAUNCHES, WIDE_BWD_LAUNCHES)
 DENSE_WIDE_CL2 = FusedKernel("K4w/K5w at Cl(2)", "fused_egcl_wide_cl2",
                              "csmpn_fused_wide_cl2", 4, 3, 10, 0, 1,
                              WIDE_CL2_FWD_LAUNCHES, WIDE_CL2_BWD_LAUNCHES)
-# the wide kernels of the dense form, by blade count
-WIDE_OF = {8: DENSE_WIDE, 4: DENSE_WIDE_CL2}
+PAIR_WIDE = FusedKernel("K4pw/K5pw", "fused_egcl_pair_wide",
+                        "csmpn_fused_pair_wide", 32, 6, 56, 0, 1,
+                        PAIR_WIDE_FWD_LAUNCHES, PAIR_WIDE_BWD_LAUNCHES,
+                        form="pair")
+PAIR_WIDE_CL4 = FusedKernel("K4pw/K5pw at Cl(4)", "fused_egcl_pair_wide_cl4",
+                            "csmpn_fused_pair_wide_cl4", 16, 5, 35, 0, 1,
+                            PAIR_WIDE_CL4_FWD_LAUNCHES,
+                            PAIR_WIDE_CL4_BWD_LAUNCHES, form="pair")
+# the wide kernels of each form, by blade count
+WIDE_OF = {8: DENSE_WIDE, 4: DENSE_WIDE_CL2, 32: PAIR_WIDE,
+           16: PAIR_WIDE_CL4}
 _WIDE = tuple(WIDE_OF.values())
 
 
@@ -267,7 +291,7 @@ def _check_tile_smem(kern: FusedKernel, cm: int, ca: int, c: int,
 @functools.lru_cache(maxsize=None)
 def _wide_range(kern: FusedKernel) -> Tuple[int, int]:
     """(The most output channels, the most message + attribute channels)
-    K4w/K5w take, from their library's range entry."""
+    K4w/K5w (K4pw/K5pw) take, from their library's range entry."""
     fn = _lib_fn(kern, "range", [ctypes.POINTER(_I)], None)
     out = (_I * 2)()
     fn(out)
@@ -278,15 +302,13 @@ def fused_route(kern: FusedKernel, cm: int, ca: int, c: int,
                 exact: bool) -> FusedKernel:
     """The kernels of a call of ``kern``'s algebra at cm message + ca
     attribute -> c channels in the mode, one route for its forward and its
-    backward: the pair form keeps K4p/K5p (their widths are checked as
-    before); the dense form K4/K5 where their size entries take the
-    widths in both directions (the row kernels', which every call has
-    asked since K4, and in fast mode the row tiles'), else K4w/K5w where
+    backward: K4/K5 (K4p/K5p) where their size entries take the widths in
+    both directions (the row kernels', which every call has asked since
+    K4, and in fast mode the tile kernels' of both directions), else the
+    wide kernels of the same form and algebra, K4w/K5w (K4pw/K5pw), where
     their library's smem_bytes entry takes them in both directions;
     NotImplementedError beyond, naming the range of that library's range
     entry."""
-    if kern.form == "pair":
-        return kern
     try:
         _check_smem(kern, cm, ca, c)
         if not exact:
@@ -350,8 +372,6 @@ def make_plan(dst, mask, n_nodes: int, cm: int, ca: int, c: int,
 
         exact = aggregation_exact()
     kern = fused_route(fused_kernel(nb), cm, ca, c, exact)
-    if kern.form == "pair":
-        _check_smem(kern, cm, ca, c)
     dst32 = dst.to(torch.int32).contiguous()
     bounds = window_bounds(dst32, n_nodes, kern.wn).to(torch.int64)
     n_win = bounds.shape[0] - 1
@@ -405,7 +425,7 @@ def _stream(t: Optional[torch.Tensor], exact: bool):
     if t is None:
         return None
     t = t.to(torch.float32 if exact else torch.bfloat16).contiguous()
-    # K4w/K5w load 16 (fp32) or 8 (bf16) bytes at a time
+    # K4w/K5w and K4pw/K5pw load 16 (fp32) or 8 (bf16) bytes at a time
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -432,8 +452,8 @@ def _tables(kern: FusedKernel, alg, device):
 def mp_forward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst,
                mask=None, exact: bool = True,
                plan: Optional[_Plan] = None) -> torch.Tensor:
-    """K4 (K4p at Cl(4) and Cl(5)): the sum over unmasked edges, (N, C,
-    nb) float32."""
+    """K4 (K4p at Cl(4) and Cl(5); K4w, K4pw past their widths): the sum
+    over unmasked edges, (N, C, nb) float32."""
     if not h.is_cuda:
         return message_aggregate_plain(params, alg, h, hj, attr, dst, mask,
                                        False, exact)
@@ -443,8 +463,6 @@ def mp_forward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst,
     plan = _plan_of(kern, plan, dst, mask, n, cm, ca, c, exact)
     if kern in _WIDE:
         return _wide_forward(kern, params, alg, h, hj, attr, plan, exact, c)
-    if not exact:
-        _check_tile_smem(kern, cm, ca, c, backward=False)
     bc, tabs = _tables(kern, alg, h.device)
     h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
     out = torch.empty((n, c, nb), dtype=torch.float32, device=h.device)
@@ -503,9 +521,10 @@ def _block_grads(v: torch.Tensor, cin: int, c: int, na: torch.Tensor,
 def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
                 dagg: torch.Tensor, exact: bool = True,
                 plan: Optional[_Plan] = None):
-    """K5 (K5p at Cl(4) and Cl(5)): (dh, dhj, dattr or None, the 20
-    parameter gradients) of the sum, given its cotangent ``dagg`` (N, C,
-    nb).  dh, dhj and dattr come back in the dtypes of h, hj and attr."""
+    """K5 (K5p at Cl(4) and Cl(5); K5w, K5pw past their widths): (dh,
+    dhj, dattr or None, the 20 parameter gradients) of the sum, given its
+    cotangent ``dagg`` (N, C, nb).  dh, dhj and dattr come back in the
+    dtypes of h, hj and attr."""
     if not h.is_cuda:
         return message_aggregate_grad_plain(params, alg, h, hj, attr, dst,
                                             mask, dagg, exact)
@@ -518,8 +537,6 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
     if kern in _WIDE:
         return _wide_backward(kern, params, alg, h, hj, attr, plan, dagg,
                               exact, c)
-    if not exact:
-        _check_tile_smem(kern, cm, ca, c)
     bc, tabs = _tables(kern, alg, h.device)
     h_s, hj_s, attr_s = (_stream(t, exact) for t in (h, hj, attr))
     dagg = dagg.to(torch.float32).contiguous()
@@ -566,9 +583,9 @@ def mp_backward(params: Sequence[torch.Tensor], alg, h, hj, attr, dst, mask,
 
 def wide_scratch_bytes(kern: FusedKernel, e: int, cm: int, ca: int, c: int,
                        backward: bool, sms: int) -> int:
-    """Device scratch of a K4w (K5w) call of e edge rows on sms SMs, their
-    library's bytes: both blocks' parameter images and one slab's rows
-    (the slab's rows: its ``slab_rows`` entry)."""
+    """Device scratch of a K4w or K4pw (K5w, K5pw) call of e edge rows on
+    sms SMs, their library's bytes: both blocks' parameter images and one
+    slab's rows (the slab's rows: its ``slab_rows`` entry)."""
     fn = _lib_fn(kern, "scratch_bytes", [ctypes.c_longlong] + [_I] * 5,
                  ctypes.c_longlong)
     return int(fn(e, cm, ca, c, int(backward), sms))
@@ -576,15 +593,15 @@ def wide_scratch_bytes(kern: FusedKernel, e: int, cm: int, ca: int, c: int,
 
 def _wide_call(kern: FusedKernel, h, backward: bool, e: int, cm: int,
                ca: int, c: int):
-    """(SMs of the card, the call's scratch) of K4w (K5w)."""
+    """(SMs of the card, the call's scratch) of K4w or K4pw (K5w, K5pw)."""
     sms = torch.cuda.get_device_properties(h.device).multi_processor_count
     size = wide_scratch_bytes(kern, e, cm, ca, c, backward, sms)
     return sms, torch.empty(size, dtype=torch.uint8, device=h.device)
 
 
 def _wide_forward(kern, params, alg, h, hj, attr, plan, exact, c):
-    """K4w: the parameter images, then per slab of edge rows the sweep of
-    both blocks and the window sums; (N, C, nb) float32."""
+    """K4w (K4pw): the parameter images, then per slab of edge rows the
+    sweep of both blocks and the window sums; (N, C, nb) float32."""
     n, cm, nb = h.shape
     e, ca = hj.shape[0], 0 if attr is None else attr.shape[1]
     out = torch.empty((n, c, nb), dtype=torch.float32, device=h.device)
@@ -605,9 +622,10 @@ def _wide_forward(kern, params, alg, h, hj, attr, plan, exact, c):
 
 
 def _wide_backward(kern, params, alg, h, hj, attr, plan, dagg, exact, c):
-    """K5w: the parameter images, then per slab of edge rows the gather,
-    block 1's forward, both blocks' backward and the d(h) sums; (dh, dhj,
-    dattr or None, the 20 parameter gradients) as ``mp_backward``."""
+    """K5w (K5pw): the parameter images, then per slab of edge rows the
+    gather, block 1's forward, both blocks' backward and the d(h) sums;
+    (dh, dhj, dattr or None, the 20 parameter gradients) as
+    ``mp_backward``."""
     n, cm, nb = h.shape
     e, ca = hj.shape[0], 0 if attr is None else attr.shape[1]
     dev = h.device
@@ -635,8 +653,8 @@ def _wide_backward(kern, params, alg, h, hj, attr, plan, dagg, exact, c):
                  torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, f"{kern.label} backward kernels")
         kern.bwd.add()
-    # two of K3w's flax-layout vectors, block 1's then block 2's; each
-    # returns d/d sigmoid(normalization.a): chain to a
+    # two of K3w's (K3pw's) flax-layout vectors, block 1's then block 2's;
+    # each returns d/d sigmoid(normalization.a): chain to a
     n1 = sum(p.numel() for p in params[:10])
     grads = (_split_grads(flat[:n1], params[:10])
              + _split_grads(flat[n1:], params[10:]))
@@ -648,8 +666,8 @@ def _wide_backward(kern, params, alg, h, hj, attr, plan, dagg, exact, c):
 
 
 class _FusedMP(torch.autograd.Function):
-    """The edge side's sum, whose forward is K4 (K4w, K4p) and backward
-    K5 (K5w, K5p)."""
+    """The edge side's sum, whose forward is K4 (K4w, K4p, K4pw) and
+    backward K5 (K5w, K5p, K5pw)."""
 
     @staticmethod
     def forward(ctx, h, hj, attr, dst, mask, plan, alg, exact, *params):
@@ -671,14 +689,15 @@ class _FusedMP(torch.autograd.Function):
 def fused_mp_supported(algebra, edge_model, x: torch.Tensor) -> bool:
     """The fused kernels serve the flat EGCL path on the card in fast mode,
     for the 2-block edge CEMLP with hidden == out width: K4/K5 at Cl(2) and
-    Cl(3) (K4w/K5w past their widths, ``fused_route``), K4p/K5p at Cl(4)
-    and Cl(5).  Exact mode and the CPU keep the composed path, and so does
-    an edge CEMLP with ``fused=False`` or without normalization layers
-    (``normalization_init=None``: a block the kernels do not compute).  On
-    the card in fast mode an algebra or a width the kernels are not
-    compiled for raises, as K2/K3 do: here a channel count past the
-    kernels' (K4w/K5w's from their library's range entry), at the call's
-    plan a message + attribute width past it; it never falls back."""
+    Cl(3), K4p/K5p at Cl(4) and Cl(5), and past their widths K4w/K5w and
+    K4pw/K5pw (``fused_route``).  Exact mode and the CPU keep the composed
+    path, and so does an edge CEMLP with ``fused=False`` or without
+    normalization layers (``normalization_init=None``: a block the kernels
+    do not compute).  On the card in fast mode an algebra or a width the
+    kernels are not compiled for raises, as K2/K3 do: here a channel count
+    past the wide kernels' (from their library's range entry), at the
+    call's plan a message + attribute width past it; it never falls
+    back."""
     from .segment import aggregation_exact
 
     if not x.is_cuda or aggregation_exact():
@@ -692,17 +711,13 @@ def fused_mp_supported(algebra, edge_model, x: torch.Tensor) -> bool:
     c = edge_model.hidden_features
     if c <= kern.max_channels:
         return True
-    wide = WIDE_OF.get(kern.n_blades)
-    if wide is None:
-        raise NotImplementedError(
-            f"{kern.label} take at most {kern.max_channels} channels, got "
-            f"{c}; past them the pair form is still to port (ROADMAP Queue "
-            f"2, \"Still to port\", item 1)")
+    wide = WIDE_OF[kern.n_blades]
     max_c, max_cin = _wide_range(wide)
     if c > max_c:
         raise NotImplementedError(
             f"{kern.label} and {wide.label} take at most {max_c} channels "
-            f"(and {max_cin} message + attribute channels), got {c}")
+            f"(and {max_cin} message + attribute channels), got {c}; wider "
+            f"is still to port (ROADMAP Queue 2, \"Still to port\", item 1)")
     return True
 
 
@@ -760,8 +775,9 @@ def fused_message_aggregate_backward(edge_model, h: torch.Tensor,
                                      counts: Optional[torch.Tensor] = None):
     """The backward of ``fused_message_aggregate`` from the cotangent
     ``dagg`` (N, C, nb) of its result, without its forward: the mean's
-    division, then K5 (K5p).  Returns (d(h), d(hj), d(edge_attr) or None,
-    the gradients of ``edge_model.parameters()`` in their order)."""
+    division, then K5 (K5w, K5p, K5pw).  Returns (d(h), d(hj),
+    d(edge_attr) or None, the gradients of ``edge_model.parameters()`` in
+    their order)."""
     from .segment import aggregation_exact
 
     if mean:

@@ -29,6 +29,8 @@ device µs per launch, fast mode, and the card:
     Cl(4) 28 -> 28;
   * K4w and K5w (the dense fused kernels past K4/K5's widths) at the
     bench shape at Cl(3,0), 64 -> 64 and 128 -> 128;
+  * K4pw and K5pw (the pair-form fused kernels past K4p/K5p's widths) at
+    the bench shape at Cl(5,0) and Cl(4,0), 64 -> 64;
   * K1 at the bench's node aggregation (E = 131,072 sorted ids over
     N = 8,192, D = 256 bf16, fast mode) and at each task's aggregation
     width and batch size (motion D = 224, E = 23,200, N = 5,600; NBA 160,
@@ -39,10 +41,10 @@ device µs per launch, fast mode, and the card:
     (512 x 256 x 2048, 32 reps).
 
 A kernel the checkout at ROOT does not have (K2p/K3p and K4p/K5p at Cl(4)
-before they were ported, K2pw/K3pw and K4w/K5w before theirs: those
-widths raise NotImplementedError) is null in its line.  Run it for two trees in
-turns in one call (parent, change, change, parent): two calls may land on
-two cards.  It needs a CUDA card.
+before they were ported, K2pw/K3pw, K4w/K5w and K4pw/K5pw before theirs:
+those widths raise NotImplementedError) is null in its line.  Run it for
+two trees in turns in one call (parent, change, change, parent): two calls
+may land on two cards.  It needs a CUDA card.
 """
 import json
 import os
@@ -169,11 +171,15 @@ def main(root: str) -> dict:
             ps, alg, h_s, hj, None, dst, None, dagg, False, plan), itb)
         del h, h_s, hj, dagg
         torch.cuda.empty_cache()
-    # K4w/K5w: (forward key, hidden, forward, backward iterations)
-    alg = get_algebra((1.0,) * 3)
-    for key, c, itf, itb in (("k4w_h64", 64, 10, 4), ("k4w_h128", 128, 5, 2)):
+    # K4w/K5w and K4pw/K5pw: (forward key, dim, hidden, forward, backward
+    # iterations)
+    for key, dim, c, itf, itb in (("k4w_h64", 3, 64, 10, 4),
+                                  ("k4w_h128", 3, 128, 5, 2),
+                                  ("k4pw_h64", 5, 64, 3, 2),
+                                  ("k4pw_cl4_h64", 4, 64, 5, 3)):
         kb = key.replace("k4", "k5", 1)
-        h, ei, _ = workload(dev, hidden=c, dim=3)
+        alg = get_algebra((1.0,) * dim)
+        h, ei, _ = workload(dev, hidden=c, dim=dim)
         src, dst = ei[0], ei[1]
         n, nb = h.shape[0], h.shape[2]
         h_s = h.to(torch.bfloat16)

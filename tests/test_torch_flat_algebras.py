@@ -292,12 +292,14 @@ def test_bench_width_table_and_line():
 
 def test_fused_gate_takes_the_kernels_algebras_and_widths(monkeypatch):
     """On a stand-in card tensor in fast mode: True for K4/K5 at Cl(2)
-    (C = 40, the NBA width) and Cl(3), for K4w/K5w past their widths up to
-    the wide library's range (stood in: 128 channels), and for K4p/K5p at
-    Cl(5) and Cl(4) (C = 28, the hulls width); Cl(1) raises, naming the
-    ROADMAP item, as does a width above each form's limit; the kernel
-    table holds each algebra's own launch counters."""
-    monkeypatch.setattr(fe, "_wide_range", lambda kern: (128, 320))
+    (C = 40, the NBA width) and Cl(3), for K4p/K5p at Cl(5) and Cl(4)
+    (C = 28, the hulls width), and past them for K4w/K5w and K4pw/K5pw up
+    to the wide libraries' ranges (stood in: 128 channels dense, 64 pair);
+    Cl(1) raises, naming the ROADMAP item, as does a width above each
+    form's wide range; the kernel table holds each algebra's own launch
+    counters."""
+    monkeypatch.setattr(fe, "_wide_range", lambda kern: (
+        (128, 320) if kern.form == "dense" else (64, 160)))
     on_card = types.SimpleNamespace(is_cuda=True)
     seg.set_aggregation_mode("fast")
     algs = {d: get_algebra(m) for d, m in CL.items()}
@@ -308,10 +310,11 @@ def test_fused_gate_takes_the_kernels_algebras_and_widths(monkeypatch):
                                      on_card)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fe.fused_mp_supported(algs[1], CEMLP(algs[1], 4, 4, 4), on_card)
-    for dim, c in ((2, 65), (3, 33), (2, 128), (3, 128)):
+    for dim, c in ((2, 65), (3, 33), (2, 128), (3, 128), (4, 29), (5, 29),
+                   (4, 64), (5, 64)):
         assert fe.fused_mp_supported(algs[dim], CEMLP(algs[dim], 4, c, c),
                                      on_card)
-    for dim, c in ((2, 129), (3, 129), (4, 29), (5, 29)):
+    for dim, c in ((2, 129), (3, 129), (4, 65), (5, 65)):
         with pytest.raises(NotImplementedError, match="at most"):
             fe.fused_mp_supported(algs[dim], CEMLP(algs[dim], 4, c, c),
                                   on_card)

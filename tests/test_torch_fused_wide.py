@@ -265,9 +265,14 @@ def test_route_takes_k4w_up_to_its_range_and_raises_past_it(monkeypatch,
 
 
 def test_pair_form_keeps_its_kernels(monkeypatch):
-    _stand_in(monkeypatch)
+    """The pair form keeps K4p/K5p where their entries take the widths and,
+    past them, takes K4pw/K5pw of its own algebra, as the dense form takes
+    K4w/K5w."""
+    _stand_in(monkeypatch, narrow_c=28)
     for kern in (fe.PAIR, fe.PAIR_CL4):
-        assert fe.fused_route(kern, 64, 0, 64, False) is kern
+        assert fe.fused_route(kern, 28, 0, 28, False) is kern
+        assert fe.fused_route(kern, 64, 0, 64, False) is fe.WIDE_OF[
+            kern.n_blades]
 
 
 class _Props:

@@ -6,7 +6,9 @@ against the reference.
   * which entry points a call on the card asks (a stand-in library and
     tensors that say they lie on the card): in fast mode the tile sweeps'
     shared-memory entries and the fwd/bwd entries with the bf16 scratch
-    x2s (E, nb, C); in exact mode the row kernels, without x2s;
+    x2s (E, nb, C); in exact mode the row kernels, without x2s; where a
+    tile sweep refuses the widths, K4pw/K5pw's entries, and where they
+    refuse too, a NotImplementedError naming both reasons;
   * the partial vector's block slices (K5's layout, as the tile sweeps
     write them) split into the flax shapes, every entry in place;
   * chip_smoke.py's width comparison of the two modes of K4p/K5p raises
@@ -90,19 +92,31 @@ def _inputs(kern, cm=3, ca=2, c=4, n=70, e=40, seed=7):
     return on[4:], on[:4], dagg
 
 
-def _stand_in(monkeypatch, kern, sizes):
-    """The wrapper's entry points, recording their calls; sizes: name ->
-    the value the entry returns."""
+def _stand_in(monkeypatch, kern, sizes, wide_bytes=90_000):
+    """The wrappers' entry points, recording their calls; sizes: name ->
+    the value K4p/K5p's entry returns.  K4pw/K5pw's entries (their calls
+    under "wide_" names) take C <= 64 and Cm + Ca <= 160 at ``wide_bytes``
+    of shared memory (0: they refuse every width) and say so through their
+    range entry."""
     calls = {name: [] for name in sizes}
 
-    def fn(name):
+    def fn(name, value):
         def entry(*args):
-            calls[name].append(args)
-            return sizes[name]
+            calls.setdefault(name, []).append(args)
+            return value(*args) if callable(value) else value
         return entry
 
-    fns = {name: fn(name) for name in sizes}
-    monkeypatch.setattr(fe, "_lib_fn", lambda k, name, *a: fns[name])
+    def wide_range(out):
+        out[0], out[1] = 64, 160
+
+    fns = {name: fn(name, v) for name, v in sizes.items()}
+    wide = {name: fn(f"wide_{name}", v) for name, v in {
+        "smem_bytes": lambda cm, ca, c, b: wide_bytes
+        if c <= 64 and cm + ca <= 160 else 0,
+        "scratch_bytes": 4096, "fwd": 0, "bwd": 0}.items()}
+    wide["range"] = wide_range
+    monkeypatch.setattr(fe, "_lib_fn", lambda k, name, *a: (
+        wide if k in fe._WIDE else fns)[name])
     monkeypatch.setattr(fe, "_tables", lambda k, a, d: (np.zeros(
         kern.n_blades, np.float32), 0))
     monkeypatch.setattr(torch.cuda, "get_device_properties",
@@ -110,6 +124,7 @@ def _stand_in(monkeypatch, kern, sizes):
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: _Stream())
     fe._check_smem.cache_clear()
     fe._check_tile_smem.cache_clear()
+    fe._wide_range.cache_clear()
     return calls
 
 
@@ -117,16 +132,19 @@ def _stand_in(monkeypatch, kern, sizes):
 @pytest.mark.parametrize("exact,tile_bytes", [(True, 2000), (False, 2000),
                                               (False, 0)])
 def test_card_pair_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
-    """On the card the fast K4p asks the tile sweeps' forward entry, then
-    launches with the scratch x2s, (E, nb, C) bf16, as its eleventh
-    pointer; it raises without a launch where the sweeps do not take the
-    widths.  The exact K4p asks only the row kernels' entry and passes no
-    scratch."""
+    """On the card the fast K4p asks the tile sweeps' entries of both
+    directions, then launches with the scratch x2s, (E, nb, C) bf16, as its
+    eleventh pointer.  Where the sweeps do not take the widths the call
+    routes to K4pw of the same algebra (one launch of its entry, counted on
+    its own counter); with K4pw's entry refusing too it raises without a
+    launch, naming both reasons.  The exact K4p asks only the row kernels'
+    entry and passes no scratch."""
     params, (h, hj, attr, dst), _ = _inputs(kern)
     nb, n, e = kern.n_blades, h.shape[0], hj.shape[0]
     cm, ca, c = h.shape[1], attr.shape[1], params[0].shape[0]
-    calls = _stand_in(monkeypatch, kern, {
-        "smem_bytes": 1000, "fwd_tile_smem_bytes": tile_bytes, "fwd": 0})
+    sizes = {"smem_bytes": 1000, "fwd_tile_smem_bytes": tile_bytes,
+             "tile_smem_bytes": 2000, "fwd": 0}
+    calls = _stand_in(monkeypatch, kern, sizes)
     empty = torch.empty
     scratch = []
 
@@ -138,25 +156,25 @@ def test_card_pair_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
 
     monkeypatch.setattr(torch, "empty", spy_empty)
     alg = get_algebra((1.0,) * (5 if nb == 32 else 4))
-    before = (kern.fwd.count, kern.bwd.count)
+    wide = fe.WIDE_OF[nb]
+    before = (kern.fwd.count, kern.bwd.count, wide.fwd.count)
     try:
-        if tile_bytes == 0:
-            with pytest.raises(NotImplementedError,
-                               match="fast-mode forward"):
-                fe.mp_forward(params, alg, h, hj, attr, dst, None, exact)
-        else:
-            out = fe.mp_forward(params, alg, h, hj, attr, dst, None, exact)
-            assert tuple(out.shape) == (n, c, nb)
+        out = fe.mp_forward(params, alg, h, hj, attr, dst, None, exact)
+        assert tuple(out.shape) == (n, c, nb)
     finally:
         fe._check_smem.cache_clear()
         fe._check_tile_smem.cache_clear()
-    launched = tile_bytes != 0
-    assert (kern.fwd.count, kern.bwd.count) == (before[0] + launched,
-                                                before[1])
-    assert calls["fwd_tile_smem_bytes"] == ([] if exact
-                                            else [(cm, ca, c, kern.wn)])
-    assert len(calls["fwd"]) == int(launched)
-    if launched:
+    narrow = tile_bytes != 0
+    assert (kern.fwd.count, kern.bwd.count, wide.fwd.count) == (
+        before[0] + narrow, before[1], before[2] + (not narrow))
+    # each asked once at the call's widths (a refusal is not cached, so the
+    # plan asks it again)
+    want = [] if exact else [(cm, ca, c, kern.wn)]
+    assert calls["fwd_tile_smem_bytes"] == want * (1 if narrow else 2)
+    assert calls["tile_smem_bytes"] == (want if narrow else [])
+    assert len(calls["fwd"]) == int(narrow)
+    assert len(calls.get("wide_fwd", [])) == int(not narrow)
+    if narrow:
         args = calls["fwd"][0]
         assert len(args) == 11 + 8 + 1
         if exact:
@@ -167,25 +185,41 @@ def test_card_pair_mp_forward_launch(monkeypatch, kern, exact, tile_bytes):
         n_win = -(-n // kern.wn)   # ... wn, n_win, fast, grid, stream
         assert args[-9:-1] == (n, cm, ca, c, kern.wn, n_win, int(not exact),
                                min(n_win, 132))
+        return
+    # ... n_nodes, n_edges, cm, ca, c, fast, sms, stream
+    assert calls["wide_fwd"][0][-8:] == (n, e, cm, ca, c, 1, 132, 77)
+    assert scratch == []
+    _stand_in(monkeypatch, kern, sizes, wide_bytes=0)
+    try:
+        with pytest.raises(NotImplementedError,
+                           match="fast-mode forward.*take at most 64 "
+                                 "channels and 160"):
+            fe.mp_forward(params, alg, h, hj, attr, dst, None, exact)
+    finally:
+        fe._check_smem.cache_clear()
+        fe._check_tile_smem.cache_clear()
+    assert (kern.fwd.count, wide.fwd.count) == (before[0], before[2] + 1)
 
 
 @pytest.mark.parametrize("kern", PAIRS, ids=lambda k: k.label)
 @pytest.mark.parametrize("exact,tile_bytes", [(True, 2000), (False, 2000),
                                               (False, 0)])
 def test_card_pair_mp_backward_launch(monkeypatch, kern, exact, tile_bytes):
-    """On the card the fast K5p asks the tile sweeps' backward entry and
-    launches with 17 pointers, the scratch x2s (E, nb, C) bf16 the
-    fifteenth, beside dx2 (E, max(C, Cm + Ca), nb) fp32 (block 1's dx rows
-    go over block 2's) and the partials (grid, slice); it raises without
-    a launch where the sweeps do not take the widths.  The exact K5p takes
+    """On the card the fast K5p asks the tile sweeps' entries of both
+    directions and launches with 17 pointers, the scratch x2s (E, nb, C)
+    bf16 the fifteenth, beside dx2 (E, max(C, Cm + Ca), nb) fp32 (block 1's
+    dx rows go over block 2's) and the partials (grid, slice).  Where the
+    backward sweeps do not take the widths the call routes to K5pw of the
+    same algebra (one launch, counted on its own counter), with K5pw's
+    entry refusing too it raises without a launch.  The exact K5p takes
     the row kernels with dx2 (E, C, nb) and a null x2s.  The summed vector
     splits into the 20 gradients in flax shapes."""
     params, (h, hj, attr, dst), dagg = _inputs(kern)
     nb, n, e = kern.n_blades, h.shape[0], hj.shape[0]
     cm, ca, c = h.shape[1], attr.shape[1], params[0].shape[0]
-    calls = _stand_in(monkeypatch, kern, {
-        "smem_bytes": 1000, "tile_smem_bytes": tile_bytes,
-        "partial_floats": 999, "bwd": 0})
+    sizes = {"smem_bytes": 1000, "fwd_tile_smem_bytes": 2000,
+             "tile_smem_bytes": tile_bytes, "partial_floats": 999, "bwd": 0}
+    calls = _stand_in(monkeypatch, kern, sizes)
     empty = torch.empty
     made = []
 
@@ -196,22 +230,41 @@ def test_card_pair_mp_backward_launch(monkeypatch, kern, exact, tile_bytes):
 
     monkeypatch.setattr(torch, "empty", spy_empty)
     alg = get_algebra((1.0,) * (5 if nb == 32 else 4))
-    before = (kern.fwd.count, kern.bwd.count)
+    wide = fe.WIDE_OF[nb]
+    before = (kern.fwd.count, kern.bwd.count, wide.bwd.count)
     try:
-        if tile_bytes == 0:
-            with pytest.raises(NotImplementedError,
-                               match="fast-mode backward"):
-                fe.mp_backward(params, alg, h, hj, attr, dst, None, dagg,
-                               exact)
-            return
         dh, dhj, dattr, grads = fe.mp_backward(params, alg, h, hj, attr, dst,
                                                None, dagg, exact)
     finally:
         fe._check_smem.cache_clear()
         fe._check_tile_smem.cache_clear()
-        assert calls["tile_smem_bytes"] == ([] if exact
-                                            else [(cm, ca, c, kern.wn)])
-    assert (kern.fwd.count, kern.bwd.count) == (before[0], before[1] + 1)
+        want = [] if exact else [(cm, ca, c, kern.wn)]
+        assert calls["tile_smem_bytes"] == want * (2 if tile_bytes == 0
+                                                   else 1)
+    narrow = tile_bytes != 0
+    assert (kern.fwd.count, kern.bwd.count, wide.bwd.count) == (
+        before[0], before[1] + narrow, before[2] + (not narrow))
+    assert tuple(dh.shape) == (n, cm, nb) and tuple(dhj.shape) == (e, cm, nb)
+    assert tuple(dattr.shape) == (e, ca, nb)
+    for g, p in zip(grads, params):
+        assert g.shape == p.shape
+    if not narrow:
+        assert "bwd" not in calls or calls["bwd"] == []
+        # ... n_nodes, n_edges, cm, ca, c, fast, sms, stream
+        assert calls["wide_bwd"][0][-8:] == (n, e, cm, ca, c, 1, 132, 77)
+        assert len(calls["wide_bwd"][0]) == 15 + 8
+        _stand_in(monkeypatch, kern, sizes, wide_bytes=0)
+        try:
+            with pytest.raises(NotImplementedError,
+                               match="fast-mode backward.*take at most 64 "
+                                     "channels and 160"):
+                fe.mp_backward(params, alg, h, hj, attr, dst, None, dagg,
+                               exact)
+        finally:
+            fe._check_smem.cache_clear()
+            fe._check_tile_smem.cache_clear()
+        assert wide.bwd.count == before[2] + 1
+        return
     args = calls["bwd"][0]
     assert len(args) == 17 + 8 + 1
     by_ptr = {ptr: (shape, dt) for shape, dt, ptr in made}
@@ -226,10 +279,6 @@ def test_card_pair_mp_backward_launch(monkeypatch, kern, exact, tile_bytes):
     assert by_ptr[args[15]] == ((min(n_win, 132), 999), torch.float32)
     assert args[-9:-1] == (n, cm, ca, c, kern.wn, n_win, int(not exact),
                            min(n_win, 132))
-    assert tuple(dh.shape) == (n, cm, nb) and tuple(dhj.shape) == (e, cm, nb)
-    assert tuple(dattr.shape) == (e, ca, nb)
-    for g, p in zip(grads, params):
-        assert g.shape == p.shape
 
 
 @pytest.mark.parametrize("kern", PAIRS, ids=lambda k: k.label)
